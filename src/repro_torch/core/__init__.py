@@ -1,0 +1,18 @@
+"""The port's core: geometry, predicates, Morton codes, the LBVH build,
+the query engine and the Index implementations (BVH, BruteForce)."""
+from . import access, engine, geometry, morton, predicates, route_table, traversal
+from .brute_force import BruteForce
+from .bvh import BVH
+from .engine import EngineConfig, QueryEngine, default_engine
+from .index import ExecutionPolicy, Index, QueryResult
+from .lbvh import LBVH, build, refit, sah_cost
+from .predicates import intersects, nearest
+from .route_table import RouteRule, RouteTable
+
+__all__ = [
+    "Index", "ExecutionPolicy", "QueryResult", "BVH", "BruteForce", "LBVH",
+    "build", "refit", "sah_cost", "QueryEngine", "EngineConfig",
+    "default_engine", "RouteRule", "RouteTable", "intersects", "nearest",
+    "access", "engine", "geometry", "morton", "predicates", "route_table",
+    "traversal",
+]

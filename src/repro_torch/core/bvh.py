@@ -1,0 +1,158 @@
+"""ArborX API v2 ``BVH``, an :class:`~repro_torch.core.index.Index`.
+
+``BVH(values, indexable_getter=..., policy=...)`` places the values on
+the policy's device (the CUDA card by default), builds the LBVH there and
+answers ``query()``. This class implements the backend SPI: count, fill
+and kNN routed by the QueryEngine to brute force or the traversal
+kernels, plus the N < 2 linear-scan paths.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import engine as E
+from . import geometry as G
+from . import lbvh
+from . import predicates as P
+from .access import default_indexable_getter
+from .index import ExecutionPolicy, Index, resolve_device
+
+__all__ = ["BVH"]
+
+
+def _loop_route(what: str):
+    return NotImplementedError(
+        f"{what}: this batch needs the general while-loop traversal (values "
+        "other than Points/Boxes, a custom indexable getter, more than "
+        "16 dimensions, or k above the kNN kernel's cap, above the "
+        "brute-force threshold), which is not ported yet; it comes with the "
+        "loop-traversal slice")
+
+
+class BVH(Index):
+    def __init__(self, values, indexable_getter=default_indexable_getter, *,
+                 policy: ExecutionPolicy | None = None, engine=None,
+                 bits: int = 64):
+        self._init_common(values, indexable_getter, policy, engine)
+        if self._n >= 2:
+            self.tree = lbvh.build(self._boxes, bits=bits)
+        else:
+            self.tree = None  # degenerate; queries take the linear scan
+
+    @classmethod
+    def from_tree(cls, values, tree, indexable_getter=default_indexable_getter,
+                  *, policy: ExecutionPolicy | None = None, engine=None):
+        """Wrap an existing LBVH over (possibly moved) values without
+        rebuilding. The caller guarantees `tree` bounds the values."""
+        obj = cls.__new__(cls)
+        obj._init_common(values, indexable_getter, policy, engine)
+        obj.tree = tree.to(obj.device) if tree is not None else None
+        return obj
+
+    def _init_common(self, values, indexable_getter, policy, engine):
+        self.policy = policy or ExecutionPolicy()
+        if engine is not None:
+            self.policy = self.policy.override(engine=engine)
+        self.device = resolve_device(self.policy.device)
+        self.values = values.to(self.device)
+        self._getter = indexable_getter
+        self._boxes = indexable_getter(self.values)
+        self._n = len(self._boxes)
+        # the kernels' leaf test is the box test: exact only for values
+        # whose fine test is their bounding-box test
+        self.kernel_values_ok = (
+            indexable_getter is default_indexable_getter
+            and isinstance(self.values, (G.Points, G.Boxes)))
+        self._bf = None
+
+    def _brute(self):
+        """Brute-force sibling index over the same values."""
+        if self._bf is None:
+            from .brute_force import BruteForce
+            self._bf = BruteForce(self.values, self._getter, policy=self.policy)
+        return self._bf
+
+    # --- container interface -----------------------------------------------
+    def size(self) -> int:
+        return self._n
+
+    def bounds(self) -> G.Boxes:
+        if self.tree is None:
+            if self._n:
+                return G.merge_boxes(self._boxes)
+            return G.Boxes(torch.zeros((1, 0), device=self.device),
+                           torch.zeros((1, 0), device=self.device))
+        return G.Boxes(self.tree.node_lo[:1], self.tree.node_hi[:1])
+
+    # --- backend SPI ------------------------------------------------------
+    def _count_impl(self, predicates, pol):
+        if self.tree is None:
+            return _degenerate_fill(self.values, self._n, predicates, 1,
+                                    self.device)[0]
+        engine = pol.resolve_engine()
+        route = engine.route_spatial(self, predicates, policy=pol)
+        if route == E.ROUTE_BRUTEFORCE:
+            return self._brute()._count_impl(predicates, pol)
+        if route == E.ROUTE_KERNEL:
+            return engine.kernel_count(self, predicates)
+        raise _loop_route("count")
+
+    def _fill_impl(self, predicates, capacity, pol):
+        """(counts, idx_buf (Q, capacity)): full counts and the first
+        `capacity` matched indices per query (the match SET per query is
+        route-independent, the buffer order is not)."""
+        if self.tree is None:
+            return _degenerate_fill(self.values, self._n, predicates, capacity,
+                                    self.device)
+        engine = pol.resolve_engine()
+        route = engine.route_spatial(self, predicates, policy=pol)
+        if route == E.ROUTE_BRUTEFORCE:
+            return self._brute()._fill_impl(predicates, capacity, pol)
+        if route == E.ROUTE_KERNEL:
+            return engine.kernel_fill(self, predicates, capacity)
+        raise _loop_route("fill")
+
+    def _csr_exact(self, predicates, pol):
+        """Brute-force route, no capacity: one-pass CSR."""
+        if (self.tree is not None
+                and pol.resolve_engine().route_spatial(self, predicates, policy=pol)
+                == E.ROUTE_BRUTEFORCE):
+            return self._brute()._csr_exact(predicates, pol)
+        return None
+
+    def _knn_impl(self, predicates, pol):
+        if self.tree is None:
+            return _degenerate_knn(self.values, self._n, predicates, self.device)
+        engine = pol.resolve_engine()
+        route = engine.route_knn(self, predicates, policy=pol)
+        if route == E.ROUTE_BRUTEFORCE:
+            return self._brute()._knn_impl(predicates, pol)
+        if route == E.ROUTE_KERNEL:
+            return engine.kernel_knn(self, predicates)
+        raise _loop_route("kNN")
+
+
+# --- degenerate N in {0, 1}: linear scan ---------------------------------
+
+def _degenerate_fill(values, n, predicates, capacity, dev):
+    """Counts and (Q, capacity) buffer against at most one value."""
+    q = len(predicates)
+    counts = torch.zeros((q,), dtype=torch.int32, device=dev)
+    buf = torch.full((q, capacity), -1, dtype=torch.int32, device=dev)
+    if n == 0 or q == 0:
+        return counts, buf
+    fine = P.leaf_match_test(P.lift(predicates), values)[:, 0]
+    buf[:, 0] = torch.where(fine, 0, -1).to(torch.int32)
+    return fine.to(torch.int32), buf
+
+
+def _degenerate_knn(values, n, predicates, dev):
+    q, k = len(predicates), predicates.k
+    dists = torch.full((q, k), float("inf"), device=dev)
+    idxs = torch.full((q, k), -1, dtype=torch.int32, device=dev)
+    if n == 0 or q == 0:
+        return dists, idxs
+    d = P.leaf_distance(P.lift(predicates), values)[:, 0]
+    dists[:, 0] = d
+    idxs[:, 0] = torch.where(torch.isfinite(d), 0, -1).to(torch.int32)
+    return dists, idxs

@@ -1,0 +1,158 @@
+"""QueryEngine: per-batch choice between brute force and the traversal
+kernels, as ``repro.core.engine`` chooses between bruteforce, pallas and
+loop.
+
+  * ``bruteforce``: the all-pairs match matrix (``BruteForce``); exact,
+    and the cheaper route while N * Q is small.
+  * ``kernel``: the hand-written traversal kernels
+    (``kernels.bvh_traverse``; their plain twins on the CPU). This is the
+    reference's ``pallas`` route.
+  * ``loop``: the general while-loop walk for what the kernels cannot
+    express (other value geometries, custom indexable getters). It is not
+    ported yet; the BVH raises NotImplementedError when a batch lands
+    there.
+
+Routing is decided in Python from N, Q, the predicate kind and the value
+geometry. The executable cache, EngineStats and telemetry spans come with
+the serving slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..kernels.bvh_traverse import (KNN_MAX_K, MAX_DIM, bvh_traverse_knn,
+                                    bvh_traverse_spatial)
+from . import geometry as G
+from . import predicates as P
+from . import route_table as RT
+
+__all__ = ["EngineConfig", "QueryEngine", "default_engine",
+           "ROUTE_BRUTEFORCE", "ROUTE_KERNEL", "ROUTE_LOOP"]
+
+ROUTE_BRUTEFORCE = "bruteforce"
+ROUTE_KERNEL = "kernel"
+ROUTE_LOOP = "loop"
+
+_FALLBACK_TABLE = RT.RouteTable.default()
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """route_table: rules for every routing decision through this engine
+        (an ExecutionPolicy table overrides it per call or index); None
+        means the built-in defaults.
+    force: "bruteforce" | "kernel" pins every batch the route can express
+        to it; other batches take the normal choice.
+    """
+    route_table: RT.RouteTable | None = None
+    force: str | None = None
+
+    def __post_init__(self):
+        routes = (ROUTE_BRUTEFORCE, ROUTE_KERNEL)
+        if self.force is not None and self.force not in routes:
+            raise ValueError(f"force={self.force!r} is not one of {routes}")
+
+
+def _spatial_rep(predicates):
+    """Unified (q_lo, q_hi, r) form of an Intersects batch, or None when
+    the geometry has no exact box/radius spelling."""
+    if not isinstance(predicates, P.Intersects):
+        return None
+    g = predicates.geom
+    if isinstance(g, G.Points):
+        z = torch.zeros((g.coords.shape[0],), dtype=torch.float32,
+                        device=g.coords.device)
+        return g.coords, g.coords, z
+    if isinstance(g, G.Boxes):
+        z = torch.zeros((g.lo.shape[0],), dtype=torch.float32, device=g.lo.device)
+        return g.lo, g.hi, z
+    if isinstance(g, G.Spheres):
+        return g.center, g.center, g.radius.to(torch.float32)
+    return None
+
+
+class QueryEngine:
+    """Routes batched BVH queries to brute force or the kernels."""
+
+    def __init__(self, config: EngineConfig | None = None):
+        self.config = config or EngineConfig()
+
+    def table(self, policy=None) -> RT.RouteTable:
+        """Explicit policy table > engine-config table > defaults."""
+        t = getattr(policy, "route_table", None)
+        if t is None:
+            t = self.config.route_table
+        return t if t is not None else _FALLBACK_TABLE
+
+    def _rule(self, op: str, bvh, policy) -> RT.RouteRule:
+        if policy is None:
+            policy = getattr(bvh, "policy", None)
+        return self.table(policy).rule(op)
+
+    # -- routing -----------------------------------------------------------
+    def route_spatial(self, bvh, predicates, *, policy=None) -> str:
+        """Route an Intersects batch for count or fill."""
+        rule = self._rule("spatial", bvh, policy)
+        q = len(predicates)
+        bf_ok = isinstance(predicates, P.Intersects)
+        k_ok = (bvh.tree is not None and q > 0 and bvh.kernel_values_ok
+                and bvh.tree.dim <= MAX_DIM
+                and _spatial_rep(predicates) is not None)
+        return self._pick(bvh.size(), q, bf_ok, k_ok, rule)
+
+    def route_knn(self, bvh, predicates, *, policy=None) -> str:
+        rule = self._rule("knn", bvh, policy)
+        q = len(predicates)
+        bf_ok = isinstance(predicates, P.Nearest)
+        k_ok = (bvh.tree is not None and bf_ok and q > 0
+                and bvh.kernel_values_ok and bvh.tree.dim <= MAX_DIM
+                and predicates.k <= KNN_MAX_K)
+        return self._pick(bvh.size(), q, bf_ok, k_ok, rule)
+
+    def _pick(self, n: int, q: int, bf_ok: bool, kernel_ok: bool,
+              rule: RT.RouteRule) -> str:
+        force = self.config.force
+        if force == ROUTE_BRUTEFORCE and bf_ok:
+            return ROUTE_BRUTEFORCE
+        if force == ROUTE_KERNEL and kernel_ok:
+            return ROUTE_KERNEL
+        if bf_ok and n * q <= rule.bf_max_work:
+            return ROUTE_BRUTEFORCE
+        if kernel_ok:
+            return ROUTE_KERNEL
+        return ROUTE_LOOP
+
+    # -- kernel execution --------------------------------------------------
+    def kernel_count(self, bvh, predicates):
+        """(Q,) int32 match counts through the spatial kernel."""
+        counts, _ = self.kernel_fill(bvh, predicates, 1)
+        return counts
+
+    def kernel_fill(self, bvh, predicates, capacity: int):
+        """(counts, idx_buf): full counts plus the first `capacity` matched
+        indices per query in traversal order."""
+        q_lo, q_hi, r = _spatial_rep(predicates)
+        t = bvh.tree
+        # Points values take the sqrt-form fine test (distance <= r), the
+        # exact twin of predicates.leaf_match_test for them
+        return bvh_traverse_spatial(
+            t.node_lo, t.node_hi, t.rope, t.left_child, t.range_last,
+            t.leaf_perm, q_lo, q_hi, r, capacity=capacity,
+            fine_sqrt=isinstance(bvh.values, G.Points))
+
+    def kernel_knn(self, bvh, predicates):
+        """(dists, idxs) (Q, k) through the kNN kernel, from the query
+        centroids (what ``predicates.leaf_distance`` measures from)."""
+        t = bvh.tree
+        return bvh_traverse_knn(
+            t.node_lo, t.node_hi, t.rope, t.left_child, t.leaf_perm,
+            G.centroid(predicates.geom).to(torch.float32), k=predicates.k)
+
+
+_DEFAULT = QueryEngine()
+
+
+def default_engine() -> QueryEngine:
+    return _DEFAULT

@@ -1,0 +1,222 @@
+"""The unified ``Index`` protocol: every search structure stores values
+with an indexable getter and answers one ``query()``.
+
+    index = BVH(values, policy=ExecutionPolicy(...))
+    result = index.query(predicates)        # dispatch on predicate kind
+
+    =========== ============================================
+    predicate   result (a :class:`QueryResult`)
+    =========== ============================================
+    Intersects  CSR spatial join: values / indices / offsets
+    Nearest     dense kNN: distances / indices (Q, k)
+    =========== ============================================
+
+Backends implement a small SPI; the CSR assembly (two-pass count then
+fill, capacity doubling with ``overflow``) lives here once:
+
+    _count_impl(preds, policy)           -> (Q,) int32 full counts
+    _fill_impl(preds, capacity, policy)  -> (counts, idx_buf (Q, cap))
+    _knn_impl(preds, policy)             -> (dists, idxs) (Q, k)
+    _csr_exact(preds, policy)            -> QueryResult | None (one pass)
+
+Ray predicates and the callback / output flavors come in later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
+
+import torch
+
+from . import predicates as P
+from .traversal import value_at
+
+__all__ = ["ExecutionPolicy", "Index", "QueryResult", "resolve_device"]
+
+
+class QueryResult(NamedTuple):
+    """values:    matched values (CSR flat for spatial, (Q, k) for kNN).
+    indices:   matched original indices, CSR flat or (Q, k) (-1 padded).
+    offsets:   (Q+1,) CSR row offsets for spatial results.
+    distances: fine distances for kNN.
+    overflow:  True when a caller-supplied capacity was exceeded even
+               after the doubling retries (the CSR result is truncated).
+    """
+    values: Any = None
+    indices: Any = None
+    offsets: Any = None
+    distances: Any = None
+    overflow: bool = False
+
+
+def resolve_device(device) -> torch.device:
+    """The device an index lives on: `device` when given, else the CUDA
+    card; without a card this raises rather than run on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass ExecutionPolicy(device='cpu') to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionPolicy:
+    """Execution parameters bound to an index at construction and
+    overridable per call via ``query(..., policy=...)``.
+
+    engine:        QueryEngine choosing the route; None -> the default.
+    device:        where the index (tree and values) lives; None -> the
+                   CUDA card (raises when there is none).
+    capacity:      default CSR width per query; None -> exact two-pass
+                   sizing (count, then fill).
+    max_doublings: capacity-doubling fill retries before ``overflow``.
+    route_table:   a RouteTable overriding the engine's thresholds.
+    """
+    engine: Any = None
+    device: Any = None
+    capacity: int | None = None
+    max_doublings: int = 6
+    route_table: Any = None
+
+    def resolve_engine(self):
+        if self.engine is not None:
+            return self.engine
+        from . import engine as E
+        return E.default_engine()
+
+    def override(self, **kw) -> "ExecutionPolicy":
+        """Copy with the given non-None fields replaced."""
+        kw = {k: v for k, v in kw.items() if v is not None}
+        return dataclasses.replace(self, **kw) if kw else self
+
+
+def _csr_pack(buf, counts):
+    """(Q, cap) buffer + per-query counts (<= cap) -> flat CSR array: the
+    valid prefix of every row, rows in order."""
+    cap = buf.shape[1]
+    valid = torch.arange(cap, device=buf.device)[None, :] < counts[:, None]
+    return buf[valid]
+
+
+class Index:
+    """Base class: the unified container + query interface."""
+
+    policy: ExecutionPolicy
+    device: torch.device
+
+    def size(self) -> int:
+        raise NotImplementedError
+
+    def empty(self) -> bool:
+        return self.size() == 0
+
+    def bounds(self):
+        raise NotImplementedError
+
+    def query(self, predicates, *, callback=None, out=None,
+              capacity: int | None = None,
+              policy: ExecutionPolicy | None = None) -> QueryResult:
+        """One polymorphic query, dispatched on the predicate kind.
+
+        capacity: per-query CSR width shorthand (== policy.capacity).
+        policy:   full per-call ExecutionPolicy override.
+        Predicates are moved to the index's device."""
+        if callback is not None or out is not None:
+            raise NotImplementedError(
+                "query(callback=) and query(out=) come with the callback "
+                "slice of the port")
+        pol = policy if policy is not None else self.policy
+        if capacity is not None:
+            pol = pol.override(capacity=capacity)
+        if isinstance(predicates, P.Nearest):
+            return self._query_knn(predicates.to(self.device), pol)
+        if isinstance(predicates, P.Intersects):
+            return self._query_csr(predicates.to(self.device), pol)
+        raise NotImplementedError(
+            f"query() of {type(predicates).__name__} is not ported: the "
+            "port answers Intersects and Nearest; ray predicates come with "
+            "the ray-tracing slice")
+
+    def count(self, predicates, *, policy: ExecutionPolicy | None = None):
+        """Per-query match counts of an Intersects batch (no fill pass)."""
+        if not isinstance(predicates, P.Intersects):
+            raise TypeError(f"count() takes Intersects predicates, got "
+                            f"{type(predicates).__name__}")
+        pol = policy if policy is not None else self.policy
+        return self._count_impl(predicates.to(self.device), pol)
+
+    # --- dispatch bodies shared by all backends --------------------------
+    def _query_knn(self, predicates, pol) -> QueryResult:
+        d, i = self._knn_impl(predicates, pol)
+        if self.size() == 0:
+            return QueryResult(indices=i, distances=d)
+        q, k = i.shape
+        vals = self._gather_values(torch.clamp_min(i, 0).reshape(-1), pol)
+        vals = _reshape_values(vals, (q, k))
+        return QueryResult(values=vals, indices=i, distances=d)
+
+    def _query_csr(self, predicates, pol) -> QueryResult:
+        nq = len(predicates)
+        overflow = False
+        cap = pol.capacity
+        if cap is None:
+            exact = self._csr_exact(predicates, pol)
+            if exact is not None:
+                return exact
+            counts = self._count_impl(predicates, pol)
+            cap = max(int(counts.max()), 1) if nq else 1
+            counts, buf = self._fill_impl(predicates, cap, pol)
+        else:
+            counts, buf = self._fill_impl(predicates, cap, pol)
+            # counts are FULL counts, so one host sync decides the retry
+            needed = int(counts.max()) if nq else 0
+            if needed > cap:
+                retry = cap
+                for _ in range(pol.max_doublings):
+                    if retry >= needed:
+                        break
+                    retry *= 2
+                if retry > cap:
+                    counts, buf = self._fill_impl(predicates, retry, pol)
+                    cap = retry
+                overflow = needed > cap
+        clamped = torch.clamp_max(counts, cap)
+        offsets = torch.cat([torch.zeros((1,), dtype=torch.int32,
+                                         device=clamped.device),
+                             torch.cumsum(clamped, 0)]).to(torch.int32)
+        flat_idx = _csr_pack(buf, clamped)
+        return QueryResult(values=self._gather_values(flat_idx, pol),
+                           indices=flat_idx, offsets=offsets,
+                           overflow=overflow)
+
+    # --- backend SPI ------------------------------------------------------
+    def _count_impl(self, predicates, pol):
+        raise NotImplementedError
+
+    def _fill_impl(self, predicates, capacity, pol):
+        raise NotImplementedError
+
+    def _knn_impl(self, predicates, pol):
+        raise NotImplementedError
+
+    def _csr_exact(self, predicates, pol):
+        return None
+
+    def _gather_values(self, flat_idx, pol=None):
+        return value_at(self.values, flat_idx.to(torch.int64))
+
+
+def _reshape_values(vals, lead):
+    """Give every tensor of a gathered values container the (Q, k) lead."""
+    if isinstance(vals, torch.Tensor):
+        return vals.reshape(lead + vals.shape[1:])
+    if dataclasses.is_dataclass(vals):
+        return type(vals)(*(_reshape_values(getattr(vals, f.name), lead)
+                            for f in dataclasses.fields(vals)))
+    if isinstance(vals, dict):
+        return {k: _reshape_values(v, lead) for k, v in vals.items()}
+    if isinstance(vals, (tuple, list)):
+        return type(vals)(_reshape_values(v, lead) for v in vals)
+    return vals

@@ -1,0 +1,271 @@
+"""Stackless rope-walk BVH traversal: spatial count + fill, and k-nearest.
+
+Two kernels, each with its plain PyTorch twin beside it:
+
+  * ``bvh_traverse_spatial``: Intersects queries in the unified
+    (q_lo, q_hi, r) form (a point is a box with r = 0, a sphere a point
+    box with r > 0). A node matches when the squared box-to-box distance
+    is <= r*r and its ``range_last`` passes the ``min_pos`` pair filter;
+    with ``fine_sqrt`` (Points values) a leaf also needs sqrt(d2) <= r.
+    Returns full counts and the first `capacity` matched original indices
+    in traversal order, -1 padded.
+  * ``bvh_traverse_knn``: k nearest leaves by squared point-to-box
+    distance, pruned strictly against the running k-th best, with a
+    sorted insert that places ties after equal entries; sqrt at the end.
+
+A CPU tensor takes the twin (``*_ref``), which walks every query's cursor
+step by step until all are -1, the node sequence of the kernels. A CUDA
+tensor launches ``csrc/bvh_traverse.cu`` (one thread per query); any
+other device raises. The twins and the kernels sum the per-dimension
+squares in the same fixed order (``geometry.sum_sq_fused``: the first
+square, then one fused multiply-add per further dimension, as XLA:CPU
+runs the reference kernels) and the kernels allow no other contraction,
+so counts, buffers and distances agree bit for bit.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.geometry import sqrt, sum_sq_fused
+from . import _build
+
+__all__ = ["bvh_traverse_spatial", "bvh_traverse_knn",
+           "bvh_traverse_spatial_ref", "bvh_traverse_knn_ref",
+           "KNN_MAX_K", "MAX_DIM"]
+
+#: largest k the kNN kernel takes (its largest template bucket)
+KNN_MAX_K = 256
+#: largest dimension the kernels take (query coordinates live in registers)
+MAX_DIM = 16
+
+
+# ---------------------------------------------------------------------------
+# plain twins
+# ---------------------------------------------------------------------------
+
+def bvh_traverse_spatial_ref(node_lo, node_hi, rope, left_child, range_last,
+                             leaf_perm, q_lo, q_hi, radius, *,
+                             capacity: int = 1, fine_sqrt: bool = False,
+                             min_pos=None, stats: dict | None = None):
+    """Batched rope walk with the kernel's semantics. `stats`, when given,
+    receives ``visits``: the node visits of all queries together."""
+    q = q_lo.shape[0]
+    n = leaf_perm.shape[0]
+    dev = q_lo.device
+    r = radius.to(torch.float32)
+    r2 = r * r
+    mp = (torch.full((q,), -1, dtype=torch.int32, device=dev)
+          if min_pos is None else min_pos)
+    rope = rope.to(torch.int64)
+    left = left_child.to(torch.int64)
+    perm = leaf_perm.to(torch.int32)
+    node = torch.zeros((q,), dtype=torch.int64, device=dev)
+    cnt = torch.zeros((q,), dtype=torch.int32, device=dev)
+    buf = torch.full((q, capacity), -1, dtype=torch.int32, device=dev)
+    visits = 0
+    while True:
+        act = torch.nonzero(node != -1).squeeze(1)
+        if act.numel() == 0:
+            break
+        visits += act.numel()
+        nd = node[act]
+        lo, hi = node_lo[nd], node_hi[nd]
+        g = torch.clamp_min(torch.maximum(q_lo[act] - hi, lo - q_hi[act]), 0.0)
+        d2 = sum_sq_fused(g)
+        overlap = (d2 <= r2[act]) & (range_last[nd] > mp[act])
+        is_leaf = nd >= n - 1
+        hit = is_leaf & overlap
+        if fine_sqrt:
+            hit = hit & (sqrt(d2) <= r[act])
+        hq = act[hit]
+        c = cnt[hq].to(torch.int64)
+        keep = c < capacity
+        buf[hq[keep], c[keep]] = perm[nd[hit][keep] - (n - 1)]
+        cnt[hq] += 1
+        descend = overlap & ~is_leaf
+        node[act] = torch.where(descend, left[torch.clamp_max(nd, n - 2)],
+                                rope[nd])
+    if stats is not None:
+        stats["visits"] = visits
+    return cnt, buf
+
+
+def bvh_traverse_knn_ref(node_lo, node_hi, rope, left_child, leaf_perm,
+                         queries, *, k: int, stats: dict | None = None):
+    """Batched kNN rope walk with the kernel's semantics; (dists, idxs)
+    (Q, k) ascending, (inf, -1) padded."""
+    q = queries.shape[0]
+    n = leaf_perm.shape[0]
+    dev = queries.device
+    rope = rope.to(torch.int64)
+    left = left_child.to(torch.int64)
+    perm = leaf_perm.to(torch.int32)
+    node = torch.zeros((q,), dtype=torch.int64, device=dev)
+    d2s = torch.full((q, k), float("inf"), dtype=torch.float32, device=dev)
+    idxs = torch.full((q, k), -1, dtype=torch.int32, device=dev)
+    ar = torch.arange(k, device=dev)
+    visits = 0
+    while True:
+        act = torch.nonzero(node != -1).squeeze(1)
+        if act.numel() == 0:
+            break
+        visits += act.numel()
+        nd = node[act]
+        qc = queries[act]
+        g = torch.clamp_min(torch.maximum(node_lo[nd] - qc, qc - node_hi[nd]),
+                            0.0)
+        d2 = sum_sq_fused(g)
+        promising = d2 < d2s[act, k - 1]              # strict prune
+        is_leaf = nd >= n - 1
+        ok = is_leaf & promising
+        rows = act[ok]
+        if rows.numel():
+            dd = d2[ok][:, None]
+            oi = perm[nd[ok] - (n - 1)][:, None]
+            cur_d, cur_i = d2s[rows], idxs[rows]
+            at = (cur_d < dd).sum(1, keepdim=True)    # ties land after
+            shift_d = torch.cat([dd, cur_d[:, :-1]], 1)
+            shift_i = torch.cat([oi, cur_i[:, :-1]], 1)
+            d2s[rows] = torch.where(ar < at, cur_d,
+                                    torch.where(ar == at, dd, shift_d))
+            idxs[rows] = torch.where(ar < at, cur_i,
+                                     torch.where(ar == at, oi, shift_i))
+        descend = promising & ~is_leaf
+        node[act] = torch.where(descend, left[torch.clamp_max(nd, n - 2)],
+                                rope[nd])
+    if stats is not None:
+        stats["visits"] = visits
+    return sqrt(d2s), idxs
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _device_of(t: torch.Tensor, what: str) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: no kernel for device {t.device}")
+    return t.device.type
+
+
+def _args(dev, what, **tensors):
+    """Validate dtype/device and return contiguous tensors (float32 boxes
+    and queries, int32 tree indices)."""
+    out = {}
+    for name, t in tensors.items():
+        want = torch.float32 if name in ("node_lo", "node_hi", "q_lo", "q_hi",
+                                         "radius", "queries") else torch.int32
+        if t.device != dev:
+            raise ValueError(f"{what}: {name} is on {t.device}, not {dev}")
+        if t.dtype != want:
+            raise ValueError(f"{what}: {name} must be {want}, got {t.dtype}")
+        out[name] = t.contiguous()
+    return out
+
+
+def _check_tree(what, n, dim, node_lo, node_hi, rope, left_child, leaf_perm):
+    m = 2 * n - 1
+    if n < 2:
+        raise ValueError(f"{what}: the kernel needs a tree of N >= 2 leaves")
+    if not 1 <= dim <= MAX_DIM:
+        raise ValueError(f"{what}: dim {dim} outside [1, {MAX_DIM}]")
+    if (node_lo.shape != (m, dim) or node_hi.shape != (m, dim)
+            or rope.shape != (m,) or left_child.shape != (n - 1,)):
+        raise ValueError(f"{what}: tree arrays do not describe {n} leaves "
+                         f"in {dim} dimensions")
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+_SPATIAL_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                 + [ctypes.c_void_p] * 3)
+_KNN_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+
+
+def bvh_traverse_spatial(node_lo, node_hi, rope, left_child, range_last,
+                         leaf_perm, q_lo, q_hi, radius, *, capacity: int = 1,
+                         fine_sqrt: bool = False, min_pos=None):
+    """(counts (Q,) int32, idx_buf (Q, capacity) int32) for Q spatial
+    queries over an LBVH's arrays. See the module docstring for the
+    semantics."""
+    what = "bvh_traverse_spatial"
+    if capacity < 1:
+        raise ValueError(f"{what}: capacity must be >= 1, got {capacity}")
+    if _device_of(q_lo, what) == "cpu":
+        return bvh_traverse_spatial_ref(
+            node_lo, node_hi, rope, left_child, range_last, leaf_perm, q_lo,
+            q_hi, radius, capacity=capacity, fine_sqrt=fine_sqrt,
+            min_pos=min_pos)
+    dev = q_lo.device
+    q, dim = q_lo.shape
+    n = leaf_perm.shape[0]
+    min_pos = (torch.full((q,), -1, dtype=torch.int32, device=dev)
+               if min_pos is None else min_pos.to(torch.int32))
+    a = _args(dev, what, node_lo=node_lo, node_hi=node_hi, rope=rope,
+              left_child=left_child, range_last=range_last,
+              leaf_perm=leaf_perm, q_lo=q_lo, q_hi=q_hi, radius=radius,
+              min_pos=min_pos)
+    _check_tree(what, n, dim, a["node_lo"], a["node_hi"], a["rope"],
+                a["left_child"], a["leaf_perm"])
+    if (a["q_hi"].shape != (q, dim) or a["radius"].shape != (q,)
+            or a["min_pos"].shape != (q,) or a["range_last"].shape != (2 * n - 1,)):
+        raise ValueError(f"{what}: query arrays must be (Q, dim) and (Q,)")
+    counts = torch.empty((q,), dtype=torch.int32, device=dev)
+    buf = torch.full((q, capacity), -1, dtype=torch.int32, device=dev)
+    if q == 0:
+        return counts, buf
+    fn = _build.function("bvh_traverse", "bvh_spatial_launch", _SPATIAL_ARGS)
+    with torch.cuda.device(dev):
+        err = fn(*(a[k].data_ptr() for k in (
+                     "node_lo", "node_hi", "rope", "left_child", "range_last",
+                     "leaf_perm", "q_lo", "q_hi", "radius", "min_pos")),
+                 n, q, dim, capacity, int(fine_sqrt),
+                 counts.data_ptr(), buf.data_ptr(), _stream(dev))
+    _build.check("bvh_traverse", err, what)
+    bvh_traverse_spatial.launches += 1
+    return counts, buf
+
+
+bvh_traverse_spatial.launches = 0
+
+
+def bvh_traverse_knn(node_lo, node_hi, rope, left_child, leaf_perm, queries,
+                     *, k: int):
+    """(dists, idxs) (Q, k) float32/int32, ascending, (inf, -1) padded,
+    for Q query points."""
+    what = "bvh_traverse_knn"
+    if k < 1:
+        raise ValueError(f"{what}: k must be >= 1, got {k}")
+    if _device_of(queries, what) == "cpu":
+        return bvh_traverse_knn_ref(node_lo, node_hi, rope, left_child,
+                                    leaf_perm, queries, k=k)
+    if k > KNN_MAX_K:
+        raise ValueError(f"{what}: k={k} above the kernel's cap {KNN_MAX_K}")
+    dev = queries.device
+    q, dim = queries.shape
+    n = leaf_perm.shape[0]
+    a = _args(dev, what, node_lo=node_lo, node_hi=node_hi, rope=rope,
+              left_child=left_child, leaf_perm=leaf_perm, queries=queries)
+    _check_tree(what, n, dim, a["node_lo"], a["node_hi"], a["rope"],
+                a["left_child"], a["leaf_perm"])
+    dists = torch.empty((q, k), dtype=torch.float32, device=dev)
+    idxs = torch.empty((q, k), dtype=torch.int32, device=dev)
+    if q == 0:
+        return dists, idxs
+    fn = _build.function("bvh_traverse", "bvh_knn_launch", _KNN_ARGS)
+    with torch.cuda.device(dev):
+        err = fn(*(a[k_].data_ptr() for k_ in (
+                     "node_lo", "node_hi", "rope", "left_child", "leaf_perm",
+                     "queries")),
+                 n, q, dim, k, dists.data_ptr(), idxs.data_ptr(),
+                 _stream(dev))
+    _build.check("bvh_traverse", err, what)
+    bvh_traverse_knn.launches += 1
+    return dists, idxs
+
+
+bvh_traverse_knn.launches = 0

@@ -37,3 +37,9 @@ def run_subprocess(code: str, devices: int = 8, timeout: int = 600):
 @pytest.fixture
 def subproc():
     return run_subprocess
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the PyTorch port's kernels); "
+        "skips without one")

@@ -1,0 +1,194 @@
+"""The PyTorch port stands alone and never falls back quietly:
+
+  * no file of ``src/repro_torch`` (nor ``chip_smoke.py``) imports JAX or
+    the JAX package, and the port imports and answers a query with JAX
+    blocked;
+  * entry points default to the CUDA card and raise without one;
+  * a kernel wrapper takes its twin only for CPU tensors: other devices
+    raise, and on the card (tests marked ``cuda``) the twin is never
+    called.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch import BVH, BruteForce, ExecutionPolicy
+from repro_torch.core import geometry as TG
+from repro_torch.core import lbvh as TL
+from repro_torch.kernels import bvh_traverse as TT
+from repro_torch.kernels import lbvh_build as TK
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "src", "repro_torch")
+
+
+def _port_files():
+    for root, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    bad = []
+    for path in _port_files():
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            if top in ("jax", "jaxlib", "repro"):
+                bad.append(f"{os.path.relpath(path, REPO)}: {mod}")
+    assert not bad, bad
+
+
+def test_port_runs_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import torch, repro_torch as rt\n"
+        "from repro_torch.core.geometry import Points, Spheres\n"
+        "pts = torch.rand((64, 3), generator=torch.Generator().manual_seed(0))\n"
+        "cfg = rt.EngineConfig(force='kernel')\n"
+        "pol = rt.ExecutionPolicy(device='cpu', engine=rt.QueryEngine(cfg))\n"
+        "idx = rt.BVH(Points(pts), policy=pol)\n"
+        "r = idx.query(rt.intersects(Spheres(pts[:5], torch.full((5,), 0.3))))\n"
+        "k = idx.query(rt.nearest(Points(pts[:5]), k=3))\n"
+        "assert int(r.offsets[-1]) >= 5 and k.indices[:, 0].tolist() == list(range(5))\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules\n"
+        "               if sys.modules[m] is not None)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+# ---------------------------------------------------------------------------
+# no silent CPU or twin fallback
+# ---------------------------------------------------------------------------
+
+def test_default_device_is_the_card_and_raises_without_one(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = TG.Points(torch.rand((10, 3)))
+    for make in (lambda: BVH(pts), lambda: BruteForce(pts),
+                 lambda: BVH(pts, policy=ExecutionPolicy())):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert BVH(pts, policy=ExecutionPolicy(device="cpu")).device.type == "cpu"
+
+
+def _tree_args(n=32):
+    x = torch.rand((n, 3), generator=torch.Generator().manual_seed(1))
+    return TL.build(TG.Boxes(x, x)), x
+
+
+def test_wrappers_refuse_other_devices():
+    """A tensor on neither the CPU nor a CUDA card gets no twin: it raises."""
+    t, x = _tree_args()
+    meta = {f: getattr(t, f).to("meta") for f in TL.FIELDS}
+    q = x[:4].to("meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        TT.bvh_traverse_spatial(meta["node_lo"], meta["node_hi"], meta["rope"],
+                                meta["left_child"], meta["range_last"],
+                                meta["leaf_perm"], q, q,
+                                torch.zeros((4,), device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        TT.bvh_traverse_knn(meta["node_lo"], meta["node_hi"], meta["rope"],
+                            meta["left_child"], meta["leaf_perm"], q, k=2)
+    k = torch.zeros((8,), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        TK.karras_ranges(k, k, k, 8, 3)
+
+
+def test_wrappers_have_no_try_and_count_only_kernel_launches():
+    """Read the dispatch: no try/except in the wrappers (no "build failed,
+    use the twin"), and a CPU call leaves the launch counters alone."""
+    for mod in (TT, TK):
+        tree = ast.parse(open(mod.__file__).read())
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), mod
+    t, x = _tree_args()
+    before = (TK.karras_ranges.launches, TT.bvh_traverse_spatial.launches,
+              TT.bvh_traverse_knn.launches)
+    TL.build(TG.Boxes(x, x))
+    TT.bvh_traverse_knn(t.node_lo, t.node_hi, t.rope, t.left_child,
+                        t.leaf_perm, x[:3], k=2)
+    assert (TK.karras_ranges.launches, TT.bvh_traverse_spatial.launches,
+            TT.bvh_traverse_knn.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# on the card (run there with: python -m pytest -m cuda tests/test_torch_*.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_wrappers_on_the_card_never_call_the_twins(cuda_device, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("a twin ran for a CUDA tensor")
+
+    monkeypatch.setattr(TT, "bvh_traverse_spatial_ref", boom)
+    monkeypatch.setattr(TT, "bvh_traverse_knn_ref", boom)
+    monkeypatch.setattr(TK, "karras_ranges_fused", boom)
+    x = torch.rand((500, 3), device=cuda_device)
+    t = TL.build(TG.Boxes(x, x))
+    r = torch.full((20,), 0.1, device=cuda_device)
+    c, _ = TT.bvh_traverse_spatial(t.node_lo, t.node_hi, t.rope, t.left_child,
+                                   t.range_last, t.leaf_perm, x[:20], x[:20], r,
+                                   capacity=8, fine_sqrt=True)
+    d, i = TT.bvh_traverse_knn(t.node_lo, t.node_hi, t.rope, t.left_child,
+                               t.leaf_perm, x[:20], k=3)
+    torch.cuda.synchronize()
+    assert bool((c >= 1).all()) and i[:, 0].tolist() == list(range(20))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3, 17, 5000])
+def test_kernels_match_twins_on_the_card(cuda_device, n):
+    g = torch.Generator().manual_seed(n)
+    x = torch.rand((n, 3), generator=g)
+    x[::4] = x[0].clone()                            # duplicate codes
+    cpu_tree = TL.build(TG.Boxes(x, x))
+    gx = x.to(cuda_device)
+    gpu_tree = TL.build(TG.Boxes(gx, gx))
+    for f in TL.FIELDS:
+        assert torch.equal(getattr(cpu_tree, f), getattr(gpu_tree, f).cpu()), f
+    q = torch.rand((300, 3), generator=g)
+    r = torch.full((300,), 0.2)
+    for fine_sqrt in (False, True):
+        a = TT.bvh_traverse_spatial(*(getattr(cpu_tree, f) for f in (
+            "node_lo", "node_hi", "rope", "left_child", "range_last",
+            "leaf_perm")), q, q, r, capacity=6, fine_sqrt=fine_sqrt)
+        b = TT.bvh_traverse_spatial(*(getattr(gpu_tree, f) for f in (
+            "node_lo", "node_hi", "rope", "left_child", "range_last",
+            "leaf_perm")), q.to(cuda_device), q.to(cuda_device),
+            r.to(cuda_device), capacity=6, fine_sqrt=fine_sqrt)
+        assert all(torch.equal(u, v.cpu()) for u, v in zip(a, b))
+    for k in (1, 10, 33):
+        a = TT.bvh_traverse_knn(cpu_tree.node_lo, cpu_tree.node_hi,
+                                cpu_tree.rope, cpu_tree.left_child,
+                                cpu_tree.leaf_perm, q, k=k)
+        b = TT.bvh_traverse_knn(gpu_tree.node_lo, gpu_tree.node_hi,
+                                gpu_tree.rope, gpu_tree.left_child,
+                                gpu_tree.leaf_perm, q.to(cuda_device), k=k)
+        assert all(torch.equal(u, v.cpu()) for u, v in zip(a, b))

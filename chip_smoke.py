@@ -30,6 +30,28 @@ Phases (one line or more each, then the two closing lines):
      torch.profiler: device-busy share of the window and the kernels that
      take the device time ("not measured" when the profiler sees no
      device activity).
+  7. callback kernel: ``bvh_traverse_callback`` against its twin on the
+     Points, Boxes and Spheres (radii 0.005) indexes at N = 2^20 with
+     Q = 2^17 sphere queries of r = 0.0132: every epilogue (counting,
+     count_with_limit(5), min_distance, collect_first_k(8),
+     collect_hits(32), min_where over seeded flags and weights) on Points
+     and Boxes, counting on Spheres; states bit-identical, kernel timed
+     beside the twin and a walk-independent bound.
+  8. DBSCAN (the callback path): 2^20 points in 3-D, 64 Gaussian blobs
+     (sigma 0.01) of 15,360 points and 65,536 uniform noise points, eps =
+     0.003, min_pts = 3. Its two walks at Q = N, count_with_limit(3) and
+     a hook round's min_where, bit-identical to their twins and timed
+     beside their bounds; then ``dbscan`` with both algorithms, each equal
+     (labels and core flags) to an oracle built from the spatial kernel's
+     CSR and scipy's connected components. Counters are zeroed before
+     the two runs and read after: one callback-kernel launch per
+     kernel-route batch, and no loop-route batch. A third FDBSCAN run
+     under torch.profiler gives the device-busy share and the kernels
+     that take the time. The kernels line gives the callback kernel the
+     min_where walk's numbers.
+  9. loop route: ``query(callback=sum_payload(...))`` at Q = 2^12 on the
+     card through the general walk, equal to the sums over the CSR result
+     taken in the same order; the route counter shows ``loop``.
 
 The line before the last is ``{"kernels": [...]}`` (name, route, source,
 replaced TPU kernel, launches, max_abs_err, ms, plain_ms, bound_ms,
@@ -95,6 +117,19 @@ def time_ms(fn, reps, warmup=1):
     return start.elapsed_time(stop) / reps
 
 
+def timed_once(fn):
+    """(result, ms) of one call of fn, by CUDA events."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
 def bound(nbytes, ops):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
     operations over the float32 peak."""
@@ -155,7 +190,10 @@ def _ptxas_summary(text):
         if m:
             k = re.search(r"(karras_kernel|spatial_kernelILb[01]E|knn_kernelILi\d+E)",
                           m.group(1))
-            fn = k.group(1) if k else m.group(1)
+            cb = re.search(r"callback_kernel.*?(CountWithLimit|Counting|"
+                           r"MinDistance|CollectILb[01]E|MinWhere)", m.group(1))
+            fn = (f"callback_kernel<{cb.group(1)}>" if cb
+                  else k.group(1) if k else m.group(1))
             fn = re.sub(r"ILb([01])E", r"<\1>", re.sub(r"ILi(\d+)E", r"<\1>", fn))
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
@@ -457,18 +495,17 @@ def phase_timings(dev, pts, box_lo, box_hi, spheres, knn, policy, card):
     return out
 
 
-def phase_profile(pts, spheres, knn, policy, card):
+def profile_window(label, fn, card):
+    """Run fn under torch.profiler: log the device-busy share of the
+    window and the kernels that take the device time ("not measured" when
+    the profiler sees no device activity)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    import repro_torch as rt
-    from repro_torch.core import geometry as G
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        index = rt.BVH(G.Points(pts), policy=policy)
-        index.query(spheres)
-        index.query(knn)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
@@ -483,14 +520,356 @@ def phase_profile(pts, spheres, knn, policy, card):
                    and dev_us(e) > 0), reverse=True)
     busy = sum(r[0] for r in rows)
     if not rows:
-        log("[profile] device time not measured: the profiler saw no "
-            "device activity")
+        log(f"[profile] {label}: device time not measured: the profiler saw "
+            "no device activity")
         return
-    log(f"[profile] build + CSR query + kNN query (Points, N={N}, Q={Q}): "
-        f"window {wall_us / 1e3:.2f} ms under the profiler, device busy "
-        f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f} %)  [{card}]")
+    log(f"[profile] {label}: window {wall_us / 1e3:.2f} ms under the "
+        f"profiler, device busy {busy / 1e3:.2f} ms "
+        f"({100 * busy / wall_us:.1f} %)  [{card}]")
     for us, key, count in rows[:8]:
         log(f"[profile]   {us / 1e3:9.3f} ms  {count:5d}x  {key[:90]}")
+
+
+def phase_profile(pts, spheres, knn, policy, card):
+    import repro_torch as rt
+    from repro_torch.core import geometry as G
+
+    def run():
+        index = rt.BVH(G.Points(pts), policy=policy)
+        index.query(spheres)
+        index.query(knn)
+
+    profile_window(f"build + CSR query + kNN query (Points, N={N}, Q={Q})",
+                   run, card)
+
+
+# ---------------------------------------------------------------------------
+# slice 2: the callback kernel, DBSCAN and the loop route
+# ---------------------------------------------------------------------------
+
+SPHERE_RADIUS = 0.005
+DB_BLOBS, DB_BLOB_PTS, DB_NOISE = 64, 15360, 1 << 16
+DB_SIGMA, DB_EPS, DB_MIN_PTS = 0.01, 0.003, 3
+Q_LOOP = 1 << 12
+
+
+def _epilogues(n, dev):
+    """name -> (cb, state0) of every epilogue; min_where over seeded
+    flags and int32 weights of the index's N values."""
+    import torch
+    from repro_torch.core import callbacks as CB
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    flags = torch.rand((n,), generator=gen, device=dev) < 0.5
+    weights = torch.randint(0, 1 << 30, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    return {"counting": CB.counting(), "count_with_limit": CB.count_with_limit(5),
+            "min_distance": CB.min_distance(),
+            "collect_first_k": CB.collect_first_k(8),
+            "collect_hits": CB.collect_hits(32),
+            "min_where": CB._min_where(flags, weights, 2**31 - 1)}
+
+
+def _leaves(state):
+    return state if isinstance(state, tuple) else (state,)
+
+
+def _state_bytes(state):
+    return sum(a.numel() * a.element_size() for a in _leaves(state))
+
+
+def check_state(got, want, label):
+    """Fail unless two callback states are bit-identical; return their
+    largest absolute difference (0.0)."""
+    import torch
+    err = 0.0
+    for x, y in zip(_leaves(got), _leaves(want)):
+        check(x.dtype == y.dtype and x.shape == y.shape,
+              f"{label}: state leaf {x.dtype} {tuple(x.shape)} against "
+              f"{y.dtype} {tuple(y.shape)}")
+        d = torch.where(x == y, 0.0, (x.double() - y.double()).abs())
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+        check(torch.equal(x, y), f"{label}: differs from its twin (max abs "
+              f"{err:.3g})")
+    return err
+
+
+def callback_bound(q, n, floats, state, leaves, extra_bytes=0):
+    """Bound of one callback walk over 3-D sphere queries: the queries,
+    every tree array and the N values (`floats` float32s each) once, the
+    state read in and written out, any closed-over arrays, and one leaf
+    test per leaf the answer needs."""
+    return bound(q * 4 * 4 + tree_bytes(n, 3, True) + n * floats * 4
+                 + 2 * _state_bytes(state) + extra_bytes, leaves * leaf_ops(3))
+
+
+def phase_callback_kernel(dev, pts, box_lo, box_hi, qc, policy, card):
+    """bvh_traverse_callback against its twin for every epilogue at
+    Q = 2^17, with the kernel's time beside the bound. Returns the largest
+    absolute difference seen."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.core import geometry as G
+    from repro_torch.core.index import _bcast_state
+    from repro_torch.kernels import bvh_callback as KC
+    from repro_torch.kernels import bvh_traverse as T
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    radii = torch.full((N,), SPHERE_RADIUS, device=dev)
+    indexes = (("points", G.Points(pts), 3),
+               ("boxes", G.Boxes(box_lo, box_hi), 6),
+               ("spheres", G.Spheres(torch.rand((N, 3), generator=gen,
+                                                device=dev), radii), 4))
+    preds = rt.intersects(G.Spheres(qc, torch.full((Q,), RADIUS, device=dev)))
+    max_err = 0.0
+    for label, values, floats in indexes:
+        index = rt.BVH(values, policy=policy)
+        t = index.tree
+        tree = (t.node_lo, t.node_hi, t.rope, t.left_child, t.range_last,
+                t.leaf_perm)
+        names = ("counting",) if label == "spheres" else (
+            "counting", "count_with_limit", "min_distance", "collect_first_k",
+            "collect_hits", "min_where")
+        epilogues = _epilogues(N, dev)
+        counts = None
+        for name in names:
+            cb, s0 = epilogues[name]
+            s0q = _bcast_state(s0, Q, dev)
+            full = KC.bvh_traverse_callback(*tree, values, preds, cb, s0q)
+            want, plain = timed_once(lambda: KC.bvh_traverse_callback_ref(
+                *tree, values, preds, cb, s0q))
+            max_err = max(max_err, check_state(
+                full, want, f"bvh_traverse_callback {label}/{name} Q={Q}"))
+            ms = time_ms(lambda: KC.bvh_traverse_callback(
+                *tree, values, preds, cb, s0q), reps=10)
+            if name == "counting":
+                counts = full.to(torch.int64)
+                if label != "spheres":
+                    # the spatial kernel, held against its twin above,
+                    # counts the same matches
+                    sp, _ = T.bvh_traverse_spatial(
+                        t.node_lo, t.node_hi, t.rope, t.left_child,
+                        t.range_last, t.leaf_perm, qc, qc, preds.geom.radius,
+                        capacity=1, fine_sqrt=label == "points")
+                    check(torch.equal(sp.to(torch.int64), counts),
+                          f"callback counting ({label}) differs from the "
+                          "spatial kernel's counts")
+            # leaves the answer needs: every match, except where the
+            # epilogue stops at a limit
+            cap = {"count_with_limit": 5, "collect_first_k": 8}.get(name)
+            leaves = int((counts.clamp_max(cap) if cap else counts).sum())
+            b_ms, b_by = callback_bound(
+                Q, N, floats, full, leaves,
+                N * 5 if name == "min_where" else 0)
+            log(f"[callback] {label} {name} N={N} Q={Q}: identical to twin "
+                f"(tolerance 0); {ms:.3f} ms vs twin {plain:.1f} ms; "
+                f"{leaves} leaves needed; bound {b_ms:.4f} ms ({b_by})  "
+                f"[{card}]")
+        del index, t, tree
+    return max_err
+
+
+def make_cloud(dev):
+    """DBSCAN's cloud: 64 Gaussian blobs and uniform noise, 2^20 points."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    centres = 0.1 + 0.8 * torch.rand((DB_BLOBS, 3), generator=gen, device=dev)
+    blobs = (centres[:, None, :] + DB_SIGMA * torch.randn(
+        (DB_BLOBS, DB_BLOB_PTS, 3), generator=gen, device=dev)).reshape(-1, 3)
+    noise = torch.rand((DB_NOISE, 3), generator=gen, device=dev)
+    return torch.cat([blobs, noise]).contiguous()
+
+
+def dbscan_oracle(coords, policy):
+    """(labels, is_core, neighbour counts) from the CSR of every point's
+    eps-neighbourhood through the spatial kernel and scipy's connected
+    components over core-core edges: clusters labelled by their min index,
+    border points by the min label among their core neighbours, noise -1.
+    Independent of the callback code."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from scipy.sparse.csgraph import connected_components
+    import repro_torch as rt
+    from repro_torch.core import geometry as G
+
+    n = coords.shape[0]
+    dev = coords.device
+    index = rt.BVH(G.Points(coords), policy=policy)
+    res = index.query(rt.intersects(G.Spheres(
+        coords, torch.full((n,), DB_EPS, device=dev))))
+    counts = res.offsets.diff().to(torch.int64)
+    rows = torch.repeat_interleave(torch.arange(n, device=dev), counts)
+    cols = res.indices.to(torch.int64)
+    core = counts >= DB_MIN_PTS
+    cc = core[rows] & core[cols]
+    r, c = rows[cc].cpu().numpy(), cols[cc].cpu().numpy()
+    graph = sp.csr_matrix((np.ones(r.shape[0], np.int8), (r, c)), shape=(n, n))
+    _, comp = connected_components(graph, directed=False)
+    big = np.iinfo(np.int64).max
+    # component ids run 0.., and a component's first index is its min
+    _, first = np.unique(comp, return_index=True)
+    core_np = core.cpu().numpy()
+    labels = np.where(core_np, first[comp], big)
+    lab = torch.from_numpy(labels).to(dev)
+    # border points: min label among core neighbours
+    bc = ~core[rows] & core[cols]
+    border = torch.full((n,), big, dtype=torch.int64, device=dev)
+    border.scatter_reduce_(0, rows[bc], lab[cols[bc]], "amin")
+    lab = torch.where(core, lab, border)
+    lab = torch.where(lab == big, -1, lab)
+    return lab, core, counts
+
+
+def dbscan_walks(coords, is_core, counts, policy, card):
+    """The two callback walks of DBSCAN at Q = N on its cloud, each
+    against its twin: the core-point pass (count_with_limit(min_pts)) and
+    the first hook round (min_where over the oracle's core flags and the
+    initial labels). Returns the kernels-line record of the min_where
+    walk, the one every hook round runs."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.core import callbacks as CB
+    from repro_torch.core import geometry as G
+    from repro_torch.core.dbscan import _BIG
+    from repro_torch.core.index import _bcast_state
+    from repro_torch.kernels import bvh_callback as KC
+
+    n = coords.shape[0]
+    dev = coords.device
+    index = rt.BVH(G.Points(coords), policy=policy)
+    t = index.tree
+    tree = (t.node_lo, t.node_hi, t.rope, t.left_child, t.range_last,
+            t.leaf_perm)
+    preds = rt.intersects(G.Spheres(coords, torch.full((n,), DB_EPS,
+                                                       device=dev)))
+    labels0 = torch.where(is_core, torch.arange(n, dtype=torch.int32,
+                                                device=dev), _BIG)
+    walks = (("count_with_limit", CB.count_with_limit(DB_MIN_PTS),
+              counts.clamp_max(DB_MIN_PTS), 0),
+             ("min_where", CB._min_where(is_core, labels0, _BIG), counts,
+              n * 5))
+    record = None
+    for name, (cb, s0), need, extra in walks:
+        s0q = _bcast_state(s0, n, dev)
+        got = KC.bvh_traverse_callback(*tree, index.values, preds, cb, s0q)
+        want, plain = timed_once(lambda: KC.bvh_traverse_callback_ref(
+            *tree, index.values, preds, cb, s0q))
+        err = check_state(got, want, f"bvh_traverse_callback dbscan/{name} "
+                          f"Q={n}")
+        ms = time_ms(lambda: KC.bvh_traverse_callback(
+            *tree, index.values, preds, cb, s0q), reps=5)
+        leaves = int(need.sum())
+        b_ms, b_by = callback_bound(n, n, 3, got, leaves, extra)
+        log(f"[dbscan] walk {name} N=Q={n}: identical to twin (tolerance "
+            f"0); {ms:.3f} ms vs twin {plain:.1f} ms; {leaves} leaves "
+            f"needed; bound {b_ms:.4f} ms ({b_by})  [{card}]")
+        record = dict(source="src/repro_torch/csrc/bvh_callback.cu",
+                      replaces="src/repro/kernels/bvh_callback.py:251",
+                      max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                      bound_by=b_by)
+    return record
+
+
+def phase_dbscan(dev, policy, card):
+    """Both DBSCAN algorithms at 2^20 points against the oracle, after
+    its two callback walks against their twins. Returns the launch counts
+    of the two runs (counters zeroed just before) and the min_where
+    walk's kernels-line record."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.core.dbscan import _dense_cells
+    from repro_torch.kernels import bvh_callback as KC
+    from repro_torch.kernels import bvh_traverse as T
+    from repro_torch.kernels import lbvh_build as KB
+
+    coords = make_cloud(dev)
+    n = coords.shape[0]
+    t0 = time.perf_counter()
+    want_labels, want_core, counts = dbscan_oracle(coords, policy)
+    oracle_s = time.perf_counter() - t0
+    _, dense = _dense_cells(coords, DB_EPS, DB_MIN_PTS)
+    log(f"[dbscan] cloud N={n}: {DB_BLOBS} blobs x {DB_BLOB_PTS} (sigma "
+        f"{DB_SIGMA}) + {DB_NOISE} noise; eps={DB_EPS} min_pts={DB_MIN_PTS}; "
+        f"neighbours (self included) mean {float(counts.double().mean()):.2f}, "
+        f"max {int(counts.max())}; {float(dense.double().mean()) * 100:.1f} % "
+        f"of points in dense cells; {int(want_core.sum())} core points, "
+        f"{int(torch.unique(want_labels[want_labels >= 0]).numel())} clusters, "
+        f"{int((want_labels < 0).sum())} noise; oracle {oracle_s:.1f} s")
+    record = dbscan_walks(coords, want_core, counts, policy, card)
+    counters = {"karras_ranges": KB.karras_ranges,
+                "bvh_traverse_spatial": T.bvh_traverse_spatial,
+                "bvh_traverse_knn": T.bvh_traverse_knn,
+                "bvh_traverse_callback": KC.bvh_traverse_callback}
+    for f in counters.values():
+        f.launches = 0
+    for algorithm in ("fdbscan", "fdbscan-densebox"):
+        engine = rt.QueryEngine()
+        before = KC.bvh_traverse_callback.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        labels, core = rt.dbscan(coords, DB_EPS, DB_MIN_PTS,
+                                 algorithm=algorithm,
+                                 policy=policy.override(engine=engine))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = KC.bvh_traverse_callback.launches - before
+        check(torch.equal(core, want_core),
+              f"dbscan {algorithm}: core flags differ from the oracle "
+              f"({int((core != want_core).sum())} points)")
+        check(torch.equal(labels.to(torch.int64), want_labels),
+              f"dbscan {algorithm}: labels differ from the oracle "
+              f"({int((labels.to(torch.int64) != want_labels).sum())} points)")
+        # core points, one launch per hook round, the border round
+        check(launched == engine.callback_batches["kernel"] and launched >= 3,
+              f"dbscan {algorithm}: {launched} callback-kernel launches for "
+              f"{engine.callback_batches['kernel']} kernel-route batches")
+        check(engine.callback_batches["loop"] == 0,
+              f"dbscan {algorithm}: {engine.callback_batches['loop']} "
+              "callback batches took the loop route")
+        log(f"[dbscan] {algorithm}: {ms:.1f} ms (build + core + rounds + "
+            f"border, host clock after synchronize); {launched - 2} hook "
+            f"rounds; {launched} callback-kernel launches; "
+            f"{engine.callback_batches['loop']} loop-route batches; labels "
+            f"and core flags equal to the oracle  [{card}]")
+    launches = {k: f.launches for k, f in counters.items()}
+    log(f"[dbscan] launches in the DBSCAN path: {json.dumps(launches)}")
+    profile_window(f"dbscan fdbscan N={n}", lambda: rt.dbscan(
+        coords, DB_EPS, DB_MIN_PTS, policy=policy), card)
+    return launches, record
+
+
+def phase_loop_route(dev, pts, qc, policy):
+    """A plain callable through the loop route on the card, against the
+    CSR result summed in the walk's order."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.core import geometry as G
+
+    engine = rt.QueryEngine()
+    index = rt.BVH(G.Points(pts), policy=policy.override(engine=engine))
+    preds = rt.intersects(G.Spheres(qc[:Q_LOOP], torch.full(
+        (Q_LOOP,), RADIUS, device=dev)))
+    cb = rt.callbacks.sum_payload(lambda p, v: v.coords[:, 0])
+    t0 = time.perf_counter()
+    got = index.query(preds, callback=(cb, 0.0))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    check(engine.callback_batches == {"kernel": 0, "loop": 1},
+          f"sum_payload did not take the loop route: {engine.callback_batches}")
+    res = index.query(preds)            # kernel fill: the walk's order
+    cnt = res.offsets.diff().to(torch.int64)
+    x = res.values.coords[:, 0]
+    start = res.offsets[:-1].to(torch.int64)
+    want = torch.zeros((Q_LOOP,), dtype=torch.float32, device=dev)
+    for j in range(int(cnt.max())):
+        live = cnt > j
+        want[live] = want[live] + x[start[live] + j]
+    check(got.dtype == torch.float32 and torch.equal(got, want),
+          f"loop-route sums differ from the CSR sums (max "
+          f"{float((got - want).abs().max()):.3g})")
+    log(f"[loop] sum_payload Q={Q_LOOP} on the card: {ms:.1f} ms through "
+        f"the loop route, equal to the CSR sums in walk order (tolerance 0); "
+        f"route counts {json.dumps(engine.callback_batches)}")
 
 
 def main():
@@ -507,10 +886,19 @@ def main():
                                                         box_hi, qc)
     phase_timings(dev, pts, box_lo, box_hi, spheres, knn, policy, card)
     phase_profile(pts, spheres, knn, policy, card)
+    cb_err = phase_callback_kernel(dev, pts, box_lo, box_hi, qc, policy, card)
+    db_launches, record = phase_dbscan(dev, policy, card)
+    # the walk the DBSCAN path launches most, with the largest difference
+    # any callback comparison found
+    record["max_abs_err"] = max(record["max_abs_err"], cb_err)
+    records["bvh_traverse_callback"] = record
+    launches["bvh_traverse_callback"] = db_launches["bvh_traverse_callback"]
+    phase_loop_route(dev, pts, qc, policy)
     kernels = []
-    for kname in ("karras_ranges", "bvh_traverse_spatial", "bvh_traverse_knn"):
+    for kname in ("karras_ranges", "bvh_traverse_spatial", "bvh_traverse_knn",
+                  "bvh_traverse_callback"):
         r = records[kname]
-        check(launches[kname] > 0, f"{kname} was not launched in the main path")
+        check(launches[kname] > 0, f"{kname} was not launched in its path")
         kernels.append({"name": kname, "route": "cuda", "source": r["source"],
                         "replaces": r["replaces"],
                         "launches": launches[kname],

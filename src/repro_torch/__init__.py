@@ -1,18 +1,19 @@
 """ArborX 2.0 in PyTorch with hand-written CUDA kernels for Hopper: the
 port of the JAX package ``repro`` (which stays the reference).
 
-Slice 1 holds the main path: build an LBVH over points or boxes, then
-answer batched spatial (CSR) and k-nearest queries through
-``BVH(...).query()``. Entry points run on the CUDA card unless the
-caller asks for the CPU with ``ExecutionPolicy(device="cpu")``, where
-the kernels' plain PyTorch twins run instead.
+The main path builds an LBVH over points, boxes or spheres, then answers
+batched spatial (CSR) and k-nearest queries through ``BVH(...).query()``,
+callback queries (``query(callback=)``, ``query(out=)``) and DBSCAN
+(``dbscan``). Entry points run on the CUDA card unless the caller asks
+for the CPU with ``ExecutionPolicy(device="cpu")``, where the kernels'
+plain PyTorch twins run instead.
 """
 from .core import (BVH, BruteForce, EngineConfig, ExecutionPolicy, LBVH,
                    QueryEngine, QueryResult, RouteRule, RouteTable, build,
-                   intersects, nearest, refit, sah_cost)
+                   callbacks, dbscan, intersects, nearest, refit, sah_cost)
 from .core.geometry import Boxes, Points, Spheres
 
 __all__ = ["BVH", "BruteForce", "EngineConfig", "ExecutionPolicy", "LBVH",
            "QueryEngine", "QueryResult", "RouteRule", "RouteTable", "build",
-           "intersects", "nearest", "refit", "sah_cost", "Points", "Boxes",
-           "Spheres"]
+           "callbacks", "dbscan", "intersects", "nearest", "refit",
+           "sah_cost", "Points", "Boxes", "Spheres"]

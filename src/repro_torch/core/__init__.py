@@ -1,8 +1,11 @@
 """The port's core: geometry, predicates, Morton codes, the LBVH build,
-the query engine and the Index implementations (BVH, BruteForce)."""
-from . import access, engine, geometry, morton, predicates, route_table, traversal
+the query engine, the traversal walks and callbacks, the Index
+implementations (BVH, BruteForce) and DBSCAN."""
+from . import (access, callbacks, engine, geometry, morton, predicates,
+               route_table, traversal)
 from .brute_force import BruteForce
 from .bvh import BVH
+from .dbscan import dbscan
 from .engine import EngineConfig, QueryEngine, default_engine
 from .index import ExecutionPolicy, Index, QueryResult
 from .lbvh import LBVH, build, refit, sah_cost
@@ -13,6 +16,6 @@ __all__ = [
     "Index", "ExecutionPolicy", "QueryResult", "BVH", "BruteForce", "LBVH",
     "build", "refit", "sah_cost", "QueryEngine", "EngineConfig",
     "default_engine", "RouteRule", "RouteTable", "intersects", "nearest",
-    "access", "engine", "geometry", "morton", "predicates", "route_table",
-    "traversal",
+    "dbscan", "access", "callbacks", "engine", "geometry", "morton",
+    "predicates", "route_table", "traversal",
 ]

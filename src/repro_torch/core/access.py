@@ -23,3 +23,17 @@ def as_geometry(obj):
 def default_indexable_getter(values):
     """IndexableGetter: values -> AABBs used as bounding volumes."""
     return G.to_boxes(as_geometry(values))
+
+
+def value_at(values, i):
+    """Element(s) i of a values container: a geometry array, a tensor, or
+    a dict / tuple / list of them."""
+    if isinstance(values, G.GEOMETRIES):
+        return values.index(i)
+    if isinstance(values, torch.Tensor):
+        return values[i]
+    if isinstance(values, dict):
+        return {k: value_at(v, i) for k, v in values.items()}
+    if isinstance(values, (tuple, list)):
+        return type(values)(value_at(v, i) for v in values)
+    raise TypeError(f"cannot index values of type {type(values).__name__}")

@@ -1,6 +1,7 @@
 """Brute-force search index: tests every predicate against every value.
 Exact by construction (up to the matrix expansion of Points-to-Points
 kNN distances, as in the reference) and the BVH's oracle in tests.
+Callbacks run over each query's matches in index order, with early exit.
 
 Queries are taken in blocks of ``BLOCK_Q`` so the (Q, N) matrices stay
 bounded. Float32 products run in full float32: TF32 would change the
@@ -16,7 +17,7 @@ from . import geometry as G
 from . import predicates as P
 from .access import default_indexable_getter
 from .index import ExecutionPolicy, Index, QueryResult, resolve_device
-from .traversal import value_at
+from .traversal import _leaves, _map, value_at
 
 __all__ = ["BruteForce", "pairwise_sq_distances"]
 
@@ -57,6 +58,37 @@ class BruteForce(Index):
         return G.merge_boxes(self._boxes)
 
     # --- backend SPI ------------------------------------------------------
+    def _query_callback_impl(self, predicates, callback, state0, pol):
+        """Apply `callback` on every match, in index order per query, until
+        it reports done. Step j takes every live query's j-th match. The
+        leaf tests sum squares in the fused order: the reference runs this
+        loop compiled."""
+        q = len(predicates)
+        dev = self.device
+        state = _map(torch.clone, state0)
+        if q == 0 or self._n == 0:
+            return state
+        mask = self._match_matrix(predicates, fused=True)
+        counts = mask.sum(-1)
+        ar = torch.arange(self._n, device=dev)
+        order = torch.sort(torch.where(mask, ar[None, :], self._n), dim=1).values
+        done = torch.zeros((q,), dtype=torch.bool, device=dev)
+        for j in range(int(counts.max())):
+            act = torch.nonzero((counts > j) & ~done).squeeze(1)
+            if act.numel() == 0:
+                break
+            idx = order[act, j]
+            st = _map(lambda a: a[act], state)
+            t = torch.zeros((act.numel(),), dtype=torch.float32, device=dev)
+            new, cb_done = callback(st, P.take(predicates, act),
+                                    value_at(self.values, idx),
+                                    idx.to(torch.int32), t)
+            for leaf, sel in zip(_leaves(state), _leaves(new)):
+                leaf[act] = sel.to(leaf.dtype)
+            done[act] = torch.as_tensor(cb_done, dtype=torch.bool,
+                                        device=dev).expand(act.shape)
+        return state
+
     def _count_impl(self, predicates, pol):
         return self._match_matrix(predicates).sum(-1).to(torch.int32)
 
@@ -123,10 +155,11 @@ class BruteForce(Index):
             return tuple(torch.cat(parts, 0) for parts in zip(*outs))
         return torch.cat(outs, 0)
 
-    def _match_matrix(self, predicates):
+    def _match_matrix(self, predicates, fused: bool = False):
         """(Q, N) bool exact leaf tests."""
         return self._blocks(
-            lambda blk: P.leaf_match_test(P.lift(blk), self.values), predicates)
+            lambda blk: P.leaf_match_test(P.lift(blk), self.values, fused),
+            predicates)
 
     def _distances(self, blk):
         """(B, N) fine distances of one block of Nearest queries."""

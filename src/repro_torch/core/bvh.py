@@ -2,31 +2,27 @@
 
 ``BVH(values, indexable_getter=..., policy=...)`` places the values on
 the policy's device (the CUDA card by default), builds the LBVH there and
-answers ``query()``. This class implements the backend SPI: count, fill
-and kNN routed by the QueryEngine to brute force or the traversal
-kernels, plus the N < 2 linear-scan paths.
+answers ``query()``. This class implements the backend SPI: count, fill,
+kNN and callbacks routed by the QueryEngine to brute force, the
+traversal kernels or the general walk, plus the N < 2 linear-scan paths.
+On the loop route, count and fill run the ``counting`` and
+``collect_hits`` callbacks, which the callback kernel serves where it
+can (Spheres values, for one).
 """
 from __future__ import annotations
 
 import torch
 
+from . import callbacks as CB
 from . import engine as E
 from . import geometry as G
 from . import lbvh
 from . import predicates as P
+from . import traversal as T
 from .access import default_indexable_getter
-from .index import ExecutionPolicy, Index, resolve_device
+from .index import ExecutionPolicy, Index, _bcast_state, resolve_device
 
 __all__ = ["BVH"]
-
-
-def _loop_route(what: str):
-    return NotImplementedError(
-        f"{what}: this batch needs the general while-loop traversal (values "
-        "other than Points/Boxes, a custom indexable getter, more than "
-        "16 dimensions, or k above the kNN kernel's cap, above the "
-        "brute-force threshold), which is not ported yet; it comes with the "
-        "loop-traversal slice")
 
 
 class BVH(Index):
@@ -58,11 +54,15 @@ class BVH(Index):
         self._getter = indexable_getter
         self._boxes = indexable_getter(self.values)
         self._n = len(self._boxes)
-        # the kernels' leaf test is the box test: exact only for values
-        # whose fine test is their bounding-box test
-        self.kernel_values_ok = (
-            indexable_getter is default_indexable_getter
-            and isinstance(self.values, (G.Points, G.Boxes)))
+        # the spatial and kNN kernels' leaf test is the box test: exact only
+        # for values whose fine test is their bounding-box test; the
+        # callback kernel tests each value geometry exactly, but its node
+        # boxes must still be the values' own bounding boxes
+        default = indexable_getter is default_indexable_getter
+        self.kernel_values_ok = default and isinstance(
+            self.values, (G.Points, G.Boxes))
+        self.kernel_callback_ok = default and isinstance(
+            self.values, G.GEOMETRIES)
         self._bf = None
 
     def _brute(self):
@@ -85,32 +85,43 @@ class BVH(Index):
         return G.Boxes(self.tree.node_lo[:1], self.tree.node_hi[:1])
 
     # --- backend SPI ------------------------------------------------------
-    def _count_impl(self, predicates, pol):
+    def _query_callback_impl(self, predicates, callback, state0, pol):
+        """Per-query final states: the fused kernel runs the callback in
+        the walk's epilogue where it can, the general walk otherwise; the
+        states are bit-identical either way."""
         if self.tree is None:
-            return _degenerate_fill(self.values, self._n, predicates, 1,
-                                    self.device)[0]
-        engine = pol.resolve_engine()
-        route = engine.route_spatial(self, predicates, policy=pol)
-        if route == E.ROUTE_BRUTEFORCE:
-            return self._brute()._count_impl(predicates, pol)
-        if route == E.ROUTE_KERNEL:
-            return engine.kernel_count(self, predicates)
-        raise _loop_route("count")
+            return _degenerate_callback(self.values, self._n, predicates,
+                                        callback, state0, self.device)
+        return pol.resolve_engine().run_callback(self, predicates, callback,
+                                                 state0)
+
+    def _count_impl(self, predicates, pol):
+        if self.tree is not None:
+            engine = pol.resolve_engine()
+            route = engine.route_spatial(self, predicates, policy=pol)
+            if route == E.ROUTE_BRUTEFORCE:
+                return self._brute()._count_impl(predicates, pol)
+            if route == E.ROUTE_KERNEL:
+                return engine.kernel_count(self, predicates)
+        cb, s0 = CB.counting()
+        return self._query_callback_impl(
+            predicates, cb, _bcast_state(s0, len(predicates), self.device), pol)
 
     def _fill_impl(self, predicates, capacity, pol):
         """(counts, idx_buf (Q, capacity)): full counts and the first
         `capacity` matched indices per query (the match SET per query is
         route-independent, the buffer order is not)."""
-        if self.tree is None:
-            return _degenerate_fill(self.values, self._n, predicates, capacity,
-                                    self.device)
-        engine = pol.resolve_engine()
-        route = engine.route_spatial(self, predicates, policy=pol)
-        if route == E.ROUTE_BRUTEFORCE:
-            return self._brute()._fill_impl(predicates, capacity, pol)
-        if route == E.ROUTE_KERNEL:
-            return engine.kernel_fill(self, predicates, capacity)
-        raise _loop_route("fill")
+        if self.tree is not None:
+            engine = pol.resolve_engine()
+            route = engine.route_spatial(self, predicates, policy=pol)
+            if route == E.ROUTE_BRUTEFORCE:
+                return self._brute()._fill_impl(predicates, capacity, pol)
+            if route == E.ROUTE_KERNEL:
+                return engine.kernel_fill(self, predicates, capacity)
+        cb, s0 = CB.collect_hits(capacity)
+        count, idxs, _ = self._query_callback_impl(
+            predicates, cb, _bcast_state(s0, len(predicates), self.device), pol)
+        return count, idxs
 
     def _csr_exact(self, predicates, pol):
         """Brute-force route, no capacity: one-pass CSR."""
@@ -129,21 +140,23 @@ class BVH(Index):
             return self._brute()._knn_impl(predicates, pol)
         if route == E.ROUTE_KERNEL:
             return engine.kernel_knn(self, predicates)
-        raise _loop_route("kNN")
+        return T.traverse_knn(self.tree, self.values, predicates,
+                              predicates.k)
 
 
 # --- degenerate N in {0, 1}: linear scan ---------------------------------
 
-def _degenerate_fill(values, n, predicates, capacity, dev):
-    """Counts and (Q, capacity) buffer against at most one value."""
+def _degenerate_callback(values, n, predicates, callback, state0, dev):
+    """The callback applied where the one value (if any) matches."""
     q = len(predicates)
-    counts = torch.zeros((q,), dtype=torch.int32, device=dev)
-    buf = torch.full((q, capacity), -1, dtype=torch.int32, device=dev)
     if n == 0 or q == 0:
-        return counts, buf
-    fine = P.leaf_match_test(P.lift(predicates), values)[:, 0]
-    buf[:, 0] = torch.where(fine, 0, -1).to(torch.int32)
-    return fine.to(torch.int32), buf
+        return state0
+    zero = torch.zeros((q,), dtype=torch.int32, device=dev)
+    val = T.value_at(values, zero.to(torch.int64))
+    fine = P.leaf_match_test(predicates, val)
+    new, _ = callback(state0, predicates, val, zero,
+                      torch.zeros((q,), dtype=torch.float32, device=dev))
+    return T.tree_select(fine, new, state0)
 
 
 def _degenerate_knn(values, n, predicates, dev):

@@ -1,20 +1,23 @@
-"""QueryEngine: per-batch choice between brute force and the traversal
-kernels, as ``repro.core.engine`` chooses between bruteforce, pallas and
-loop.
+"""QueryEngine: per-batch choice between brute force, the traversal
+kernels and the general walk, as ``repro.core.engine`` chooses between
+bruteforce, pallas and loop.
 
   * ``bruteforce``: the all-pairs match matrix (``BruteForce``); exact,
-    and the cheaper route while N * Q is small.
+    and the cheaper route while N * Q is small. It never runs callbacks.
   * ``kernel``: the hand-written traversal kernels
-    (``kernels.bvh_traverse``; their plain twins on the CPU). This is the
-    reference's ``pallas`` route.
-  * ``loop``: the general while-loop walk for what the kernels cannot
-    express (other value geometries, custom indexable getters). It is not
-    ported yet; the BVH raises NotImplementedError when a batch lands
-    there.
+    (``kernels.bvh_traverse``, ``kernels.bvh_callback``; their plain
+    twins on the CPU). This is the reference's ``pallas`` route.
+  * ``loop``: the batched walks of ``core.traversal`` for what the
+    kernels cannot express: callbacks that are not epilogues (any Python
+    callable), other value geometries, custom indexable getters, more
+    than ``MAX_DIM`` dimensions, k above ``KNN_MAX_K``. On the card it
+    runs as a host loop of PyTorch operations.
 
-Routing is decided in Python from N, Q, the predicate kind and the value
-geometry. The executable cache, EngineStats and telemetry spans come with
-the serving slice.
+Routing is decided in Python from N, Q, the predicate kind, the value
+geometry and the callback; a kernel failure raises and never reroutes.
+``callback_batches`` counts the callback batches each route served. The
+executable cache, EngineStats and telemetry spans come with the serving
+slice.
 """
 from __future__ import annotations
 
@@ -22,11 +25,13 @@ import dataclasses
 
 import torch
 
+from ..kernels.bvh_callback import bvh_traverse_callback, expressible
 from ..kernels.bvh_traverse import (KNN_MAX_K, MAX_DIM, bvh_traverse_knn,
                                     bvh_traverse_spatial)
 from . import geometry as G
 from . import predicates as P
 from . import route_table as RT
+from . import traversal as T
 
 __all__ = ["EngineConfig", "QueryEngine", "default_engine",
            "ROUTE_BRUTEFORCE", "ROUTE_KERNEL", "ROUTE_LOOP"]
@@ -44,13 +49,14 @@ class EngineConfig:
         (an ExecutionPolicy table overrides it per call or index); None
         means the built-in defaults.
     force: "bruteforce" | "kernel" pins every batch the route can express
-        to it; other batches take the normal choice.
+        to it (other batches take the normal choice; brute force runs no
+        callbacks); "loop" pins every batch to the general walk.
     """
     route_table: RT.RouteTable | None = None
     force: str | None = None
 
     def __post_init__(self):
-        routes = (ROUTE_BRUTEFORCE, ROUTE_KERNEL)
+        routes = (ROUTE_BRUTEFORCE, ROUTE_KERNEL, ROUTE_LOOP)
         if self.force is not None and self.force not in routes:
             raise ValueError(f"force={self.force!r} is not one of {routes}")
 
@@ -78,6 +84,8 @@ class QueryEngine:
 
     def __init__(self, config: EngineConfig | None = None):
         self.config = config or EngineConfig()
+        #: callback batches served per route
+        self.callback_batches = {ROUTE_KERNEL: 0, ROUTE_LOOP: 0}
 
     def table(self, policy=None) -> RT.RouteTable:
         """Explicit policy table > engine-config table > defaults."""
@@ -111,6 +119,21 @@ class QueryEngine:
                 and predicates.k <= KNN_MAX_K)
         return self._pick(bvh.size(), q, bf_ok, k_ok, rule)
 
+    def route_callback(self, bvh, predicates, callback) -> str:
+        """Route a callback batch: the fused kernel when it can run the
+        callback (an epilogue, Intersects over Points/Boxes/Spheres, values
+        of those under the default getter, dim <= MAX_DIM, Q > 0), else the
+        loop. Brute force never runs callbacks, and no crossover puts a
+        batch the kernel can run on the loop, so no route rule is read. A
+        kernel batch whose dtypes or state layout the kernel cannot take
+        raises there; it is not rerouted."""
+        if self.config.force == ROUTE_LOOP:
+            return ROUTE_LOOP
+        ok = (bvh.tree is not None and len(predicates) > 0
+              and bvh.kernel_callback_ok
+              and expressible(bvh.values, predicates, callback))
+        return ROUTE_KERNEL if ok else ROUTE_LOOP
+
     def _pick(self, n: int, q: int, bf_ok: bool, kernel_ok: bool,
               rule: RT.RouteRule) -> str:
         force = self.config.force
@@ -118,6 +141,8 @@ class QueryEngine:
             return ROUTE_BRUTEFORCE
         if force == ROUTE_KERNEL and kernel_ok:
             return ROUTE_KERNEL
+        if force == ROUTE_LOOP:
+            return ROUTE_LOOP
         if bf_ok and n * q <= rule.bf_max_work:
             return ROUTE_BRUTEFORCE
         if kernel_ok:
@@ -141,6 +166,22 @@ class QueryEngine:
             t.node_lo, t.node_hi, t.rope, t.left_child, t.range_last,
             t.leaf_perm, q_lo, q_hi, r, capacity=capacity,
             fine_sqrt=isinstance(bvh.values, G.Points))
+
+    def run_callback(self, bvh, predicates, callback, state0):
+        """Per-query final states of a callback batch (`state0` batched),
+        through the route ``route_callback`` picks; counts the batch."""
+        route = self.route_callback(bvh, predicates, callback)
+        self.callback_batches[route] += 1
+        if route == ROUTE_KERNEL:
+            return self.kernel_callback(bvh, predicates, callback, state0)
+        return T.traverse(bvh.tree, bvh.values, predicates, callback, state0)
+
+    def kernel_callback(self, bvh, predicates, callback, state0):
+        """Per-query final states through the fused callback kernel."""
+        t = bvh.tree
+        return bvh_traverse_callback(
+            t.node_lo, t.node_hi, t.rope, t.left_child, t.range_last,
+            t.leaf_perm, bvh.values, predicates, callback, state0)
 
     def kernel_knn(self, bvh, predicates):
         """(dists, idxs) (Q, k) through the kNN kernel, from the query

@@ -188,33 +188,41 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x)
 
 
-def distance_point_point(p, q):
-    return sqrt(sum_sq(p - q))
+# `fused` picks the sum's order: False for the reference's op-by-op code
+# (brute force, the N < 2 scans), True for what it runs jitted (the
+# traversal walks and the brute-force callback loop)
+
+def _ss(d: torch.Tensor, fused: bool) -> torch.Tensor:
+    return sum_sq_fused(d) if fused else sum_sq(d)
+
+
+def distance_point_point(p, q, fused: bool = False):
+    return sqrt(_ss(p - q, fused))
 
 
 def _box_gap(p, lo, hi):
     return torch.clamp_min(torch.maximum(lo - p, p - hi), 0.0)
 
 
-def distance_point_box(p, lo, hi):
+def distance_point_box(p, lo, hi, fused: bool = False):
     """Euclidean distance from point to AABB (0 inside)."""
-    return sqrt(sum_sq(_box_gap(p, lo, hi)))
+    return sqrt(_ss(_box_gap(p, lo, hi), fused))
 
 
-def distance_point_box_sq(p, lo, hi):
-    return sum_sq(_box_gap(p, lo, hi))
+def distance_point_box_sq(p, lo, hi, fused: bool = False):
+    return _ss(_box_gap(p, lo, hi), fused)
 
 
-def distance_point_sphere(p, c, r):
-    return torch.clamp_min(distance_point_point(p, c) - r, 0.0)
+def distance_point_sphere(p, c, r, fused: bool = False):
+    return torch.clamp_min(distance_point_point(p, c, fused) - r, 0.0)
 
 
 def intersects_box_box(lo_a, hi_a, lo_b, hi_b):
     return torch.all((lo_a <= hi_b) & (lo_b <= hi_a), dim=-1)
 
 
-def intersects_box_sphere(lo, hi, c, r):
-    return distance_point_box_sq(c, lo, hi) <= r * r
+def intersects_box_sphere(lo, hi, c, r, fused: bool = False):
+    return distance_point_box_sq(c, lo, hi, fused) <= r * r
 
 
 def intersects_box_point(lo, hi, p):

@@ -11,15 +11,26 @@ with an indexable getter and answers one ``query()``.
     Nearest     dense kNN: distances / indices (Q, k)
     =========== ============================================
 
-Backends implement a small SPI; the CSR assembly (two-pass count then
-fill, capacity doubling with ``overflow``) lives here once:
+    query(preds, callback=(cb, state0))  # the per-query final states
+    query(preds, out=out_fn)             # out_fn's per-match outputs, CSR
 
+Callbacks follow the batched contract of ``core.traversal``; ``state0``
+is unbatched and gets a leading query axis. ``out_fn(pred, value, index,
+t)`` takes the matches of the whole batch at once (one predicate row per
+match, t = 0 for spatial predicates) and returns their outputs.
+
+Backends implement a small SPI; the CSR assembly (two-pass count then
+fill, capacity doubling with ``overflow``) and the output flavor live
+here once:
+
+    _query_callback_impl(preds, cb, state0_batched, policy) -> states
     _count_impl(preds, policy)           -> (Q,) int32 full counts
     _fill_impl(preds, capacity, policy)  -> (counts, idx_buf (Q, cap))
     _knn_impl(preds, policy)             -> (dists, idxs) (Q, k)
     _csr_exact(preds, policy)            -> QueryResult | None (one pass)
+    _collect_with_t(preds, cap, policy)  -> (counts, idxs, ts)
 
-Ray predicates and the callback / output flavors come in later slices.
+Ray predicates come in a later slice.
 """
 from __future__ import annotations
 
@@ -28,6 +39,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from . import callbacks as CB
 from . import predicates as P
 from .traversal import value_at
 
@@ -92,6 +104,27 @@ class ExecutionPolicy:
         return dataclasses.replace(self, **kw) if kw else self
 
 
+def _bcast_state(state, nq, device):
+    """An unbatched callback state (a tensor, a Python number, or a tuple
+    / list of them) as fresh tensors with a leading (nq,) axis on
+    `device`. Python ints become int32, as JAX's default integers."""
+    if isinstance(state, (tuple, list)):
+        return type(state)(_bcast_state(s, nq, device) for s in state)
+    if isinstance(state, int) and not isinstance(state, bool):
+        a = torch.tensor(state, dtype=torch.int32, device=device)
+    else:
+        a = torch.as_tensor(state, device=device)
+    return a.expand((nq,) + a.shape).clone()
+
+
+def _repeat_preds(predicates, offsets):
+    """Per-query predicates repeated per match (a CSR repeat)."""
+    counts = (offsets[1:] - offsets[:-1]).to(torch.int64)
+    qid = torch.repeat_interleave(
+        torch.arange(counts.shape[0], device=counts.device), counts)
+    return P.take(predicates, qid)
+
+
 def _csr_pack(buf, counts):
     """(Q, cap) buffer + per-query counts (<= cap) -> flat CSR array: the
     valid prefix of every row, rows in order."""
@@ -118,18 +151,26 @@ class Index:
     def query(self, predicates, *, callback=None, out=None,
               capacity: int | None = None,
               policy: ExecutionPolicy | None = None) -> QueryResult:
-        """One polymorphic query, dispatched on the predicate kind.
+        """One polymorphic query, dispatched on the predicate kind; the
+        ``callback=`` flavor returns the per-query final states instead.
 
+        callback: ``(cb, state0)``, e.g. a ``core.callbacks`` factory's
+                  result; state0 unbatched (broadcast to every query).
+        out:      ``out_fn(pred, value, index, t)`` over all matches at
+                  once; its outputs land CSR in ``result.values``.
         capacity: per-query CSR width shorthand (== policy.capacity).
         policy:   full per-call ExecutionPolicy override.
         Predicates are moved to the index's device."""
-        if callback is not None or out is not None:
-            raise NotImplementedError(
-                "query(callback=) and query(out=) come with the callback "
-                "slice of the port")
         pol = policy if policy is not None else self.policy
         if capacity is not None:
             pol = pol.override(capacity=capacity)
+        if callback is not None:
+            cb, state0 = callback
+            predicates = predicates.to(self.device)
+            s0 = _bcast_state(state0, len(predicates), self.device)
+            return self._query_callback_impl(predicates, cb, s0, pol)
+        if out is not None:
+            return self._query_out(predicates.to(self.device), out, pol)
         if isinstance(predicates, P.Nearest):
             return self._query_knn(predicates.to(self.device), pol)
         if isinstance(predicates, P.Intersects):
@@ -191,7 +232,26 @@ class Index:
                            indices=flat_idx, offsets=offsets,
                            overflow=overflow)
 
+    def _query_out(self, predicates, out_fn, pol) -> QueryResult:
+        res = self._query_csr(predicates, pol)
+        preds = _repeat_preds(predicates, res.offsets)
+        t = torch.zeros((res.indices.shape[0],), dtype=torch.float32,
+                        device=res.indices.device)
+        return QueryResult(values=out_fn(preds, res.values, res.indices, t),
+                           indices=res.indices, offsets=res.offsets,
+                           overflow=res.overflow)
+
     # --- backend SPI ------------------------------------------------------
+    def _query_callback_impl(self, predicates, callback, state0, pol):
+        raise NotImplementedError
+
+    def _collect_with_t(self, predicates, capacity, pol):
+        """(counts, idxs (Q, capacity), ts (Q, capacity)) through a
+        ``collect_hits`` callback pass."""
+        cb, s0 = CB.collect_hits(capacity)
+        s0 = _bcast_state(s0, len(predicates), self.device)
+        return self._query_callback_impl(predicates, cb, s0, pol)
+
     def _count_impl(self, predicates, pol):
         raise NotImplementedError
 

@@ -1,19 +1,40 @@
 """Predicates: ``intersects`` and ``nearest`` over Points, Boxes and
-Spheres, with the fine leaf tests that brute force evaluates.
+Spheres, with the node tests the traversal walks prune with and the fine leaf tests.
 
-A predicate array holds Q predicates of one kind. The leaf tests
-broadcast: give the predicate geometry a (Q, 1, ...) shape and the values
-(N, ...) to get a (Q, N) result. Ray predicates and ``Nearest.exclude``
+A predicate array holds Q predicates of one kind. The tests broadcast:
+give the predicate geometry a (Q, 1, ...) shape and the values (N, ...)
+to get a (Q, N) result, or give both A rows to test lane by lane. The
+node tests run in the jitted walks of the reference, so their squared
+sums take the fused order (``geometry.sum_sq_fused``); the leaf tests
+take it when ``fused`` is set. Ray predicates and ``Nearest.exclude``
 come in later slices.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from . import geometry as G
+import torch
 
-__all__ = ["Intersects", "Nearest", "intersects", "nearest",
-           "lift", "leaf_match_test", "leaf_distance"]
+from . import geometry as G
+from .access import value_at
+
+__all__ = ["Intersects", "Nearest", "intersects", "nearest", "attach_data",
+           "lift", "take", "node_overlap_test", "node_min_distance",
+           "leaf_match_test", "leaf_distance"]
+
+
+def _to(data, device):
+    """A predicate payload (tensor, geometry, or a dict / tuple / list of
+    them) on `device`."""
+    if data is None:
+        return None
+    if isinstance(data, (torch.Tensor,) + G.GEOMETRIES):
+        return data.to(device)
+    if isinstance(data, dict):
+        return {k: _to(v, device) for k, v in data.items()}
+    if isinstance(data, (tuple, list)):
+        return type(data)(_to(v, device) for v in data)
+    raise TypeError(f"cannot move predicate data of type {type(data).__name__}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,7 +47,8 @@ class Intersects:
         return len(self.geom)
 
     def to(self, device) -> "Intersects":
-        return dataclasses.replace(self, geom=self.geom.to(device))
+        return dataclasses.replace(self, geom=self.geom.to(device),
+                                   data=_to(self.data, device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +69,8 @@ class Nearest:
         return len(self.geom)
 
     def to(self, device) -> "Nearest":
-        return dataclasses.replace(self, geom=self.geom.to(device))
+        return dataclasses.replace(self, geom=self.geom.to(device),
+                                   data=_to(self.data, device))
 
 
 def intersects(geom, data=None) -> Intersects:
@@ -58,6 +81,18 @@ def intersects(geom, data=None) -> Intersects:
 
 def nearest(geom, k: int = 1, data=None, exclude=None) -> Nearest:
     return Nearest(geom, k, data, exclude)
+
+
+def attach_data(pred, data):
+    """ArborX::attach analogue: the predicate with payload `data` (one row
+    per predicate), handed to callbacks as ``pred.data``."""
+    return dataclasses.replace(pred, data=data)
+
+
+def take(pred, i):
+    """Rows `i` of a predicate array, its payload included."""
+    data = None if pred.data is None else value_at(pred.data, i)
+    return dataclasses.replace(pred, geom=pred.geom.index(i), data=data)
 
 
 def lift(pred):
@@ -74,7 +109,34 @@ def lift(pred):
     return dataclasses.replace(pred, geom=g)
 
 
-def leaf_match_test(pred, values):
+def node_overlap_test(pred, lo, hi):
+    """May the subtree under box [lo, hi] hold matches of the Intersects
+    predicate `pred`?"""
+    if not isinstance(pred, Intersects):
+        raise TypeError(f"no overlap test for predicate {type(pred).__name__}")
+    g = pred.geom
+    G._check(g)
+    if isinstance(g, G.Points):
+        return G.intersects_box_point(lo, hi, g.coords)
+    if isinstance(g, G.Boxes):
+        return G.intersects_box_box(g.lo, g.hi, lo, hi)
+    return G.intersects_box_sphere(lo, hi, g.center, g.radius, fused=True)
+
+
+def node_min_distance(pred, lo, hi):
+    """Lower bound of the distance from the query to box [lo, hi]."""
+    g = pred.geom
+    G._check(g)
+    if isinstance(g, G.Points):
+        return G.distance_point_box(g.coords, lo, hi, fused=True)
+    if isinstance(g, G.Spheres):
+        return torch.clamp_min(
+            G.distance_point_box(g.center, lo, hi, fused=True) - g.radius, 0.0)
+    d = torch.clamp_min(torch.maximum(lo - g.hi, g.lo - hi), 0.0)
+    return G.sqrt(G.sum_sq_fused(d))
+
+
+def leaf_match_test(pred, values, fused: bool = False):
     """Exact (fine) Intersects test of `pred.geom` against `values`.
     Spheres over Points take the sqrt form, spheres over Boxes the
     squared form, as in the reference."""
@@ -88,25 +150,27 @@ def leaf_match_test(pred, values):
             return G.intersects_box_point(values.lo, values.hi, g.coords)
         if isinstance(values, G.Points):
             return (values.coords == g.coords).all(dim=-1)
-        return G.distance_point_point(g.coords, values.center) <= values.radius
+        return (G.distance_point_point(g.coords, values.center, fused)
+                <= values.radius)
     if isinstance(g, G.Spheres):
         if isinstance(values, G.Points):
-            return G.distance_point_point(g.center, values.coords) <= g.radius
+            return (G.distance_point_point(g.center, values.coords, fused)
+                    <= g.radius)
         if isinstance(values, G.Boxes):
             return G.intersects_box_sphere(values.lo, values.hi, g.center,
-                                           g.radius)
-        return (G.distance_point_point(g.center, values.center)
+                                           g.radius, fused)
+        return (G.distance_point_point(g.center, values.center, fused)
                 <= g.radius + values.radius)
     vb = G.to_boxes(values)
     return G.intersects_box_box(g.lo, g.hi, vb.lo, vb.hi)
 
 
-def leaf_distance(pred, values):
+def leaf_distance(pred, values, fused: bool = False):
     """Fine distance from the query centroid to the leaf values."""
     q = G.centroid(pred.geom)
     G._check(values)
     if isinstance(values, G.Points):
-        return G.distance_point_point(q, values.coords)
+        return G.distance_point_point(q, values.coords, fused)
     if isinstance(values, G.Boxes):
-        return G.distance_point_box(q, values.lo, values.hi)
-    return G.distance_point_sphere(q, values.center, values.radius)
+        return G.distance_point_box(q, values.lo, values.hi, fused)
+    return G.distance_point_sphere(q, values.center, values.radius, fused)

@@ -7,7 +7,9 @@ block size do not carry over: the kernels read the tree from device
 memory and write their buffers there. So the kernel route serves every
 Points/Boxes-valued Intersects or Nearest batch that brute force does not
 take, up to the k the kNN kernel's buckets reach
-(``kernels.bvh_traverse.KNN_MAX_K``).
+(``kernels.bvh_traverse.KNN_MAX_K``). Callback batches read no rule:
+brute force never runs callbacks, and the loop route only serves what
+the callback kernel cannot run, so there is no crossover to hold.
 
 Defaults are built in; the reference's persisted ``ROUTE_TABLE.json``
 is not read (it was measured on a CPU). An H100 table is measured by a

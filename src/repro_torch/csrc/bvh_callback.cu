@@ -1,0 +1,326 @@
+// Rope-walk BVH traversal with a callback applied in the epilogue, early
+// exit by `done`.
+//
+// Replaces: src/repro/kernels/bvh_callback.py::bvh_traverse_callback (body
+//   _callback_kernel), for Intersects predicates over Points, Boxes and
+//   Spheres values. The TPU kernel traced the user's callback into a
+//   block of lockstep cursors with the tree staged in VMEM; here each
+//   callback the kernel runs is a fixed epilogue (a template parameter,
+//   one instance per kind of repro_torch.core.callbacks), and one thread
+//   walks one query's cursor: the node sequence of traversal.walk and of
+//   bvh_traverse_spatial (descend left while the node test and the
+//   range_last > min_pos filter pass, else escape by the rope).
+// Bound on this card: the same pointer chase as bvh_traverse.cu, a
+//   node box (2 * dim floats) and an int32 or two per visited node at a
+//   data-dependent address; a leaf adds the value's geometry and, for
+//   the min_where epilogue, one flag and one weight. Latency-bound.
+// Design: tree, values and the min_where arrays are read through __ldg
+//   from global memory, with no node cap; the query geometry and the
+//   scalar state live in registers; collect_* epilogues write their
+//   slots straight into the (Q, cap) state outputs, which the wrapper
+//   fills with the initial state. Node test: the predicate geometry's own
+//   test against the node box (point in box, box overlap, or the squared
+//   sphere-box distance); leaf test: predicates.leaf_match_test of the
+//   (predicate, value) pair. Squared sums are g0*g0 then one __fmaf_rn
+//   per further dimension under --fmad=false, sqrtf is IEEE: the order of
+//   geometry.sum_sq_fused, so states equal the twin's bit for bit.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kMaxDim = 16;
+constexpr int kThreads = 256;
+enum Kind { kPoints = 0, kBoxes = 1, kSpheres = 2 };
+
+struct Tree {
+  const float* __restrict__ lo;          // (2n-1, dim)
+  const float* __restrict__ hi;          // (2n-1, dim)
+  const int* __restrict__ rope;          // (2n-1,)
+  const int* __restrict__ left;          // (n-1,)
+  const int* __restrict__ range_last;    // (2n-1,)
+  const int* __restrict__ perm;          // (n,)
+  int n;
+  int dim;
+};
+
+// A geometry array: Points (a = coords), Boxes (a = lo, b = hi) or
+// Spheres (a = center, r = radius).
+struct Geom {
+  const float* __restrict__ a;
+  const float* __restrict__ b;
+  const float* __restrict__ r;
+  int kind;
+};
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+
+// ---------------------------------------------------------------------------
+// epilogues: load the state, apply one hit (returns done), store
+// ---------------------------------------------------------------------------
+
+struct Counting {
+  int* s;
+  int c;
+  __device__ void load(int qi) { c = s[qi]; }
+  __device__ bool hit(int, int, float) { ++c; return false; }
+  __device__ void store(int qi) { s[qi] = c; }
+};
+
+struct CountWithLimit {
+  int* s;
+  int limit;
+  int c;
+  __device__ void load(int qi) { c = s[qi]; }
+  __device__ bool hit(int, int, float) { ++c; return c >= limit; }
+  __device__ void store(int qi) { s[qi] = c; }
+};
+
+struct MinDistance {
+  float* s;
+  float m;
+  __device__ void load(int qi) { m = s[qi]; }
+  __device__ bool hit(int, int, float t) { m = min_nan(m, t); return false; }
+  __device__ void store(int qi) { s[qi] = m; }
+};
+
+// collect_first_k (stops counting at k) and collect_hits (counts on past
+// capacity): slot c of the query's row takes the hit while c < width
+template <bool kFirstK>
+struct Collect {
+  int* count;
+  int* idxs;      // (q, width)
+  float* ts;      // (q, width)
+  int width;
+  int early_exit;
+  int c;
+  __device__ void load(int qi) { c = count[qi]; }
+  __device__ bool hit(int qi, int orig, float t) {
+    if (c < width) {
+      const long long o = static_cast<long long>(qi) * width + c;
+      idxs[o] = orig;
+      ts[o] = t;
+      ++c;
+    } else if (!kFirstK) {
+      ++c;
+    }
+    return kFirstK && early_exit && c >= width;
+  }
+  __device__ void store(int qi) { count[qi] = c; }
+};
+
+struct MinWhere {
+  int* s;
+  const unsigned char* __restrict__ flags;   // (n,) bool
+  const int* __restrict__ weights;           // (n,)
+  int big;
+  int m;
+  __device__ void load(int qi) { m = s[qi]; }
+  __device__ bool hit(int, int orig, float) {
+    const int w = __ldg(flags + orig) ? __ldg(weights + orig) : big;
+    m = min(m, w);
+    return false;
+  }
+  __device__ void store(int qi) { s[qi] = m; }
+};
+
+// ---------------------------------------------------------------------------
+// the walk
+// ---------------------------------------------------------------------------
+
+template <class Ep>
+__global__ void callback_kernel(Tree t, Geom pg, Geom vg,
+                                const int* __restrict__ min_pos, int q,
+                                const Ep ep0) {
+  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
+  if (qi >= q) return;
+  const int dim = t.dim;
+  float qa[kMaxDim], qb[kMaxDim];
+#pragma unroll
+  for (int c = 0; c < kMaxDim; ++c) {
+    if (c < dim) {
+      qa[c] = pg.a[static_cast<long long>(qi) * dim + c];
+      qb[c] = pg.kind == kBoxes ? pg.b[static_cast<long long>(qi) * dim + c]
+                                : qa[c];
+    }
+  }
+  const float qr = pg.kind == kSpheres ? pg.r[qi] : 0.0f;
+  const float qr2 = qr * qr;
+  const int mp = min_pos[qi];
+  Ep ep = ep0;
+  ep.load(qi);
+
+  int node = 0;
+  bool done = false;
+  while (node != -1 && !done) {
+    const float* lo = t.lo + static_cast<long long>(node) * dim;
+    const float* hi = t.hi + static_cast<long long>(node) * dim;
+    bool overlap = true;
+    if (pg.kind == kSpheres) {
+      float d2 = 0.0f;
+#pragma unroll
+      for (int c = 0; c < kMaxDim; ++c) {
+        if (c < dim) {
+          const float g = max_nan(max_nan(__ldg(lo + c) - qa[c],
+                                          qa[c] - __ldg(hi + c)), 0.0f);
+          d2 = c == 0 ? g * g : __fmaf_rn(g, g, d2);
+        }
+      }
+      overlap = d2 <= qr2;
+    } else {
+      // a point is the box [p, p]: lo <= q_hi and q_lo <= hi per axis
+#pragma unroll
+      for (int c = 0; c < kMaxDim; ++c) {
+        if (c < dim) {
+          overlap = overlap && __ldg(lo + c) <= qb[c] && qa[c] <= __ldg(hi + c);
+        }
+      }
+    }
+    if (node < t.n - 1) {
+      node = overlap && __ldg(t.range_last + node) > mp ? __ldg(t.left + node)
+                                                        : __ldg(t.rope + node);
+      continue;
+    }
+    const int pos = node - (t.n - 1);
+    if (overlap && pos > mp) {
+      const int orig = __ldg(t.perm + pos);
+      const long long vo = static_cast<long long>(orig) * dim;
+      bool fine = true;
+      if (pg.kind == kBoxes || (pg.kind == kPoints && vg.kind != kSpheres)) {
+        // box overlap with the value's bounding box (to_boxes); a point
+        // predicate is the box [p, p] and a point value the box [v, v]
+        const float vr = vg.kind == kSpheres ? __ldg(vg.r + orig) : 0.0f;
+#pragma unroll
+        for (int c = 0; c < kMaxDim; ++c) {
+          if (c < dim) {
+            const float a = __ldg(vg.a + vo + c);
+            float vlo = a, vhi = a;
+            if (vg.kind == kBoxes) vhi = __ldg(vg.b + vo + c);
+            if (vg.kind == kSpheres) { vlo = a - vr; vhi = a + vr; }
+            if (pg.kind == kPoints && vg.kind == kPoints) {
+              fine = fine && a == qa[c];
+            } else {
+              fine = fine && qa[c] <= vhi && vlo <= qb[c];
+            }
+          }
+        }
+      } else if (vg.kind == kBoxes) {
+        // a sphere over a box: squared distance from the centre
+        float d2 = 0.0f;
+#pragma unroll
+        for (int c = 0; c < kMaxDim; ++c) {
+          if (c < dim) {
+            const float g = max_nan(max_nan(__ldg(vg.a + vo + c) - qa[c],
+                                            qa[c] - __ldg(vg.b + vo + c)),
+                                    0.0f);
+            d2 = c == 0 ? g * g : __fmaf_rn(g, g, d2);
+          }
+        }
+        fine = d2 <= qr2;
+      } else {
+        // centre distances, sqrt form: a sphere over a point, a point in
+        // a sphere, a sphere over a sphere
+        float d2 = 0.0f;
+#pragma unroll
+        for (int c = 0; c < kMaxDim; ++c) {
+          if (c < dim) {
+            const float g = qa[c] - __ldg(vg.a + vo + c);
+            d2 = c == 0 ? g * g : __fmaf_rn(g, g, d2);
+          }
+        }
+        float lim = qr;
+        if (vg.kind == kSpheres) {
+          lim = pg.kind == kPoints ? __ldg(vg.r + orig) : qr + __ldg(vg.r + orig);
+        }
+        fine = sqrtf(d2) <= lim;
+      }
+      if (fine) done = ep.hit(qi, orig, 0.0f);
+    }
+    node = __ldg(t.rope + node);
+  }
+  ep.store(qi);
+}
+
+template <class Ep>
+void launch(const Tree& t, const Geom& pg, const Geom& vg, const int* mp,
+            int q, const Ep& ep, cudaStream_t stream) {
+  const int blocks = (q + kThreads - 1) / kThreads;
+  callback_kernel<Ep><<<blocks, kThreads, 0, stream>>>(t, pg, vg, mp, q, ep);
+}
+
+enum Epilogue {
+  kCounting = 0,
+  kCountWithLimit = 1,
+  kMinDistance = 2,
+  kCollectFirstK = 3,
+  kCollectHits = 4,
+  kMinWhere = 5,
+};
+
+}  // namespace
+
+// state0 / state1 / state2: the state leaves in place (filled with the
+// initial state): int32 counts or float32 minima (Q,), then for collect_*
+// int32 indices and float32 t (Q, param). param: the limit, k or capacity.
+REPRO_EXPORT int bvh_callback_launch(
+    const void* node_lo, const void* node_hi, const void* rope,
+    const void* left, const void* range_last, const void* perm,
+    const void* pred_a, const void* pred_b, const void* pred_r,
+    const void* val_a, const void* val_b, const void* val_r,
+    const void* min_pos, int n, int q, int dim, int pred_kind, int val_kind,
+    int epilogue, int param, int early_exit, int big, void* state0,
+    void* state1, void* state2, const void* flags, const void* weights,
+    void* stream) {
+  if (dim < 1 || dim > kMaxDim || n < 2 || pred_kind < 0 || pred_kind > 2 ||
+      val_kind < 0 || val_kind > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Tree t{static_cast<const float*>(node_lo), static_cast<const float*>(node_hi),
+         static_cast<const int*>(rope), static_cast<const int*>(left),
+         static_cast<const int*>(range_last), static_cast<const int*>(perm),
+         n, dim};
+  Geom pg{static_cast<const float*>(pred_a), static_cast<const float*>(pred_b),
+          static_cast<const float*>(pred_r), pred_kind};
+  Geom vg{static_cast<const float*>(val_a), static_cast<const float*>(val_b),
+          static_cast<const float*>(val_r), val_kind};
+  auto mp = static_cast<const int*>(min_pos);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto s0 = static_cast<int*>(state0);
+  switch (epilogue) {
+    case kCounting:
+      launch(t, pg, vg, mp, q, Counting{s0, 0}, s);
+      break;
+    case kCountWithLimit:
+      launch(t, pg, vg, mp, q, CountWithLimit{s0, param, 0}, s);
+      break;
+    case kMinDistance:
+      launch(t, pg, vg, mp, q, MinDistance{static_cast<float*>(state0), 0.0f},
+             s);
+      break;
+    case kCollectFirstK:
+    case kCollectHits:
+      if (param < 1) return static_cast<int>(cudaErrorInvalidValue);
+      if (epilogue == kCollectFirstK) {
+        launch(t, pg, vg, mp, q,
+               Collect<true>{s0, static_cast<int*>(state1),
+                             static_cast<float*>(state2), param, early_exit, 0},
+               s);
+      } else {
+        launch(t, pg, vg, mp, q,
+               Collect<false>{s0, static_cast<int*>(state1),
+                              static_cast<float*>(state2), param, 0, 0},
+               s);
+      }
+      break;
+    case kMinWhere:
+      launch(t, pg, vg, mp, q,
+             MinWhere{s0, static_cast<const unsigned char*>(flags),
+                      static_cast<const int*>(weights), big, 0},
+             s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

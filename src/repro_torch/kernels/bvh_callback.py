@@ -1,0 +1,188 @@
+"""Rope-walk traversal with the callback fused into the walk's epilogue:
+``bvh_traverse_callback``, with its plain twin ``bvh_traverse_callback_ref``.
+
+The kernel (``csrc/bvh_callback.cu``) runs the epilogues of
+``core.callbacks`` (counting, count_with_limit, min_distance,
+collect_first_k, collect_hits, and DBSCAN's min_where) for Intersects
+predicates over Points, Boxes or Spheres, against values of those three
+geometries, up to ``MAX_DIM`` dimensions; :func:`expressible` says
+whether a call is one of those, and the wrapper raises on a geometry that
+is not float32 or a state that is not the epilogue's layout. Its
+per-query final states equal the twin's bit for bit. The twin is
+``core.traversal.walk`` with the epilogue's torch body: the reference
+pins its kernel bit-identical to that walk.
+
+A CPU tensor takes the twin; a CUDA tensor launches the kernel (one
+thread per query, the state held in registers or written straight to the
+(Q, cap) outputs); any other device raises. The kernel's launch count is
+``bvh_traverse_callback.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core import callbacks as CB
+from ..core import geometry as G
+from ..core import predicates as P
+from ..core import traversal
+from . import _build
+from .bvh_traverse import MAX_DIM, _check_tree, _device_of, _stream
+
+__all__ = ["bvh_traverse_callback", "bvh_traverse_callback_ref",
+           "expressible"]
+
+_KIND = {G.Points: 0, G.Boxes: 1, G.Spheres: 2}
+_EPILOGUE = {"counting": 0, "count_with_limit": 1, "min_distance": 2,
+             "collect_first_k": 3, "collect_hits": 4, "min_where": 5}
+
+
+def _state_leaves(state0):
+    return list(state0) if isinstance(state0, (tuple, list)) else [state0]
+
+
+def expressible(values, predicates, callback) -> bool:
+    """Is this a call the kernel runs: an epilogue callback, Intersects over
+    Points/Boxes/Spheres, values of those geometries, at most MAX_DIM
+    dimensions? Dtypes and the state's layout are not asked here: the
+    wrapper raises on those."""
+    return (isinstance(callback, CB.Epilogue)
+            and isinstance(predicates, P.Intersects)
+            and type(predicates.geom) in _KIND and type(values) in _KIND
+            and 1 <= values.dim <= MAX_DIM)
+
+
+def _check_call(what, n, values, predicates, callback, state0):
+    """Raise ValueError unless the kernel can run the call on these dtypes
+    and this state layout."""
+    if not expressible(values, predicates, callback):
+        raise ValueError(f"{what}: the kernel runs the epilogues of "
+                         "core.callbacks for Intersects over Points/Boxes/"
+                         f"Spheres values in at most {MAX_DIM} dimensions")
+    if predicates.geom.dim != values.dim:
+        raise ValueError(f"{what}: predicates in {predicates.geom.dim} "
+                         f"dimensions against values in {values.dim}")
+    for name, g in (("values", values), ("predicates", predicates.geom)):
+        for field, a in vars(g).items():
+            if a.dtype != torch.float32:
+                raise ValueError(f"{what}: {name}.{field} must be float32, "
+                                 f"got {a.dtype}")
+    leaves = _state_leaves(state0)
+    layout = [((len(predicates),) + shp, dt) for shp, dt in callback.layout()]
+    got = [(tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor) else a
+           for a in leaves]
+    if got != layout:
+        raise ValueError(f"{what}: a {callback.kind} state must be "
+                         f"{layout}, got {got}")
+    if callback.kind == "min_where" and not (
+            callback.flags.shape == callback.weights.shape == (n,)):
+        raise ValueError(f"{what}: min_where needs flags and weights of the "
+                         f"tree's {n} values")
+
+
+def bvh_traverse_callback_ref(node_lo, node_hi, rope, left_child, range_last,
+                              leaf_perm, values, predicates, callback, state0,
+                              *, min_pos=None):
+    """The kernel's plain twin: the batched walk with the epilogue's body."""
+    return traversal.walk(node_lo, node_hi, rope, left_child, range_last,
+                          leaf_perm, values, predicates, callback, state0,
+                          min_pos=min_pos)
+
+
+def _geom_ptrs(g, dev, what):
+    """(a, b, r) contiguous tensors of a geometry array on `dev` (None
+    where the kind has no such field)."""
+    if isinstance(g, G.Points):
+        arrays = (g.coords, None, None)
+    elif isinstance(g, G.Boxes):
+        arrays = (g.lo, g.hi, None)
+    else:
+        arrays = (g.center, None, g.radius)
+    out = []
+    for a in arrays:
+        if a is not None:
+            if a.device != dev:
+                raise ValueError(f"{what}: geometry is on {a.device}, "
+                                 f"not {dev}")
+            a = a.contiguous()
+        out.append(a)
+    return out
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+_ARGS = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
+         + [ctypes.c_void_p] * 6)
+
+
+def bvh_traverse_callback(node_lo, node_hi, rope, left_child, range_last,
+                          leaf_perm, values, predicates, callback, state0, *,
+                          min_pos=None):
+    """Per-query final states (the structure of `state0`, batched (Q, ...))
+    of an epilogue callback over the matches of `predicates` in the tree.
+    Raises when :func:`expressible` does not hold, on a geometry that is
+    not float32, or on a state that is not the epilogue's layout."""
+    what = "bvh_traverse_callback"
+    _check_call(what, leaf_perm.shape[0], values, predicates, callback, state0)
+    if _device_of(node_lo, what) == "cpu":
+        return bvh_traverse_callback_ref(
+            node_lo, node_hi, rope, left_child, range_last, leaf_perm, values,
+            predicates, callback, state0, min_pos=min_pos)
+    dev = node_lo.device
+    q = len(predicates)
+    n = leaf_perm.shape[0]
+    dim = values.dim
+    tree = [node_lo, node_hi, rope, left_child, range_last, leaf_perm]
+    for name, t, dt in zip(("node_lo", "node_hi", "rope", "left_child",
+                            "range_last", "leaf_perm"), tree,
+                           (torch.float32,) * 2 + (torch.int32,) * 4):
+        if t.device != dev or t.dtype != dt:
+            raise ValueError(f"{what}: {name} must be {dt} on {dev}")
+    tree = [t.contiguous() for t in tree]
+    _check_tree(what, n, dim, tree[0], tree[1], tree[2], tree[3], tree[5])
+    if tree[4].shape != (2 * n - 1,) or len(values) != n:
+        raise ValueError(f"{what}: range_last and values must match the "
+                         f"tree's {n} leaves")
+    pa, pb, pr = _geom_ptrs(predicates.geom, dev, what)
+    va, vb, vr = _geom_ptrs(values, dev, what)
+    mp = (torch.full((q,), -1, dtype=torch.int32, device=dev)
+          if min_pos is None else min_pos.to(device=dev, dtype=torch.int32)
+          .contiguous())
+    leaves = _state_leaves(state0)
+    for a in leaves:
+        if a.device != dev:
+            raise ValueError(f"{what}: state is on {a.device}, not {dev}")
+    out = [torch.empty_like(a, memory_format=torch.contiguous_format).copy_(a)
+           for a in leaves]
+    flags = weights = None
+    param, early_exit, big = 0, 0, 0
+    kind = callback.kind
+    if kind == "count_with_limit":
+        param = callback.limit
+    elif kind == "collect_first_k":
+        param, early_exit = callback.k, int(callback.early_exit)
+    elif kind == "collect_hits":
+        param = callback.capacity
+    elif kind == "min_where":
+        flags, weights, big = callback.flags, callback.weights, callback.big
+        if flags.device != dev or weights.device != dev:
+            raise ValueError(f"{what}: min_where arrays must be on {dev}")
+        flags, weights = flags.contiguous(), weights.contiguous()
+    if q:
+        fn = _build.function("bvh_callback", "bvh_callback_launch", _ARGS)
+        with torch.cuda.device(dev):
+            err = fn(*(t.data_ptr() for t in tree), _ptr(pa), _ptr(pb),
+                     _ptr(pr), _ptr(va), _ptr(vb), _ptr(vr), mp.data_ptr(),
+                     n, q, dim, _KIND[type(predicates.geom)],
+                     _KIND[type(values)], _EPILOGUE[kind], param, early_exit,
+                     big, *(_ptr(a) for a in (out + [None, None])[:3]),
+                     _ptr(flags), _ptr(weights), _stream(dev))
+        _build.check("bvh_callback", err, what)
+        bvh_traverse_callback.launches += 1
+    return type(state0)(out) if isinstance(state0, (tuple, list)) else out[0]
+
+
+bvh_traverse_callback.launches = 0

@@ -16,9 +16,13 @@ import sys
 import pytest
 import torch
 
-from repro_torch import BVH, BruteForce, ExecutionPolicy
+from repro_torch import BVH, BruteForce, ExecutionPolicy, dbscan
+from repro_torch.core import callbacks as CB
 from repro_torch.core import geometry as TG
 from repro_torch.core import lbvh as TL
+from repro_torch.core import predicates as TP
+from repro_torch.core.index import _bcast_state
+from repro_torch.kernels import bvh_callback as TC
 from repro_torch.kernels import bvh_traverse as TT
 from repro_torch.kernels import lbvh_build as TK
 
@@ -68,6 +72,11 @@ def test_port_runs_with_jax_blocked():
         "r = idx.query(rt.intersects(Spheres(pts[:5], torch.full((5,), 0.3))))\n"
         "k = idx.query(rt.nearest(Points(pts[:5]), k=3))\n"
         "assert int(r.offsets[-1]) >= 5 and k.indices[:, 0].tolist() == list(range(5))\n"
+        "c = idx.query(rt.intersects(Spheres(pts[:5], torch.full((5,), 0.3))),\n"
+        "              callback=rt.callbacks.counting())\n"
+        "assert c.tolist() == r.offsets.diff().tolist()\n"
+        "labels, core = rt.dbscan(pts, 0.3, 3, policy=pol)\n"
+        "assert labels.shape == (64,) and bool(core.any())\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules\n"
         "               if sys.modules[m] is not None)\n"
         "print('ok')\n")
@@ -86,10 +95,15 @@ def test_default_device_is_the_card_and_raises_without_one(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     pts = TG.Points(torch.rand((10, 3)))
     for make in (lambda: BVH(pts), lambda: BruteForce(pts),
-                 lambda: BVH(pts, policy=ExecutionPolicy())):
+                 lambda: BVH(pts, policy=ExecutionPolicy()),
+                 lambda: dbscan(pts.coords, 0.1, 3)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     assert BVH(pts, policy=ExecutionPolicy(device="cpu")).device.type == "cpu"
+
+
+CALLBACK_TREE = ("node_lo", "node_hi", "rope", "left_child", "range_last",
+                 "leaf_perm")
 
 
 def _tree_args(n=32):
@@ -113,22 +127,32 @@ def test_wrappers_refuse_other_devices():
     k = torch.zeros((8,), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         TK.karras_ranges(k, k, k, 8, 3)
+    cb, s0 = CB.counting()
+    with pytest.raises(ValueError, match="no kernel"):
+        TC.bvh_traverse_callback(
+            *(meta[f] for f in CALLBACK_TREE), TG.Points(x.to("meta")),
+            TP.intersects(TG.Points(q)), cb, _bcast_state(s0, 4, "meta"))
 
 
 def test_wrappers_have_no_try_and_count_only_kernel_launches():
     """Read the dispatch: no try/except in the wrappers (no "build failed,
     use the twin"), and a CPU call leaves the launch counters alone."""
-    for mod in (TT, TK):
+    for mod in (TT, TK, TC):
         tree = ast.parse(open(mod.__file__).read())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), mod
     t, x = _tree_args()
     before = (TK.karras_ranges.launches, TT.bvh_traverse_spatial.launches,
-              TT.bvh_traverse_knn.launches)
+              TT.bvh_traverse_knn.launches, TC.bvh_traverse_callback.launches)
     TL.build(TG.Boxes(x, x))
     TT.bvh_traverse_knn(t.node_lo, t.node_hi, t.rope, t.left_child,
                         t.leaf_perm, x[:3], k=2)
+    cb, s0 = CB.counting()
+    TC.bvh_traverse_callback(*(getattr(t, f) for f in CALLBACK_TREE),
+                             TG.Points(x), TP.intersects(TG.Points(x[:3])),
+                             cb, _bcast_state(s0, 3, "cpu"))
     assert (TK.karras_ranges.launches, TT.bvh_traverse_spatial.launches,
-            TT.bvh_traverse_knn.launches) == before
+            TT.bvh_traverse_knn.launches,
+            TC.bvh_traverse_callback.launches) == before
 
 
 # ---------------------------------------------------------------------------
@@ -150,6 +174,7 @@ def test_wrappers_on_the_card_never_call_the_twins(cuda_device, monkeypatch):
     monkeypatch.setattr(TT, "bvh_traverse_spatial_ref", boom)
     monkeypatch.setattr(TT, "bvh_traverse_knn_ref", boom)
     monkeypatch.setattr(TK, "karras_ranges_fused", boom)
+    monkeypatch.setattr(TC, "bvh_traverse_callback_ref", boom)
     x = torch.rand((500, 3), device=cuda_device)
     t = TL.build(TG.Boxes(x, x))
     r = torch.full((20,), 0.1, device=cuda_device)
@@ -158,8 +183,14 @@ def test_wrappers_on_the_card_never_call_the_twins(cuda_device, monkeypatch):
                                    capacity=8, fine_sqrt=True)
     d, i = TT.bvh_traverse_knn(t.node_lo, t.node_hi, t.rope, t.left_child,
                                t.leaf_perm, x[:20], k=3)
+    cb, s0 = CB.counting()
+    s = TC.bvh_traverse_callback(
+        *(getattr(t, f) for f in CALLBACK_TREE), TG.Points(x),
+        TP.intersects(TG.Spheres(x[:20], r)), cb,
+        _bcast_state(s0, 20, cuda_device))
     torch.cuda.synchronize()
     assert bool((c >= 1).all()) and i[:, 0].tolist() == list(range(20))
+    assert torch.equal(s, c)
 
 
 @pytest.mark.cuda
@@ -192,3 +223,50 @@ def test_kernels_match_twins_on_the_card(cuda_device, n):
                                 gpu_tree.rope, gpu_tree.left_child,
                                 gpu_tree.leaf_perm, q.to(cuda_device), k=k)
         assert all(torch.equal(u, v.cpu()) for u, v in zip(a, b))
+
+
+def _callback_case(vkind, qkind, name, dev, n=3000, q=400, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    c = torch.rand((n, 3), generator=g)
+    values = {"points": TG.Points(c),
+              "boxes": TG.Boxes(c, c + 0.03 * torch.rand((n, 3), generator=g)),
+              "spheres": TG.Spheres(c, 0.03 * torch.rand((n,), generator=g))}[vkind]
+    qc = torch.rand((q, 3), generator=g)
+    qc[::3] = c[:q:3]                                  # exact point hits
+    geom = {"points": TG.Points(qc), "boxes": TG.Boxes(qc, qc + 0.08),
+            "spheres": TG.Spheres(qc, torch.full((q,), 0.06))}[qkind]
+    flags = torch.rand((n,), generator=g) < 0.5
+    weights = torch.randint(0, 10 * n, (n,), generator=g, dtype=torch.int32)
+    cb, s0 = {"counting": CB.counting, "min_distance": CB.min_distance,
+              "count_with_limit": lambda: CB.count_with_limit(5),
+              "collect_first_k": lambda: CB.collect_first_k(8),
+              "collect_hits": lambda: CB.collect_hits(32),
+              "min_where": lambda: CB._min_where(flags, weights, 10**9)}[name]()
+    values = values.to(dev)
+    tree = TL.build(TG.to_boxes(values))
+    if name == "min_where":
+        cb = CB._min_where(flags.to(dev), weights.to(dev), 10**9)[0]
+    return ([getattr(tree, f) for f in CALLBACK_TREE], values,
+            TP.intersects(geom.to(dev)), cb, _bcast_state(s0, q, dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qkind", ["points", "boxes", "spheres"])
+@pytest.mark.parametrize("vkind", ["points", "boxes", "spheres"])
+@pytest.mark.parametrize("name", ["counting", "count_with_limit",
+                                  "min_distance", "collect_first_k",
+                                  "collect_hits", "min_where"])
+def test_callback_kernel_matches_twin_on_the_card(cuda_device, name, vkind,
+                                                  qkind):
+    """Every epilogue over every (predicate, value) geometry pair: the
+    kernel's final states equal its twin's bit for bit."""
+    args = _callback_case(vkind, qkind, name, cuda_device)
+    before = TC.bvh_traverse_callback.launches
+    got = TC.bvh_traverse_callback(*args[0], *args[1:])
+    torch.cuda.synchronize()
+    assert TC.bvh_traverse_callback.launches == before + 1
+    want = TC.bvh_traverse_callback_ref(*args[0], *args[1:])
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)

@@ -195,15 +195,17 @@ def test_routes_follow_the_route_table():
     sv = TG.Spheres(torch.rand((600, DIM)), torch.full((600,), 0.1))
     sphere_index = BVH(sv, policy=ExecutionPolicy(device=CPU))
     assert eng.route_spatial(sphere_index, big) == TE.ROUTE_LOOP
-    with pytest.raises(NotImplementedError, match="loop"):
-        sphere_index.query(big)
+    on_centres = TP.intersects(TG.Points(sv.center.repeat(14, 1)[:8000]))
+    res = sphere_index.query(on_centres)     # the loop route answers it
+    want = BruteForce(sv, policy=ExecutionPolicy(device=CPU)).count(on_centres)
+    assert torch.equal(res.offsets.diff(), want) and bool((want >= 1).all())
     with pytest.raises(ValueError):
         EngineConfig(force="pallas")
 
 
 def test_values_above_the_kernel_dim_cap_take_the_loop_route():
     """More dimensions than the kernels take: brute force below the
-    threshold, the (unported) loop route above it, never the kernels."""
+    threshold, the loop route above it, never the kernels."""
     from repro_torch.kernels.bvh_traverse import MAX_DIM
     dim = MAX_DIM + 1
     index = BVH(TG.Points(torch.rand((600, dim))),
@@ -216,6 +218,14 @@ def test_values_above_the_kernel_dim_cap_take_the_loop_route():
         TE.ROUTE_BRUTEFORCE
     assert index.query(TP.nearest(TG.Points(small), k=2)).indices.shape == (4, 2)
     big = torch.zeros((8000, dim))
-    for pred in (TP.intersects(TG.Points(big)), TP.nearest(TG.Points(big), k=2)):
-        with pytest.raises(NotImplementedError, match="loop"):
-            index.query(pred)
+    big[:3] = index.values.coords[:3]
+    assert eng.route_spatial(index, TP.intersects(TG.Points(big))) == \
+        TE.ROUTE_LOOP
+    res = index.query(TP.intersects(TG.Points(big)))
+    assert res.indices[:3].tolist() == [0, 1, 2] and int(res.offsets[-1]) == 3
+    assert eng.route_knn(index, TP.nearest(TG.Points(big), k=2)) == \
+        TE.ROUTE_LOOP
+    knn = index.query(TP.nearest(TG.Points(big[:3]), k=2),
+                      policy=ExecutionPolicy(device=CPU, engine=QueryEngine(
+                          EngineConfig(force="loop"))))
+    assert knn.indices[:, 0].tolist() == [0, 1, 2]

@@ -52,6 +52,26 @@ Phases (one line or more each, then the two closing lines):
   9. loop route: ``query(callback=sum_payload(...))`` at Q = 2^12 on the
      card through the general walk, equal to the sums over the CSR result
      taken in the same order; the route counter shows ``loop``.
+ 10. rays: a triangle soup of N = 2^20 (a uniform in the unit cube, b and
+     c = a + U(-0.01, 0.01)^3) and R = 2^17 rays (uniform origins,
+     standard-normal directions). With the counters zeroed just before:
+     ``BVH(Triangles)``, ``cast_intersect`` and ``cast_ordered`` (two
+     callback-kernel launches each, no loop-route batch),
+     ``cast_nearest`` k = 1 and 4 (the loop walk, as in the reference)
+     and ``ray_box_nearest`` over the soup's bounding boxes; counters
+     read just after. Then, on all R rays: cast_ordered ascending in t
+     with cast_intersect's sets, cast_nearest's t equal to cast_ordered's
+     first k and its indices in cast_intersect's sets; every epilogue's
+     ray instance over the soup, the Boxes index and the Spheres index,
+     timed beside its bound and held against its twin (tolerance 0); on
+     2048 rays the hit sets against BruteForce (boxes equal; triangles
+     and spheres may differ only at pairs a float64 evaluation puts
+     within the float32 error bound of the boundary, counted) and, for
+     the soup, against a float64 oracle (differences only within 1e-5 of
+     an edge, counted);
+     ``ray_box_nearest`` against its twin and against ``cast_nearest(k=1)``
+     over ``BVH(Boxes)`` of the same boxes (t identical, indices where
+     the minimum is unique), timed beside its operations bound.
 
 The line before the last is ``{"kernels": [...]}`` (name, route, source,
 replaced TPU kernel, launches, max_abs_err, ms, plain_ms, bound_ms,
@@ -190,10 +210,13 @@ def _ptxas_summary(text):
         if m:
             k = re.search(r"(karras_kernel|spatial_kernelILb[01]E|knn_kernelILi\d+E)",
                           m.group(1))
-            cb = re.search(r"callback_kernel.*?(CountWithLimit|Counting|"
-                           r"MinDistance|CollectILb[01]E|MinWhere)", m.group(1))
-            fn = (f"callback_kernel<{cb.group(1)}>" if cb
-                  else k.group(1) if k else m.group(1))
+            cb = re.search(r"(callback_kernel|ray_kernel).*?(CountWithLimit|"
+                           r"Counting|MinDistance|CollectILb[01]E|MinWhere)",
+                           m.group(1))
+            rb = re.search(r"ray_box_kernel", m.group(1))
+            fn = (f"{cb.group(1)}<{cb.group(2)}>" if cb
+                  else k.group(1) if k else rb.group(0) if rb
+                  else m.group(1))
             fn = re.sub(r"ILb([01])E", r"<\1>", re.sub(r"ILi(\d+)E", r"<\1>", fn))
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
@@ -553,6 +576,10 @@ DB_SIGMA, DB_EPS, DB_MIN_PTS = 0.01, 0.003, 3
 Q_LOOP = 1 << 12
 
 
+EPILOGUE_NAMES = ("counting", "count_with_limit", "min_distance",
+                  "collect_first_k", "collect_hits", "min_where")
+
+
 def _epilogues(n, dev):
     """name -> (cb, state0) of every epilogue; min_where over seeded
     flags and int32 weights of the index's N values."""
@@ -872,6 +899,386 @@ def phase_loop_route(dev, pts, qc, policy):
         f"route counts {json.dumps(engine.callback_batches)}")
 
 
+# ---------------------------------------------------------------------------
+# slice 3: ray tracing (the callback kernel's ray kinds, ray_box_nearest)
+# ---------------------------------------------------------------------------
+
+TRI_HALF = 0.01          # b, c = a + U(-TRI_HALF, TRI_HALF)^3
+R_RAYS = 1 << 17
+EDGE_MARGIN = 1e-5       # float64 barycentric / t distance of a near-edge pair
+# A sphere pair is near the rim when, in float64, the discriminant
+# b^2 - d.d c lies within RIM_DISC d.d (|o-c|^2 + r^2) of 0, or
+# c = |o-c|^2 - r^2 within RIM_C (|o-c|^2 + r^2) of 0: the first-order
+# float32 error bound of either order (the walk's fused one, brute
+# force's eager one). o - c costs one rounding u = 2^-24, the sums of
+# three products up to three more, and b^2 <= d.d |o-c|^2, so the
+# discriminant is off by at most about 22 u d.d (|o-c|^2 + r^2), and c by
+# about 6 u (|o-c|^2 + r^2) plus the root's rounding near t = 0.
+RIM_DISC = 24 * 2.0 ** -24
+RIM_C = 12 * 2.0 ** -24
+
+# operations of one leaf test, counted from csrc/bvh_callback.cu: the slab
+# test (2 subtractions, 2 products, min, max and the two running extrema
+# per dimension, then clamp and compare), the quadratic and Moller-Trumbore
+RAY_LEAF_OPS = {"boxes": 8 * 3 + 3, "spheres": 3 * 9 + 12, "triangles": 50}
+RAY_VALUE_FLOATS = {"boxes": 6, "spheres": 4, "triangles": 9}
+
+
+def make_soup(dev):
+    """bench_raytracing.py's scene at N = 2^20: a uniform in the unit cube,
+    b and c = a + U(-0.01, 0.01)^3 (the triangle size tied to the mean
+    spacing); R = 2^17 rays from uniform origins with standard-normal
+    directions."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    a = torch.rand((N, 3), generator=gen, device=dev)
+    b = a + TRI_HALF * (2 * torch.rand((N, 3), generator=gen, device=dev) - 1)
+    c = a + TRI_HALF * (2 * torch.rand((N, 3), generator=gen, device=dev) - 1)
+    o = torch.rand((R_RAYS, 3), generator=gen, device=dev)
+    d = torch.randn((R_RAYS, 3), generator=gen, device=dev)
+    return a, b, c, o, d
+
+
+def ray_bound(r, n, vkind, state, leaves):
+    """Bound of one ray callback walk: the rays, every tree array and the
+    N values once, the state read in and written out, and one leaf test
+    per hit the answer needs."""
+    return bound(r * 6 * 4 + tree_bytes(n, 3, True)
+                 + n * RAY_VALUE_FLOATS[vkind] * 4 + 2 * _state_bytes(state),
+                 leaves * RAY_LEAF_OPS[vkind])
+
+
+def _tri64(o, d, a, b, c):
+    """Float64 Moller-Trumbore over broadcasting (..., 3) tensors, without
+    the port's code: (hit, near), `near` marking pairs within EDGE_MARGIN
+    of an edge, of t = 0 or of the det threshold."""
+    import torch
+    dx, dy, dz = d.double().unbind(-1)
+    a = a.double()
+    e1 = (b.double() - a).unbind(-1)
+    e2 = (c.double() - a).unbind(-1)
+    tv = (o.double() - a).unbind(-1)
+    p = (dy * e2[2] - dz * e2[1], dz * e2[0] - dx * e2[2],
+         dx * e2[1] - dy * e2[0])
+    det = e1[0] * p[0] + e1[1] * p[1] + e1[2] * p[2]
+    inv = 1.0 / torch.where(det.abs() < 1e-12, 1e-12, det)
+    u = (tv[0] * p[0] + tv[1] * p[1] + tv[2] * p[2]) * inv
+    qv = (tv[1] * e1[2] - tv[2] * e1[1], tv[2] * e1[0] - tv[0] * e1[2],
+          tv[0] * e1[1] - tv[1] * e1[0])
+    v = (dx * qv[0] + dy * qv[1] + dz * qv[2]) * inv
+    t = (e2[0] * qv[0] + e2[1] * qv[1] + e2[2] * qv[2]) * inv
+    hit = ((det.abs() > 1e-12) & (u >= -1e-7) & (v >= -1e-7)
+           & (u + v <= 1 + 1e-7) & (t >= 0))
+    edge = torch.minimum(torch.minimum((u + 1e-7).abs(), (v + 1e-7).abs()),
+                         (1 + 1e-7 - u - v).abs())
+    near = ((edge < EDGE_MARGIN) | (t.abs() < EDGE_MARGIN)
+            | ((det.abs() - 1e-12).abs() < 1e-9))
+    return hit, near
+
+
+def _triangle_oracle(o, d, a, b, c, block=32):
+    """(hit, near) (R, N) of every (ray, triangle) pair in float64."""
+    import torch
+    hits, nears = [], []
+    for s in range(0, o.shape[0], block):
+        h, nr = _tri64(o[s:s + block, None], d[s:s + block, None], a[None],
+                       b[None], c[None])
+        hits.append(h)
+        nears.append(nr)
+    return torch.cat(hits), torch.cat(nears)
+
+
+def _pair_keys(off, idx, n):
+    """Sorted (ray * n + index) keys of a CSR result."""
+    import torch
+    off = off.to(torch.int64)
+    rows = torch.repeat_interleave(torch.arange(off.shape[0] - 1,
+                                                device=off.device),
+                                   off[1:] - off[:-1])
+    return torch.sort(rows * n + idx.to(torch.int64)).values
+
+
+def _set_differences(res_a, res_b, n):
+    """(ray, index) keys in one CSR result and not the other."""
+    import torch
+    ka = _pair_keys(res_a.offsets, res_a.indices, n)
+    kb = _pair_keys(res_b.offsets, res_b.indices, n)
+    both = torch.cat([ka, kb])
+    uniq, cnt = torch.unique(both, return_counts=True)
+    return uniq[cnt == 1]
+
+
+def _near_boundary(vkind, values, o, d, keys, n):
+    """Float64 check of (ray, index) pairs: is each within the stated
+    margin of its value's boundary (a triangle edge, a sphere's rim)?
+    Returns (near, the largest share of its margin any pair reaches)."""
+    import torch
+    ray, j = keys // n, keys % n
+    oo, dd = o[ray].double(), d[ray].double()
+    if vkind == "spheres":
+        oc = oo - values.center[j].double()
+        r2 = values.radius[j].double() ** 2
+        d2 = (dd * dd).sum(1)
+        s = (oc * oc).sum(1)
+        disc = (oc * dd).sum(1) ** 2 - d2 * (s - r2)
+        share = torch.minimum(disc.abs() / (RIM_DISC * d2 * (s + r2)),
+                              (s - r2).abs() / (RIM_C * (s + r2)))
+        return share <= 1, float(share.max()) if share.numel() else 0.0
+    if vkind == "triangles":
+        return _tri64(oo, dd, values.a[j], values.b[j], values.c[j])[1], None
+    return torch.zeros_like(ray, dtype=torch.bool), None
+
+
+def _first_hits_t(ord_t, off, counts, k):
+    """(R, k): each ray's first k entries of cast_ordered's t, inf past
+    its hits."""
+    import torch
+    j = torch.arange(k, device=ord_t.device)
+    pos = (off[:-1, None].to(torch.int64) + j).clamp_max(
+        max(ord_t.shape[0] - 1, 0))
+    return torch.where(counts[:, None] > j, ord_t[pos], float("inf"))
+
+
+def phase_rays(dev, box_lo, box_hi, policy, card):
+    """Slice 3 end to end: the three cast_* entry points over a BVH of the
+    triangle soup and ray_box_nearest over its bounding boxes (counters
+    zeroed just before, read just after), then every ray instance of the
+    callback kernel against its twin on all R rays, over the soup, the
+    Boxes and the Spheres indexes, the sets against BruteForce and a
+    float64 oracle, and ray_box_nearest against its twin and
+    cast_nearest(k=1) on all R rays.
+    Returns (launches, records for the kernels line)."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.core import geometry as G
+    from repro_torch.core import predicates as P
+    from repro_torch.core.index import _bcast_state
+    from repro_torch.kernels import bvh_callback as KC
+    from repro_torch.kernels import bvh_traverse as T
+    from repro_torch.kernels import lbvh_build as KB
+    from repro_torch.kernels import ray_box as KR
+
+    t0 = time.perf_counter()
+    a, b, c, o, d = make_soup(dev)
+    soup = G.Triangles(a, b, c)
+    rays = G.Rays(o, d)
+    tlo, thi = G.to_boxes(soup).lo, G.to_boxes(soup).hi
+    counters = {"karras_ranges": KB.karras_ranges,
+                "bvh_traverse_spatial": T.bvh_traverse_spatial,
+                "bvh_traverse_knn": T.bvh_traverse_knn,
+                "bvh_traverse_callback": KC.bvh_traverse_callback,
+                "ray_box_nearest": KR.ray_box_nearest}
+
+    # -- the main path, counters zeroed just before and read just after ----
+    engine = rt.QueryEngine()
+    pol = policy.override(engine=engine)
+    for f in counters.values():
+        f.launches = 0
+    t1 = time.perf_counter()
+    index = rt.BVH(soup, policy=pol)
+    c_build = counters["bvh_traverse_callback"].launches
+    (_, hit_i, hit_off), inter_ms = timed_once(
+        lambda: rt.raytracing.cast_intersect(index, rays))
+    c_inter = KC.bvh_traverse_callback.launches
+    (ord_i, ord_t, ord_off), ord_ms = timed_once(
+        lambda: rt.raytracing.cast_ordered(index, rays))
+    c_ord = KC.bvh_traverse_callback.launches
+    batches = dict(engine.callback_batches)
+    nearest = {}
+    for k in (1, 4):
+        nearest[k] = timed_once(lambda: rt.raytracing.cast_nearest(
+            index, rays, k=k))
+    (box_t, box_i), box_ms = timed_once(
+        lambda: rt.kernels.ray_box_nearest(o, d, tlo, thi))
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    path_s = time.perf_counter() - t1
+    check(c_build == 0, "BVH(Triangles) launched the callback kernel")
+    check(c_inter - c_build == 2 and c_ord - c_inter == 2,
+          f"cast_intersect / cast_ordered launched the callback kernel "
+          f"{c_inter - c_build} / {c_ord - c_inter} times, not 2 each")
+    check(batches == {"kernel": 4, "loop": 0},
+          f"the ray epilogue batches took the loop route: {batches}")
+    check(engine.callback_batches == batches
+          and launches["bvh_traverse_knn"] == 0
+          and launches["bvh_traverse_callback"] == 4,
+          "cast_nearest did not take the loop walk")
+    check(launches["ray_box_nearest"] == 1, "ray_box_nearest did not launch")
+    route = engine.route_knn(index, P.RayNearest(rays, 1))
+    check(route == "loop", f"cast_nearest routed to {route}")
+    counts = hit_off.diff().to(torch.int64)
+    log(f"[rays] soup N={N} (b, c = a + U(-{TRI_HALF}, {TRI_HALF})^3), "
+        f"R={R_RAYS}: hits per ray mean {float(counts.double().mean()):.3f}, "
+        f"max {int(counts.max())}, {int((counts == 0).sum())} rays without "
+        f"a hit; main path {path_s:.1f} s; launches "
+        f"{json.dumps(launches)}; callback batches {json.dumps(batches)}")
+    log(f"[rays] cast_intersect R={R_RAYS}: {inter_ms:.2f} ms; cast_ordered: "
+        f"{ord_ms:.2f} ms (CUDA events, one call each, two callback-kernel "
+        f"launches each)  [{card}]")
+    for k, ((tk, ik), ms) in nearest.items():
+        log(f"[rays] cast_nearest k={k} R={R_RAYS} (route {route}, the "
+            f"host-loop walk): {ms:.1f} ms  [{card}]")
+    log(f"[rays] ray_box_nearest R={R_RAYS} B={N}: {box_ms:.2f} ms, "
+        f"{int((box_i >= 0).sum())} rays hit a box  [{card}]")
+
+    # -- results: shapes, order, sets ---------------------------------------
+    check(ord_off.shape == (R_RAYS + 1,) and torch.equal(ord_off, hit_off),
+          "cast_ordered and cast_intersect counts differ")
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    seg = torch.repeat_interleave(torch.arange(R_RAYS, device=dev), counts)
+    same_ray = seg[1:] == seg[:-1]
+    ok &= ((ord_t[1:] >= ord_t[:-1]) | ~same_ray).all()
+    check(bool(ok) and bool(torch.isfinite(ord_t).all()),
+          "cast_ordered is not ascending in t within a ray")
+    keys = _pair_keys(hit_off, hit_i, N)
+    check(torch.equal(_pair_keys(ord_off, ord_i, N), keys),
+          "cast_ordered and cast_intersect hold different sets")
+    for k, ((tk, ik), _) in nearest.items():
+        check(tk.shape == (R_RAYS, k) and torch.equal(torch.isinf(tk), ik < 0),
+              f"cast_nearest k={k}: shape or padding")
+        check(torch.equal(tk, _first_hits_t(ord_t, hit_off, counts, k)),
+              f"cast_nearest k={k}: t differs from cast_ordered's first "
+              f"{k} hits")
+        found = ik >= 0
+        kk = (torch.arange(R_RAYS, device=dev)[:, None] * N
+              + ik.to(torch.int64))[found]
+        at = torch.searchsorted(keys, kk).clamp_max(keys.shape[0] - 1)
+        check(bool((keys[at] == kk).all()),
+              f"cast_nearest k={k}: an index outside cast_intersect's set")
+
+    # -- every ray instance of the callback kernel against its twin, on all
+    #    R rays, and ray_box_nearest's cast_nearest(k=1) check -------------
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    targets = (("triangles", index),
+               ("boxes", rt.BVH(G.Boxes(box_lo, box_hi), policy=policy)),
+               ("spheres", rt.BVH(G.Spheres(
+                   torch.rand((N, 3), generator=gen, device=dev),
+                   torch.full((N,), SPHERE_RADIUS, device=dev)),
+                   policy=policy)))
+    box_index = rt.BVH(G.Boxes(tlo, thi), policy=policy)
+    preds = P.RayIntersect(rays)
+    record, max_err = None, 0.0
+    for vkind, idx in targets:
+        t_ = idx.tree
+        tree = (t_.node_lo, t_.node_hi, t_.rope, t_.left_child,
+                t_.range_last, t_.leaf_perm)
+        epilogues = _epilogues(N, dev)
+        cb, s0 = epilogues["counting"]
+        hits = KC.bvh_traverse_callback(*tree, idx.values, preds, cb,
+                                        _bcast_state(s0, R_RAYS, dev)
+                                        ).to(torch.int64)
+        if vkind == "triangles":
+            check(torch.equal(hits, counts), "the counting walk differs "
+                  "from cast_intersect's counts")
+        for name in EPILOGUE_NAMES:
+            cb, s0 = epilogues[name]
+            s0q = _bcast_state(s0, R_RAYS, dev)
+            full = KC.bvh_traverse_callback(*tree, idx.values, preds, cb, s0q)
+            want, plain = timed_once(lambda: KC.bvh_traverse_callback_ref(
+                *tree, idx.values, preds, cb, s0q))
+            max_err = max(max_err, check_state(
+                full, want, f"bvh_traverse_callback rays/{vkind}/{name}"))
+            del want
+            ms = time_ms(lambda: KC.bvh_traverse_callback(
+                *tree, idx.values, preds, cb, s0q), reps=5)
+            cap = {"count_with_limit": 5, "collect_first_k": 8}.get(name)
+            leaves = int((hits.clamp_max(cap) if cap else hits).sum())
+            b_ms, b_by = ray_bound(R_RAYS, N, vkind, full, leaves)
+            log(f"[rays] walk {vkind} {name} N={N} R={R_RAYS}: {ms:.3f} ms; "
+                f"all {R_RAYS} rays identical to twin (tolerance 0), twin "
+                f"{plain:.1f} ms; {leaves} hits needed; bound {b_ms:.4f} ms "
+                f"({b_by})  [{card}]; {time.perf_counter() - t0:.1f} s into "
+                f"the phase")
+            if vkind == "triangles" and name == "counting":
+                record = dict(source="src/repro_torch/csrc/bvh_callback.cu",
+                              replaces="src/repro/kernels/bvh_callback.py:251",
+                              ms=ms, plain_ms=plain, bound_ms=b_ms,
+                              bound_by=b_by)
+        del t_, tree
+    record["max_abs_err"] = max_err
+
+    # -- the sets on N_CHECK rays against BruteForce and a float64 oracle --
+    for vkind, idx in targets:
+        bf = rt.BruteForce(idx.values, policy=policy)
+        sub_rays = rays.index(slice(0, N_CHECK))
+        mine = idx.query(P.RayIntersect(sub_rays))
+        ref = bf.query(P.RayIntersect(sub_rays))
+        diff = _set_differences(mine, ref, N)
+        near, share = _near_boundary(vkind, idx.values, o, d, diff, N)
+        margin = {"boxes": "exact: the slab test has no products",
+                  "spheres": f"float64 discriminant within {RIM_DISC:.3g} "
+                             "d.d (|o-c|^2 + r^2), or c within "
+                             f"{RIM_C:.3g} (|o-c|^2 + r^2), of 0",
+                  "triangles": f"{EDGE_MARGIN} of an edge"}[vkind]
+        check(bool(near.all()), f"rays/{vkind}: {int((~near).sum())} pairs "
+              f"differ from BruteForce away from a boundary ({margin})")
+        worst = (f"; the largest reaches {share:.3f} of its margin"
+                 if share is not None and diff.numel() else "")
+        log(f"[rays] {vkind}: {N_CHECK} rays' hit sets vs BruteForce: "
+            f"{int(ref.offsets[-1])} hits, {int(diff.numel())} pairs differ, "
+            f"{int(near.sum())} of them within the margin ({margin}){worst}; "
+            f"the walk fuses products as the reference's jitted walk does, "
+            f"brute force rounds each as its eager code does")
+        if vkind == "triangles":
+            hit64, near64 = _triangle_oracle(o[:N_CHECK], d[:N_CHECK], a, b, c)
+            mask = torch.zeros_like(hit64)
+            off = mine.offsets.to(torch.int64)
+            rows = torch.repeat_interleave(torch.arange(N_CHECK, device=dev),
+                                           off[1:] - off[:-1])
+            mask[rows, mine.indices.to(torch.int64)] = True
+            bad = mask != hit64
+            check(bool((~bad | near64).all()),
+                  f"rays/triangles: {int((bad & ~near64).sum())} pairs differ "
+                  f"from the float64 oracle away from an edge")
+            log(f"[rays] triangles: {N_CHECK} rays vs a float64 oracle: "
+                f"{int(hit64.sum())} hits, {int(bad.sum())} pairs differ, all "
+                f"within {EDGE_MARGIN} of an edge, t = 0 or the det "
+                f"threshold")
+        del bf
+    del targets, idx
+
+    # -- ray_box_nearest: twin and cast_nearest(k=1) over BVH(Boxes) on all
+    #    R rays, bound ------------------------------------------------------
+    (want_t, want_i), plain = timed_once(lambda: KR.ray_box_nearest_ref(
+        o, d, tlo, thi))
+    fin = torch.isfinite(want_t)
+    box_err = (float((box_t[fin] - want_t[fin]).abs().max())
+               if bool(fin.any()) else 0.0)
+    idx_off = int((box_i != want_i).sum())
+    check(torch.equal(box_t, want_t) and idx_off == 0,
+          f"ray_box_nearest differs from its twin (max abs {box_err:.3g}, "
+          f"{idx_off} indices)")
+    tk, ik = rt.raytracing.cast_nearest(box_index, rays, k=1)
+    check(torch.equal(tk[:, 0], box_t),
+          "ray_box_nearest t differs from cast_nearest(k=1) over BVH(Boxes)")
+    # where the two indices differ, both boxes reach the ray's minimum
+    rows = torch.nonzero(ik[:, 0] != box_i).squeeze(1)
+    ties_ok = bool((ik[rows, 0] >= 0).all() and (box_i[rows] >= 0).all())
+    if ties_ok and rows.numel():
+        for j in (ik[rows, 0].to(torch.int64), box_i[rows].to(torch.int64)):
+            _, tj = G.ray_box(o[rows], d[rows], tlo[j], thi[j])
+            ties_ok &= torch.equal(tj, box_t[rows])
+    check(ties_ok, "ray_box_nearest index differs from cast_nearest(k=1) "
+          "where the minimum is unique")
+    ms = time_ms(lambda: KR.ray_box_nearest(o, d, tlo, thi), reps=3)
+    # 8 operations per dimension and 4 per box (clamp, compare, compare
+    # with the best, select), for every (ray, box) pair: no early exit
+    b_ms, b_by = bound(R_RAYS * 3 * 8 + N * 3 * 8 + R_RAYS * 8,
+                       R_RAYS * N * (8 * 3 + 4))
+    log(f"[ray_box] ray_box_nearest R={R_RAYS} B={N}: all {R_RAYS} rays "
+        f"identical to twin (tolerance 0; max abs {box_err}, {idx_off} "
+        f"indices differ); t identical to cast_nearest(k=1) over BVH(Boxes) "
+        f"on all rays, indices equal on all but {int(rows.numel())}, each "
+        f"with two boxes at its minimum; {ms:.3f} ms vs twin {plain:.1f} ms; "
+        f"bound {b_ms:.4f} ms ({b_by})  [{card}]; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    box_record = dict(source="src/repro_torch/csrc/ray_box.cu",
+                      replaces="src/repro/kernels/ray_box.py:97",
+                      max_abs_err=box_err, ms=ms, plain_ms=plain,
+                      bound_ms=b_ms, bound_by=b_by)
+    return launches, record, box_record
+
+
 def main():
     name, count, card = phase_device()
     import torch
@@ -894,9 +1301,17 @@ def main():
     records["bvh_traverse_callback"] = record
     launches["bvh_traverse_callback"] = db_launches["bvh_traverse_callback"]
     phase_loop_route(dev, pts, qc, policy)
+    ray_launches, ray_record, box_record = phase_rays(dev, box_lo, box_hi,
+                                                      policy, card)
+    records["bvh_traverse_callback_rays"] = ray_record
+    launches["bvh_traverse_callback_rays"] = \
+        ray_launches["bvh_traverse_callback"]
+    records["ray_box_nearest"] = box_record
+    launches["ray_box_nearest"] = ray_launches["ray_box_nearest"]
     kernels = []
     for kname in ("karras_ranges", "bvh_traverse_spatial", "bvh_traverse_knn",
-                  "bvh_traverse_callback"):
+                  "bvh_traverse_callback", "bvh_traverse_callback_rays",
+                  "ray_box_nearest"):
         r = records[kname]
         check(launches[kname] > 0, f"{kname} was not launched in its path")
         kernels.append({"name": kname, "route": "cuda", "source": r["source"],

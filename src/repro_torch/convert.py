@@ -18,6 +18,8 @@ _KINDS = {
     "points": (G.Points, ("coords",)),
     "boxes": (G.Boxes, ("lo", "hi")),
     "spheres": (G.Spheres, ("center", "radius")),
+    "triangles": (G.Triangles, ("a", "b", "c")),
+    "rays": (G.Rays, ("origin", "direction")),
 }
 
 
@@ -41,9 +43,9 @@ def lbvh_to_numpy(tree: LBVH) -> dict:
 
 
 def geometry_from_numpy(kind: str, arrays, device="cpu"):
-    """Points / Boxes / Spheres from numpy arrays: `arrays` is a dict of
-    the field names or a sequence in field order (coords; lo, hi;
-    center, radius)."""
+    """Points / Boxes / Spheres / Triangles / Rays from numpy arrays:
+    `arrays` is a dict of the field names or a sequence in field order
+    (coords; lo, hi; center, radius; a, b, c; origin, direction)."""
     try:
         cls, names = _KINDS[kind.lower()]
     except KeyError:

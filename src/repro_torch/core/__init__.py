@@ -1,21 +1,23 @@
 """The port's core: geometry, predicates, Morton codes, the LBVH build,
 the query engine, the traversal walks and callbacks, the Index
-implementations (BVH, BruteForce) and DBSCAN."""
+implementations (BVH, BruteForce), DBSCAN and ray tracing."""
 from . import (access, callbacks, engine, geometry, morton, predicates,
-               route_table, traversal)
+               raytracing, route_table, traversal)
 from .brute_force import BruteForce
 from .bvh import BVH
 from .dbscan import dbscan
 from .engine import EngineConfig, QueryEngine, default_engine
 from .index import ExecutionPolicy, Index, QueryResult
 from .lbvh import LBVH, build, refit, sah_cost
-from .predicates import intersects, nearest
+from .predicates import (RayIntersect, RayNearest, RayOrderedIntersect,
+                         intersects, nearest)
 from .route_table import RouteRule, RouteTable
 
 __all__ = [
     "Index", "ExecutionPolicy", "QueryResult", "BVH", "BruteForce", "LBVH",
     "build", "refit", "sah_cost", "QueryEngine", "EngineConfig",
     "default_engine", "RouteRule", "RouteTable", "intersects", "nearest",
-    "dbscan", "access", "callbacks", "engine", "geometry", "morton",
-    "predicates", "route_table", "traversal",
+    "RayNearest", "RayIntersect", "RayOrderedIntersect", "dbscan", "access",
+    "callbacks", "engine", "geometry", "morton", "predicates", "raytracing",
+    "route_table", "traversal",
 ]

@@ -2,14 +2,13 @@
 Exact by construction (up to the matrix expansion of Points-to-Points
 kNN distances, as in the reference) and the BVH's oracle in tests.
 Callbacks run over each query's matches in index order, with early exit.
+Ray predicates match where the ray hits; RayNearest ranks by t.
 
 Queries are taken in blocks of ``BLOCK_Q`` so the (Q, N) matrices stay
 bounded. Float32 products run in full float32: TF32 would change the
 distances and so the counts.
 """
 from __future__ import annotations
-
-import dataclasses
 
 import torch
 
@@ -61,14 +60,15 @@ class BruteForce(Index):
     def _query_callback_impl(self, predicates, callback, state0, pol):
         """Apply `callback` on every match, in index order per query, until
         it reports done. Step j takes every live query's j-th match. The
-        leaf tests sum squares in the fused order: the reference runs this
-        loop compiled."""
+        leaf tests take the order of the reference's compiled loop (squared
+        sums fused; the "loop" order of ``geometry.ray_sphere``), and ray
+        hits hand the callback their t."""
         q = len(predicates)
         dev = self.device
         state = _map(torch.clone, state0)
         if q == 0 or self._n == 0:
             return state
-        mask = self._match_matrix(predicates, fused=True)
+        mask, tmat = self._leaf_matrices(predicates, "loop")
         counts = mask.sum(-1)
         ar = torch.arange(self._n, device=dev)
         order = torch.sort(torch.where(mask, ar[None, :], self._n), dim=1).values
@@ -79,7 +79,8 @@ class BruteForce(Index):
                 break
             idx = order[act, j]
             st = _map(lambda a: a[act], state)
-            t = torch.zeros((act.numel(),), dtype=torch.float32, device=dev)
+            t = (torch.zeros((act.numel(),), dtype=torch.float32, device=dev)
+                 if tmat is None else tmat[act, idx])
             new, cb_done = callback(st, P.take(predicates, act),
                                     value_at(self.values, idx),
                                     idx.to(torch.int32), t)
@@ -93,8 +94,9 @@ class BruteForce(Index):
         return self._match_matrix(predicates).sum(-1).to(torch.int32)
 
     def _csr_exact(self, predicates, pol):
-        """One-pass exact CSR from the (Q, N) match matrix."""
-        if not isinstance(predicates, P.Intersects):
+        """One-pass exact CSR from the (Q, N) match matrix (Intersects and
+        RayIntersect)."""
+        if not isinstance(predicates, (P.Intersects, P.RayIntersect)):
             return None
         mask = self._match_matrix(predicates)
         counts = mask.sum(-1).to(torch.int32)
@@ -123,9 +125,10 @@ class BruteForce(Index):
         return counts, buf
 
     def _knn_impl(self, predicates, pol):
-        """(dists, idxs) (Q, k): exact k nearest by fine distance, ties to
-        the lower index (a stable sort, as lax.top_k orders them), (inf, -1)
-        padded past N."""
+        """(dists, idxs) (Q, k): exact k nearest by fine distance (ray
+        predicates: by hit parameter t, misses (inf, -1)), ties to the lower
+        index (a stable sort, as lax.top_k orders them), (inf, -1) padded
+        past N."""
         k = predicates.k
         k_eff = min(k, self._n)
 
@@ -147,23 +150,33 @@ class BruteForce(Index):
     # -- internals -----------------------------------------------------------
     def _blocks(self, fn, predicates):
         """fn over blocks of BLOCK_Q queries, outputs joined on axis 0."""
-        g = predicates.geom
-        outs = [fn(dataclasses.replace(
-                    predicates, geom=g.index(slice(s, s + BLOCK_Q))))
+        outs = [fn(P.take(predicates, slice(s, s + BLOCK_Q)))
                 for s in range(0, max(len(predicates), 1), BLOCK_Q)]
         if isinstance(outs[0], tuple):
             return tuple(torch.cat(parts, 0) for parts in zip(*outs))
         return torch.cat(outs, 0)
 
-    def _match_matrix(self, predicates, fused: bool = False):
-        """(Q, N) bool exact leaf tests."""
+    def _leaf_matrices(self, predicates, order: str = "eager"):
+        """(Q, N) bool exact leaf tests in float order `order`, and for ray
+        predicates the (Q, N) float32 hit parameters t (else None)."""
+        if isinstance(predicates, P.RAY_KINDS):
+            return self._blocks(
+                lambda blk: P.leaf_ray_hit(P.lift(blk), self.values, order),
+                predicates)
         return self._blocks(
-            lambda blk: P.leaf_match_test(P.lift(blk), self.values, fused),
-            predicates)
+            lambda blk: P.leaf_match_test(P.lift(blk), self.values,
+                                          fused=order != "eager"),
+            predicates), None
+
+    def _match_matrix(self, predicates):
+        """(Q, N) bool exact leaf tests, op by op as the reference's eager
+        brute force."""
+        return self._leaf_matrices(predicates)[0]
 
     def _distances(self, blk):
-        """(B, N) fine distances of one block of Nearest queries."""
-        g = blk.geom
+        """(B, N) fine distances of one block of Nearest queries (ray
+        predicates: t)."""
+        g = P.geometry_of(blk)
         if isinstance(g, G.Points) and isinstance(self.values, G.Points):
             return G.sqrt(pairwise_sq_distances(g.coords,
                                                     self.values.coords))

@@ -7,7 +7,8 @@ kNN and callbacks routed by the QueryEngine to brute force, the
 traversal kernels or the general walk, plus the N < 2 linear-scan paths.
 On the loop route, count and fill run the ``counting`` and
 ``collect_hits`` callbacks, which the callback kernel serves where it
-can (Spheres values, for one).
+can (Spheres values, and every ray predicate, for two). ``RayNearest``
+takes the general k-nearest walk.
 """
 from __future__ import annotations
 
@@ -62,7 +63,7 @@ class BVH(Index):
         self.kernel_values_ok = default and isinstance(
             self.values, (G.Points, G.Boxes))
         self.kernel_callback_ok = default and isinstance(
-            self.values, G.GEOMETRIES)
+            self.values, (G.Points, G.Boxes, G.Spheres, G.Triangles))
         self._bf = None
 
     def _brute(self):
@@ -140,6 +141,7 @@ class BVH(Index):
             return self._brute()._knn_impl(predicates, pol)
         if route == E.ROUTE_KERNEL:
             return engine.kernel_knn(self, predicates)
+        # RayNearest always walks here, as in the reference
         return T.traverse_knn(self.tree, self.values, predicates,
                               predicates.k)
 
@@ -147,15 +149,15 @@ class BVH(Index):
 # --- degenerate N in {0, 1}: linear scan ---------------------------------
 
 def _degenerate_callback(values, n, predicates, callback, state0, dev):
-    """The callback applied where the one value (if any) matches."""
+    """The callback applied where the one value (if any) matches, with
+    the ray parameter t for ray predicates (the reference's eager scan)."""
     q = len(predicates)
     if n == 0 or q == 0:
         return state0
     zero = torch.zeros((q,), dtype=torch.int32, device=dev)
     val = T.value_at(values, zero.to(torch.int64))
-    fine = P.leaf_match_test(predicates, val)
-    new, _ = callback(state0, predicates, val, zero,
-                      torch.zeros((q,), dtype=torch.float32, device=dev))
+    fine, t = P.leaf_test(predicates, val)
+    new, _ = callback(state0, predicates, val, zero, t)
     return T.tree_select(fine, new, state0)
 
 

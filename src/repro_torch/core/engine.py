@@ -101,7 +101,9 @@ class QueryEngine:
 
     # -- routing -----------------------------------------------------------
     def route_spatial(self, bvh, predicates, *, policy=None) -> str:
-        """Route an Intersects batch for count or fill."""
+        """Route an Intersects batch for count or fill. Ray batches never
+        take brute force or the spatial kernel: they walk, with the
+        counting and collect_hits callbacks, as in the reference."""
         rule = self._rule("spatial", bvh, policy)
         q = len(predicates)
         bf_ok = isinstance(predicates, P.Intersects)
@@ -111,6 +113,8 @@ class QueryEngine:
         return self._pick(bvh.size(), q, bf_ok, k_ok, rule)
 
     def route_knn(self, bvh, predicates, *, policy=None) -> str:
+        """Route a Nearest batch; RayNearest always takes the loop walk
+        (the kNN kernel ranks by point distance), as in the reference."""
         rule = self._rule("knn", bvh, policy)
         q = len(predicates)
         bf_ok = isinstance(predicates, P.Nearest)
@@ -121,9 +125,10 @@ class QueryEngine:
 
     def route_callback(self, bvh, predicates, callback) -> str:
         """Route a callback batch: the fused kernel when it can run the
-        callback (an epilogue, Intersects over Points/Boxes/Spheres, values
-        of those under the default getter, dim <= MAX_DIM, Q > 0), else the
-        loop. Brute force never runs callbacks, and no crossover puts a
+        callback (an epilogue; Intersects over Points/Boxes/Spheres values
+        of those, or a ray predicate over values of those or 3-D
+        Triangles, under the default getter; dim <= MAX_DIM; Q > 0), else
+        the loop. Brute force never runs callbacks, and no crossover puts a
         batch the kernel can run on the loop, so no route rule is read. A
         kernel batch whose dtypes or state layout the kernel cannot take
         raises there; it is not rerouted."""

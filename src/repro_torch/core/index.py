@@ -4,12 +4,15 @@ with an indexable getter and answers one ``query()``.
     index = BVH(values, policy=ExecutionPolicy(...))
     result = index.query(predicates)        # dispatch on predicate kind
 
-    =========== ============================================
-    predicate   result (a :class:`QueryResult`)
-    =========== ============================================
-    Intersects  CSR spatial join: values / indices / offsets
-    Nearest     dense kNN: distances / indices (Q, k)
-    =========== ============================================
+    =================== ============================================
+    predicate           result (a :class:`QueryResult`)
+    =================== ============================================
+    Intersects          CSR spatial join: values / indices / offsets
+    Nearest             dense kNN: distances / indices (Q, k)
+    RayIntersect        CSR of every hit: values / indices / offsets
+    RayOrderedIntersect CSR of every hit sorted by t, t in distances
+    RayNearest          the first k hits: distances (t) / indices
+    =================== ============================================
 
     query(preds, callback=(cb, state0))  # the per-query final states
     query(preds, out=out_fn)             # out_fn's per-match outputs, CSR
@@ -17,7 +20,8 @@ with an indexable getter and answers one ``query()``.
 Callbacks follow the batched contract of ``core.traversal``; ``state0``
 is unbatched and gets a leading query axis. ``out_fn(pred, value, index,
 t)`` takes the matches of the whole batch at once (one predicate row per
-match, t = 0 for spatial predicates) and returns their outputs.
+match, t = 0, as in the reference, ray predicates included) and returns
+their outputs.
 
 Backends implement a small SPI; the CSR assembly (two-pass count then
 fill, capacity doubling with ``overflow``) and the output flavor live
@@ -29,8 +33,6 @@ here once:
     _knn_impl(preds, policy)             -> (dists, idxs) (Q, k)
     _csr_exact(preds, policy)            -> QueryResult | None (one pass)
     _collect_with_t(preds, cap, policy)  -> (counts, idxs, ts)
-
-Ray predicates come in a later slice.
 """
 from __future__ import annotations
 
@@ -50,7 +52,8 @@ class QueryResult(NamedTuple):
     """values:    matched values (CSR flat for spatial, (Q, k) for kNN).
     indices:   matched original indices, CSR flat or (Q, k) (-1 padded).
     offsets:   (Q+1,) CSR row offsets for spatial results.
-    distances: fine distances for kNN.
+    distances: fine distances for kNN; the hit parameters t for
+               RayNearest (Q, k) and RayOrderedIntersect (CSR flat).
     overflow:  True when a caller-supplied capacity was exceeded even
                after the doubling retries (the CSR result is truncated).
     """
@@ -171,20 +174,21 @@ class Index:
             return self._query_callback_impl(predicates, cb, s0, pol)
         if out is not None:
             return self._query_out(predicates.to(self.device), out, pol)
-        if isinstance(predicates, P.Nearest):
+        if isinstance(predicates, (P.Nearest, P.RayNearest)):
             return self._query_knn(predicates.to(self.device), pol)
-        if isinstance(predicates, P.Intersects):
+        if isinstance(predicates, P.RayOrderedIntersect):
+            return self._query_ordered(predicates.to(self.device), pol)
+        if isinstance(predicates, (P.Intersects, P.RayIntersect)):
             return self._query_csr(predicates.to(self.device), pol)
-        raise NotImplementedError(
-            f"query() of {type(predicates).__name__} is not ported: the "
-            "port answers Intersects and Nearest; ray predicates come with "
-            "the ray-tracing slice")
+        raise TypeError(f"query() cannot dispatch predicate kind "
+                        f"{type(predicates).__name__}")
 
     def count(self, predicates, *, policy: ExecutionPolicy | None = None):
-        """Per-query match counts of an Intersects batch (no fill pass)."""
-        if not isinstance(predicates, P.Intersects):
-            raise TypeError(f"count() takes Intersects predicates, got "
-                            f"{type(predicates).__name__}")
+        """Per-query match counts of an Intersects or ray batch (every hit
+        of a ray; no fill pass)."""
+        if not isinstance(predicates, (P.Intersects,) + P.RAY_KINDS):
+            raise TypeError(f"count() takes Intersects or ray predicates, "
+                            f"got {type(predicates).__name__}")
         pol = policy if policy is not None else self.policy
         return self._count_impl(predicates.to(self.device), pol)
 
@@ -231,6 +235,27 @@ class Index:
         return QueryResult(values=self._gather_values(flat_idx, pol),
                            indices=flat_idx, offsets=offsets,
                            overflow=overflow)
+
+    def _query_ordered(self, predicates, pol) -> QueryResult:
+        """Every ray hit ordered by t within each ray: a ``collect_hits``
+        pass, then a stable per-row sort by t (invalid slots hold inf, so
+        they sort past the valid segment), then a CSR pack."""
+        nq = len(predicates)
+        cap = pol.capacity
+        if cap is None:
+            cap = max(int(self._count_impl(predicates, pol).max()), 1) \
+                if nq else 1
+        count, idxs, ts = self._collect_with_t(predicates, cap, pol)
+        count = torch.clamp_max(count, cap)
+        ts_s, order = torch.sort(ts, dim=1, stable=True)
+        idxs_s = torch.gather(idxs, 1, order)
+        offsets = torch.cat([torch.zeros((1,), dtype=torch.int32,
+                                         device=count.device),
+                             torch.cumsum(count, 0)]).to(torch.int32)
+        flat_idx = _csr_pack(idxs_s, count)
+        return QueryResult(values=self._gather_values(flat_idx, pol),
+                           indices=flat_idx, offsets=offsets,
+                           distances=_csr_pack(ts_s, count))
 
     def _query_out(self, predicates, out_fn, pol) -> QueryResult:
         res = self._query_csr(predicates, pol)

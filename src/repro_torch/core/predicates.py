@@ -1,13 +1,19 @@
 """Predicates: ``intersects`` and ``nearest`` over Points, Boxes and
-Spheres, with the node tests the traversal walks prune with and the fine leaf tests.
+Spheres, and the ray predicates (``RayNearest``, ``RayIntersect``,
+``RayOrderedIntersect``) over Rays, with the node tests the traversal
+walks prune with and the fine leaf tests.
 
 A predicate array holds Q predicates of one kind. The tests broadcast:
 give the predicate geometry a (Q, 1, ...) shape and the values (N, ...)
 to get a (Q, N) result, or give both A rows to test lane by lane. The
 node tests run in the jitted walks of the reference, so their squared
 sums take the fused order (``geometry.sum_sq_fused``); the leaf tests
-take it when ``fused`` is set. Ray predicates and ``Nearest.exclude``
-come in later slices.
+take it when ``fused`` is set. A ray predicate's node test is the slab
+test (``geometry.ray_box``), its "distance" the ray parameter t, and its
+leaf test :func:`leaf_ray_hit`, whose float order is one of
+``geometry.SPHERE_ORDERS`` ("eager", "walk" or "loop": see
+``geometry.ray_sphere``). ``Nearest.exclude`` and spatial predicates
+over Triangles values come in later slices.
 """
 from __future__ import annotations
 
@@ -18,9 +24,11 @@ import torch
 from . import geometry as G
 from .access import value_at
 
-__all__ = ["Intersects", "Nearest", "intersects", "nearest", "attach_data",
-           "lift", "take", "node_overlap_test", "node_min_distance",
-           "leaf_match_test", "leaf_distance"]
+__all__ = ["Intersects", "Nearest", "RayNearest", "RayIntersect",
+           "RayOrderedIntersect", "RAY_KINDS", "intersects", "nearest",
+           "attach_data", "geometry_of", "lift", "take", "node_overlap_test",
+           "node_min_distance", "leaf_match_test", "leaf_distance",
+           "leaf_ray_hit", "leaf_test"]
 
 
 def _to(data, device):
@@ -73,6 +81,40 @@ class Nearest:
                                    data=_to(self.data, device))
 
 
+@dataclasses.dataclass(frozen=True)
+class _RayPredicate:
+    rays: G.Rays
+
+    def __len__(self):
+        return len(self.rays)
+
+    def to(self, device):
+        return dataclasses.replace(self, rays=self.rays.to(device),
+                                   data=_to(self.data, device))
+
+
+@dataclasses.dataclass(frozen=True)
+class RayNearest(_RayPredicate):
+    """The first k hits along each ray (k = 1: the closest object)."""
+    k: int = 1
+    data: object = None
+
+
+@dataclasses.dataclass(frozen=True)
+class RayIntersect(_RayPredicate):
+    """Every hit along each ray (transparent objects)."""
+    data: object = None
+
+
+@dataclasses.dataclass(frozen=True)
+class RayOrderedIntersect(_RayPredicate):
+    """Every hit along each ray, ordered by the ray parameter t."""
+    data: object = None
+
+
+RAY_KINDS = (RayNearest, RayIntersect, RayOrderedIntersect)
+
+
 def intersects(geom, data=None) -> Intersects:
     """ArborX::intersects; ``intersects(Spheres(c, r))`` is the API-v2
     spelling of ``within(c, r)``."""
@@ -89,29 +131,52 @@ def attach_data(pred, data):
     return dataclasses.replace(pred, data=data)
 
 
+def _field(pred) -> str:
+    return "rays" if isinstance(pred, RAY_KINDS) else "geom"
+
+
+def geometry_of(pred):
+    """The geometry array a predicate holds: its rays or its geometry."""
+    return getattr(pred, _field(pred))
+
+
 def take(pred, i):
     """Rows `i` of a predicate array, its payload included."""
     data = None if pred.data is None else value_at(pred.data, i)
-    return dataclasses.replace(pred, geom=pred.geom.index(i), data=data)
+    return dataclasses.replace(pred, data=data, **{
+        _field(pred): geometry_of(pred).index(i)})
 
 
 def lift(pred):
     """The predicate with its geometry given a (Q, 1, ...) shape, so the
     leaf tests broadcast against (N, ...) values into (Q, N)."""
-    g = pred.geom
+    g = geometry_of(pred)
     G._check(g)
     if isinstance(g, G.Points):
         g = G.Points(g.coords[:, None, :])
     elif isinstance(g, G.Boxes):
         g = G.Boxes(g.lo[:, None, :], g.hi[:, None, :])
-    else:
+    elif isinstance(g, G.Spheres):
         g = G.Spheres(g.center[:, None, :], g.radius[:, None])
-    return dataclasses.replace(pred, geom=g)
+    elif isinstance(g, G.Rays):
+        g = G.Rays(g.origin[:, None, :], g.direction[:, None, :])
+    else:
+        _spatial_refusal(g)
+    return dataclasses.replace(pred, **{_field(pred): g})
+
+
+def _spatial_refusal(geom):
+    raise NotImplementedError(
+        f"spatial predicates with {type(geom).__name__} are not ported: "
+        "point_in_triangle and distance_point_triangle come in a later slice")
 
 
 def node_overlap_test(pred, lo, hi):
-    """May the subtree under box [lo, hi] hold matches of the Intersects
-    predicate `pred`?"""
+    """May the subtree under box [lo, hi] hold matches of `pred`
+    (Intersects, or a ray predicate: the slab test)?"""
+    if isinstance(pred, RAY_KINDS):
+        hit, _ = G.ray_box(pred.rays.origin, pred.rays.direction, lo, hi)
+        return hit
     if not isinstance(pred, Intersects):
         raise TypeError(f"no overlap test for predicate {type(pred).__name__}")
     g = pred.geom
@@ -120,11 +185,18 @@ def node_overlap_test(pred, lo, hi):
         return G.intersects_box_point(lo, hi, g.coords)
     if isinstance(g, G.Boxes):
         return G.intersects_box_box(g.lo, g.hi, lo, hi)
-    return G.intersects_box_sphere(lo, hi, g.center, g.radius, fused=True)
+    if isinstance(g, G.Spheres):
+        return G.intersects_box_sphere(lo, hi, g.center, g.radius, fused=True)
+    _spatial_refusal(g)
 
 
 def node_min_distance(pred, lo, hi):
-    """Lower bound of the distance from the query to box [lo, hi]."""
+    """Lower bound of the distance from the query to box [lo, hi]; for a
+    ray predicate the ray parameter t at box entry (inf on a miss), so
+    the k-nearest walk serves the first k hits."""
+    if isinstance(pred, RAY_KINDS):
+        _, t_enter = G.ray_box(pred.rays.origin, pred.rays.direction, lo, hi)
+        return t_enter
     g = pred.geom
     G._check(g)
     if isinstance(g, G.Points):
@@ -132,8 +204,10 @@ def node_min_distance(pred, lo, hi):
     if isinstance(g, G.Spheres):
         return torch.clamp_min(
             G.distance_point_box(g.center, lo, hi, fused=True) - g.radius, 0.0)
-    d = torch.clamp_min(torch.maximum(lo - g.hi, g.lo - hi), 0.0)
-    return G.sqrt(G.sum_sq_fused(d))
+    if isinstance(g, G.Boxes):
+        d = torch.clamp_min(torch.maximum(lo - g.hi, g.lo - hi), 0.0)
+        return G.sqrt(G.sum_sq_fused(d))
+    _spatial_refusal(g)
 
 
 def leaf_match_test(pred, values, fused: bool = False):
@@ -145,6 +219,8 @@ def leaf_match_test(pred, values, fused: bool = False):
     g = pred.geom
     G._check(g)
     G._check(values)
+    if isinstance(values, (G.Triangles, G.Rays)):
+        _spatial_refusal(values)
     if isinstance(g, G.Points):
         if isinstance(values, G.Boxes):
             return G.intersects_box_point(values.lo, values.hi, g.coords)
@@ -161,16 +237,60 @@ def leaf_match_test(pred, values, fused: bool = False):
                                            g.radius, fused)
         return (G.distance_point_point(g.center, values.center, fused)
                 <= g.radius + values.radius)
+    if not isinstance(g, G.Boxes):
+        _spatial_refusal(g)
     vb = G.to_boxes(values)
     return G.intersects_box_box(g.lo, g.hi, vb.lo, vb.hi)
 
 
 def leaf_distance(pred, values, fused: bool = False):
-    """Fine distance from the query centroid to the leaf values."""
+    """Fine distance from the query centroid to the leaf values; for a
+    ray predicate the hit parameter t (inf on a miss), in the walk's float
+    order when ``fused`` is set, else the op-by-op one."""
+    if isinstance(pred, RAY_KINDS):
+        _, t = leaf_ray_hit(pred, values, "walk" if fused else "eager")
+        return t
+    if isinstance(pred.geom, (G.Triangles, G.Rays)):
+        _spatial_refusal(pred.geom)
     q = G.centroid(pred.geom)
     G._check(values)
+    if isinstance(values, (G.Triangles, G.Rays)):
+        _spatial_refusal(values)
     if isinstance(values, G.Points):
         return G.distance_point_point(q, values.coords, fused)
     if isinstance(values, G.Boxes):
         return G.distance_point_box(q, values.lo, values.hi, fused)
     return G.distance_point_sphere(q, values.center, values.radius, fused)
+
+
+def leaf_ray_hit(pred, values, order: str = "eager"):
+    """(hit, t) of a ray predicate against leaf values: the slab test for
+    Boxes and for Points (zero-extent boxes), the quadratic for Spheres,
+    Moller-Trumbore for Triangles, in the float order `order` (one of
+    ``geometry.SPHERE_ORDERS``; triangles fuse in every order but
+    "eager")."""
+    r = pred.rays
+    if isinstance(values, G.Boxes):
+        return G.ray_box(r.origin, r.direction, values.lo, values.hi)
+    if isinstance(values, G.Points):
+        return G.ray_box(r.origin, r.direction, values.coords, values.coords)
+    if isinstance(values, G.Spheres):
+        return G.ray_sphere(r.origin, r.direction, values.center,
+                            values.radius, order)
+    if isinstance(values, G.Triangles):
+        return G.ray_triangle(r.origin, r.direction, values.a, values.b,
+                              values.c, fused=order != "eager")
+    G._check(values)
+    raise TypeError(f"ray tracing takes Boxes, Points, Spheres or Triangles "
+                    f"values, not {type(values).__name__}")
+
+
+def leaf_test(pred, values, order: str = "eager"):
+    """(match, t) of any predicate against leaf values: the ray hit and
+    its parameter for ray predicates, the fine Intersects test and t = 0
+    otherwise (fused unless `order` is "eager")."""
+    if isinstance(pred, RAY_KINDS):
+        return leaf_ray_hit(pred, values, order)
+    fine = leaf_match_test(pred, values, fused=order != "eager")
+    return fine, torch.zeros(fine.shape, dtype=torch.float32,
+                             device=fine.device)

@@ -20,7 +20,8 @@ Each iteration calls ``cb`` once on the A lanes it stepped:
   * ``pred``: a predicate array of A rows (its ``data`` payload too);
   * ``value``: the values gathered at the lanes' leaf, A rows;
   * ``index``: (A,) int32 original positions of those values;
-  * ``t``: (A,) float32, 0 for spatial predicates;
+  * ``t``: (A,) float32, the ray parameter of the hit for ray
+    predicates, 0 for spatial ones;
   * ``done``: (A,) bool (a Python bool broadcasts).
 
 As in the reference, the walk applies ``cb`` to every stepped lane and
@@ -28,8 +29,9 @@ keeps the new state only where the lane hit a matching leaf; a lane at an
 internal node sees the value at sorted position 0, so ``index`` is in
 range on every lane. ``done`` on a hit retires the lane (ArborX's
 CallbackTreeTraversalControl). Node tests and leaf tests sum squares in
-the fused order (``geometry.sum_sq_fused``), as XLA:CPU runs the
-reference's jitted walk.
+the fused order (``geometry.sum_sq_fused``), and ray leaf tests take the
+"walk" order of ``geometry.ray_sphere``, as XLA:CPU runs the reference's
+jitted walk.
 
 ``min_pos`` is the pair-traversal filter: subtrees whose last sorted
 leaf position is <= min_pos are skipped and leaves at positions <=
@@ -96,10 +98,9 @@ def walk(node_lo, node_hi, rope, left_child, range_last, leaf_perm, values,
         pos = torch.clamp(nd - (n - 1), 0, n - 1)
         orig = perm[pos]
         val = value_at(values, orig)
-        fine = P.leaf_match_test(pred, val, fused=True)
+        fine, t = P.leaf_test(pred, val, "walk")
         hit = is_leaf & overlap & fine & (pos > m)
         st = _map(lambda a: a[act], state)
-        t = torch.zeros((act.numel(),), dtype=torch.float32, device=dev)
         new, cb_done = callback(st, pred, val, orig.to(torch.int32), t)
         for leaf, sel in zip(_leaves(state), _leaves(tree_select(hit, new, st))):
             leaf[act] = sel.to(leaf.dtype)
@@ -113,7 +114,8 @@ def walk(node_lo, node_hi, rope, left_child, range_last, leaf_perm, values,
 
 def traverse(tree, values, predicates, callback, state0, *, min_pos=None):
     """Per-query final states of `callback` over the matches of
-    `predicates` (Intersects) in `tree`; `state0` is batched (Q, ...)."""
+    `predicates` (Intersects or a ray predicate) in `tree`; `state0` is
+    batched (Q, ...)."""
     return walk(tree.node_lo, tree.node_hi, tree.rope, tree.left_child,
                 tree.range_last, tree.leaf_perm, values, predicates,
                 callback, state0, min_pos=min_pos)
@@ -122,7 +124,8 @@ def traverse(tree, values, predicates, callback, state0, *, min_pos=None):
 def traverse_knn(tree, values, predicates, k: int, *, exclude_labels=None,
                  leaf_labels=None):
     """Batched k-nearest walk: (dists, idxs) (Q, k), ascending FINE
-    distances to the stored values, (inf, -1) padded. A subtree is
+    distances to the stored values (for ``RayNearest`` the hit parameter
+    t: the first k hits), (inf, -1) padded. A subtree is
     entered while its box distance is strictly below the running k-th
     best; a leaf joins the list when its fine distance is too.
 

@@ -3,7 +3,9 @@
 //
 // Replaces: src/repro/kernels/bvh_callback.py::bvh_traverse_callback (body
 //   _callback_kernel), for Intersects predicates over Points, Boxes and
-//   Spheres values. The TPU kernel traced the user's callback into a
+//   Spheres values, and for the ray predicates (RayIntersect,
+//   RayOrderedIntersect, RayNearest) over Points, Boxes, Spheres and 3-D
+//   Triangles values. The TPU kernel traced the user's callback into a
 //   block of lockstep cursors with the tree staged in VMEM; here each
 //   callback the kernel runs is a fixed epilogue (a template parameter,
 //   one instance per kind of repro_torch.core.callbacks), and one thread
@@ -18,19 +20,29 @@
 //   from global memory, with no node cap; the query geometry and the
 //   scalar state live in registers; collect_* epilogues write their
 //   slots straight into the (Q, cap) state outputs, which the wrapper
-//   fills with the initial state. Node test: the predicate geometry's own
-//   test against the node box (point in box, box overlap, or the squared
-//   sphere-box distance); leaf test: predicates.leaf_match_test of the
-//   (predicate, value) pair. Squared sums are g0*g0 then one __fmaf_rn
-//   per further dimension under --fmad=false, sqrtf is IEEE: the order of
-//   geometry.sum_sq_fused, so states equal the twin's bit for bit.
+//   fills with the initial state. Spatial walk (callback_kernel): node
+//   test the predicate geometry's own test against the node box (point
+//   in box, box overlap, or the squared sphere-box distance); leaf test
+//   predicates.leaf_match_test of the (predicate, value) pair. Squared
+//   sums are g0*g0 then one __fmaf_rn per further dimension under
+//   --fmad=false, sqrtf is IEEE: the order of geometry.sum_sq_fused.
+//   Ray walk (ray_kernel, its own instances, so the spatial ones keep
+//   their registers): the origin and 1/d sit in registers with a bit per
+//   zero direction component; node test the slab test of geometry.ray_box,
+//   leaf test predicates.leaf_ray_hit in the "walk" order (sphere: d.d and
+//   (o-c).d fused, |o-c|^2 unfused, c = fma(-r, r, |o-c|^2), disc =
+//   fma(b, b, -(d.d c)); triangle: jnp.cross's fma(x_i, y_j, -(x_j y_i))
+//   and fused dots), IEEE division and sqrtf; the hit's t goes to the
+//   epilogue. States equal the twin's bit for bit.
+#include <cmath>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kMaxDim = 16;
 constexpr int kThreads = 256;
-enum Kind { kPoints = 0, kBoxes = 1, kSpheres = 2 };
+enum Kind { kPoints = 0, kBoxes = 1, kSpheres = 2, kTriangles = 3, kRays = 4 };
 
 struct Tree {
   const float* __restrict__ lo;          // (2n-1, dim)
@@ -43,18 +55,16 @@ struct Tree {
   int dim;
 };
 
-// A geometry array: Points (a = coords), Boxes (a = lo, b = hi) or
-// Spheres (a = center, r = radius).
+// A geometry array: Points (a = coords), Boxes (a = lo, b = hi), Spheres
+// (a = center, r = radius), Triangles (a, b, c) or Rays (a = origin,
+// b = direction).
 struct Geom {
   const float* __restrict__ a;
   const float* __restrict__ b;
+  const float* __restrict__ c;
   const float* __restrict__ r;
   int kind;
 };
-
-__device__ __forceinline__ float min_nan(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
 
 // ---------------------------------------------------------------------------
 // epilogues: load the state, apply one hit (returns done), store
@@ -242,11 +252,130 @@ __global__ void callback_kernel(Tree t, Geom pg, Geom vg,
   ep.store(qi);
 }
 
+// ---------------------------------------------------------------------------
+// the ray walk
+// ---------------------------------------------------------------------------
+
+// geometry.ray_sphere, "walk" order
+__device__ __forceinline__ bool ray_sphere(const float (&o)[kMaxDim],
+                                           const float* dir, const float* cen,
+                                           float r, int dim, float& t) {
+  float d2 = 0.0f, b = 0.0f, s = 0.0f;
+#pragma unroll
+  for (int c = 0; c < kMaxDim; ++c) {
+    if (c < dim) {
+      const float dc = __ldg(dir + c);
+      const float oc = o[c] - __ldg(cen + c);
+      d2 = __fmaf_rn(dc, dc, d2);
+      b = __fmaf_rn(oc, dc, b);
+      s = s + oc * oc;
+    }
+  }
+  const float cc = __fmaf_rn(-r, r, s);
+  const float disc = __fmaf_rn(b, b, -(d2 * cc));
+  const float sq = sqrtf(max_nan(disc, 0.0f));
+  const float den = max_nan(d2, 1e-30f);
+  const float t0 = (-b - sq) / den;
+  const float t1 = (-b + sq) / den;
+  t = t0 >= 0.0f ? t0 : t1;
+  return disc >= 0.0f && t >= 0.0f;
+}
+
+// geometry.ray_triangle (Moller-Trumbore, 3-D), fused order
+__device__ __forceinline__ bool ray_triangle(const float (&o)[kMaxDim],
+                                             const float* dir, const float* pa,
+                                             const float* pb, const float* pc,
+                                             float& t) {
+  float d[3], a[3], e1[3], e2[3], tv[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    d[c] = __ldg(dir + c);
+    a[c] = __ldg(pa + c);
+    e1[c] = __ldg(pb + c) - a[c];
+    e2[c] = __ldg(pc + c) - a[c];
+    tv[c] = o[c] - a[c];
+  }
+  // jnp.cross: component i = fma(x_j, y_k, -(x_k * y_j))
+  const float p[3] = {__fmaf_rn(d[1], e2[2], -(d[2] * e2[1])),
+                      __fmaf_rn(d[2], e2[0], -(d[0] * e2[2])),
+                      __fmaf_rn(d[0], e2[1], -(d[1] * e2[0]))};
+  const float qv[3] = {__fmaf_rn(tv[1], e1[2], -(tv[2] * e1[1])),
+                       __fmaf_rn(tv[2], e1[0], -(tv[0] * e1[2])),
+                       __fmaf_rn(tv[0], e1[1], -(tv[1] * e1[0]))};
+  // fused dots, the first product added to +0
+  const float det = __fmaf_rn(e1[2], p[2],
+                              __fmaf_rn(e1[1], p[1], __fmaf_rn(e1[0], p[0], 0.0f)));
+  const float tiny = det >= 0.0f ? 1e-12f : -1e-12f;
+  const float inv_det = 1.0f / (fabsf(det) < 1e-12f ? tiny : det);
+  const float u = __fmaf_rn(tv[2], p[2], __fmaf_rn(tv[1], p[1],
+                  __fmaf_rn(tv[0], p[0], 0.0f))) * inv_det;
+  const float v = __fmaf_rn(d[2], qv[2], __fmaf_rn(d[1], qv[1],
+                  __fmaf_rn(d[0], qv[0], 0.0f))) * inv_det;
+  t = __fmaf_rn(e2[2], qv[2], __fmaf_rn(e2[1], qv[1],
+      __fmaf_rn(e2[0], qv[0], 0.0f))) * inv_det;
+  constexpr float kOne = static_cast<float>(1.0 + 1e-7);
+  return fabsf(det) > 1e-12f && u >= -1e-7f && v >= -1e-7f && u + v <= kOne &&
+         t >= 0.0f;
+}
+
+template <class Ep>
+__global__ void ray_kernel(Tree t, Geom pg, Geom vg,
+                           const int* __restrict__ min_pos, int q,
+                           const Ep ep0) {
+  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
+  if (qi >= q) return;
+  const int dim = t.dim;
+  const long long qo = static_cast<long long>(qi) * dim;
+  float o[kMaxDim], inv[kMaxDim];
+  const unsigned zero = load_ray(pg.a + qo, pg.b + qo, dim, o, inv);
+  const float* dir = pg.b + qo;
+  const int mp = min_pos[qi];
+  Ep ep = ep0;
+  ep.load(qi);
+
+  int node = 0;
+  bool done = false;
+  while (node != -1 && !done) {
+    float tn;
+    const bool overlap =
+        ray_slab(o, inv, zero, t.lo + static_cast<long long>(node) * dim,
+                 t.hi + static_cast<long long>(node) * dim, dim, LoadLdg(), tn);
+    if (node < t.n - 1) {
+      node = overlap && __ldg(t.range_last + node) > mp ? __ldg(t.left + node)
+                                                        : __ldg(t.rope + node);
+      continue;
+    }
+    const int pos = node - (t.n - 1);
+    if (overlap && pos > mp) {
+      const int orig = __ldg(t.perm + pos);
+      const long long vo = static_cast<long long>(orig) * dim;
+      float th;
+      bool hit;
+      if (vg.kind == kPoints) {
+        hit = ray_slab(o, inv, zero, vg.a + vo, vg.a + vo, dim, LoadLdg(), th);
+      } else if (vg.kind == kBoxes) {
+        hit = ray_slab(o, inv, zero, vg.a + vo, vg.b + vo, dim, LoadLdg(), th);
+      } else if (vg.kind == kSpheres) {
+        hit = ray_sphere(o, dir, vg.a + vo, __ldg(vg.r + orig), dim, th);
+      } else {
+        hit = ray_triangle(o, dir, vg.a + vo, vg.b + vo, vg.c + vo, th);
+      }
+      if (hit) done = ep.hit(qi, orig, th);
+    }
+    node = __ldg(t.rope + node);
+  }
+  ep.store(qi);
+}
+
 template <class Ep>
 void launch(const Tree& t, const Geom& pg, const Geom& vg, const int* mp,
             int q, const Ep& ep, cudaStream_t stream) {
   const int blocks = (q + kThreads - 1) / kThreads;
-  callback_kernel<Ep><<<blocks, kThreads, 0, stream>>>(t, pg, vg, mp, q, ep);
+  if (pg.kind == kRays) {
+    ray_kernel<Ep><<<blocks, kThreads, 0, stream>>>(t, pg, vg, mp, q, ep);
+  } else {
+    callback_kernel<Ep><<<blocks, kThreads, 0, stream>>>(t, pg, vg, mp, q, ep);
+  }
 }
 
 enum Epilogue {
@@ -263,17 +392,22 @@ enum Epilogue {
 // state0 / state1 / state2: the state leaves in place (filled with the
 // initial state): int32 counts or float32 minima (Q,), then for collect_*
 // int32 indices and float32 t (Q, param). param: the limit, k or capacity.
+// pred_kind: Points, Boxes or Spheres (Intersects) or Rays; val_kind:
+// Points, Boxes or Spheres, or Triangles (3-D) under Rays.
 REPRO_EXPORT int bvh_callback_launch(
     const void* node_lo, const void* node_hi, const void* rope,
     const void* left, const void* range_last, const void* perm,
     const void* pred_a, const void* pred_b, const void* pred_r,
-    const void* val_a, const void* val_b, const void* val_r,
-    const void* min_pos, int n, int q, int dim, int pred_kind, int val_kind,
-    int epilogue, int param, int early_exit, int big, void* state0,
-    void* state1, void* state2, const void* flags, const void* weights,
-    void* stream) {
-  if (dim < 1 || dim > kMaxDim || n < 2 || pred_kind < 0 || pred_kind > 2 ||
-      val_kind < 0 || val_kind > 2) {
+    const void* val_a, const void* val_b, const void* val_c,
+    const void* val_r, const void* min_pos, int n, int q, int dim,
+    int pred_kind, int val_kind, int epilogue, int param, int early_exit,
+    int big, void* state0, void* state1, void* state2, const void* flags,
+    const void* weights, void* stream) {
+  const bool ray = pred_kind == kRays;
+  if (dim < 1 || dim > kMaxDim || n < 2 || pred_kind < 0 ||
+      (pred_kind > kSpheres && !ray) || val_kind < 0 ||
+      val_kind > (ray ? kTriangles : kSpheres) ||
+      (val_kind == kTriangles && dim != 3)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Tree t{static_cast<const float*>(node_lo), static_cast<const float*>(node_hi),
@@ -281,9 +415,10 @@ REPRO_EXPORT int bvh_callback_launch(
          static_cast<const int*>(range_last), static_cast<const int*>(perm),
          n, dim};
   Geom pg{static_cast<const float*>(pred_a), static_cast<const float*>(pred_b),
-          static_cast<const float*>(pred_r), pred_kind};
+          nullptr, static_cast<const float*>(pred_r), pred_kind};
   Geom vg{static_cast<const float*>(val_a), static_cast<const float*>(val_b),
-          static_cast<const float*>(val_r), val_kind};
+          static_cast<const float*>(val_c), static_cast<const float*>(val_r),
+          val_kind};
   auto mp = static_cast<const int*>(min_pos);
   auto s = static_cast<cudaStream_t>(stream);
   auto s0 = static_cast<int*>(state0);

@@ -4,13 +4,17 @@
 The kernel (``csrc/bvh_callback.cu``) runs the epilogues of
 ``core.callbacks`` (counting, count_with_limit, min_distance,
 collect_first_k, collect_hits, and DBSCAN's min_where) for Intersects
-predicates over Points, Boxes or Spheres, against values of those three
-geometries, up to ``MAX_DIM`` dimensions; :func:`expressible` says
+predicates over Points, Boxes or Spheres against values of those three
+geometries, and for the ray predicates (RayIntersect,
+RayOrderedIntersect, RayNearest) against Points, Boxes, Spheres or 3-D
+Triangles values, up to ``MAX_DIM`` dimensions; :func:`expressible` says
 whether a call is one of those, and the wrapper raises on a geometry that
-is not float32 or a state that is not the epilogue's layout. Its
-per-query final states equal the twin's bit for bit. The twin is
-``core.traversal.walk`` with the epilogue's torch body: the reference
-pins its kernel bit-identical to that walk.
+is not float32 or a state that is not the epilogue's layout. A ray hit
+hands the epilogue its parameter t (``collect_*`` store it,
+``min_distance`` reduces it). Its per-query final states equal the
+twin's bit for bit. The twin is ``core.traversal.walk`` with the
+epilogue's torch body: the reference pins its kernel bit-identical to
+that walk.
 
 A CPU tensor takes the twin; a CUDA tensor launches the kernel (one
 thread per query, the state held in registers or written straight to the
@@ -33,7 +37,9 @@ from .bvh_traverse import MAX_DIM, _check_tree, _device_of, _stream
 __all__ = ["bvh_traverse_callback", "bvh_traverse_callback_ref",
            "expressible"]
 
-_KIND = {G.Points: 0, G.Boxes: 1, G.Spheres: 2}
+_KIND = {G.Points: 0, G.Boxes: 1, G.Spheres: 2, G.Triangles: 3, G.Rays: 4}
+_SPATIAL = (G.Points, G.Boxes, G.Spheres)
+_RAY_TARGETS = (G.Points, G.Boxes, G.Spheres, G.Triangles)
 _EPILOGUE = {"counting": 0, "count_with_limit": 1, "min_distance": 2,
              "collect_first_k": 3, "collect_hits": 4, "min_where": 5}
 
@@ -43,14 +49,23 @@ def _state_leaves(state0):
 
 
 def expressible(values, predicates, callback) -> bool:
-    """Is this a call the kernel runs: an epilogue callback, Intersects over
-    Points/Boxes/Spheres, values of those geometries, at most MAX_DIM
-    dimensions? Dtypes and the state's layout are not asked here: the
-    wrapper raises on those."""
-    return (isinstance(callback, CB.Epilogue)
-            and isinstance(predicates, P.Intersects)
-            and type(predicates.geom) in _KIND and type(values) in _KIND
-            and 1 <= values.dim <= MAX_DIM)
+    """Is this a call the kernel runs: an epilogue callback, and either
+    Intersects over Points/Boxes/Spheres against values of those, or a ray
+    predicate against Points/Boxes/Spheres/Triangles values, in at most
+    MAX_DIM dimensions (triangles: 3)? Dtypes and the state's layout are
+    not asked here: the wrapper raises on those."""
+    if not isinstance(callback, CB.Epilogue):
+        return False
+    if isinstance(predicates, P.Intersects):
+        kinds_ok = (type(predicates.geom) in _SPATIAL
+                    and type(values) in _SPATIAL)
+    elif isinstance(predicates, P.RAY_KINDS):
+        kinds_ok = (type(predicates.rays) is G.Rays
+                    and type(values) in _RAY_TARGETS
+                    and (type(values) is not G.Triangles or values.dim == 3))
+    else:
+        return False
+    return kinds_ok and 1 <= values.dim <= MAX_DIM
 
 
 def _check_call(what, n, values, predicates, callback, state0):
@@ -59,11 +74,14 @@ def _check_call(what, n, values, predicates, callback, state0):
     if not expressible(values, predicates, callback):
         raise ValueError(f"{what}: the kernel runs the epilogues of "
                          "core.callbacks for Intersects over Points/Boxes/"
-                         f"Spheres values in at most {MAX_DIM} dimensions")
-    if predicates.geom.dim != values.dim:
-        raise ValueError(f"{what}: predicates in {predicates.geom.dim} "
+                         "Spheres values and for ray predicates over "
+                         "Points/Boxes/Spheres/Triangles (3-D) values, in "
+                         f"at most {MAX_DIM} dimensions")
+    geom = P.geometry_of(predicates)
+    if geom.dim != values.dim:
+        raise ValueError(f"{what}: predicates in {geom.dim} "
                          f"dimensions against values in {values.dim}")
-    for name, g in (("values", values), ("predicates", predicates.geom)):
+    for name, g in (("values", values), ("predicates", geom)):
         for field, a in vars(g).items():
             if a.dtype != torch.float32:
                 raise ValueError(f"{what}: {name}.{field} must be float32, "
@@ -91,14 +109,14 @@ def bvh_traverse_callback_ref(node_lo, node_hi, rope, left_child, range_last,
 
 
 def _geom_ptrs(g, dev, what):
-    """(a, b, r) contiguous tensors of a geometry array on `dev` (None
-    where the kind has no such field)."""
-    if isinstance(g, G.Points):
-        arrays = (g.coords, None, None)
-    elif isinstance(g, G.Boxes):
-        arrays = (g.lo, g.hi, None)
-    else:
-        arrays = (g.center, None, g.radius)
+    """(a, b, c, r) contiguous tensors of a geometry array on `dev` (None
+    where the kind has no such field): coords; lo, hi; center, radius;
+    a, b, c; origin, direction."""
+    arrays = {G.Points: lambda: (g.coords, None, None, None),
+              G.Boxes: lambda: (g.lo, g.hi, None, None),
+              G.Spheres: lambda: (g.center, None, None, g.radius),
+              G.Triangles: lambda: (g.a, g.b, g.c, None),
+              G.Rays: lambda: (g.origin, g.direction, None, None)}[type(g)]()
     out = []
     for a in arrays:
         if a is not None:
@@ -114,7 +132,7 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-_ARGS = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
+_ARGS = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 9
          + [ctypes.c_void_p] * 6)
 
 
@@ -146,8 +164,9 @@ def bvh_traverse_callback(node_lo, node_hi, rope, left_child, range_last,
     if tree[4].shape != (2 * n - 1,) or len(values) != n:
         raise ValueError(f"{what}: range_last and values must match the "
                          f"tree's {n} leaves")
-    pa, pb, pr = _geom_ptrs(predicates.geom, dev, what)
-    va, vb, vr = _geom_ptrs(values, dev, what)
+    pgeom = P.geometry_of(predicates)
+    pa, pb, _, pr = _geom_ptrs(pgeom, dev, what)
+    va, vb, vc, vr = _geom_ptrs(values, dev, what)
     mp = (torch.full((q,), -1, dtype=torch.int32, device=dev)
           if min_pos is None else min_pos.to(device=dev, dtype=torch.int32)
           .contiguous())
@@ -175,8 +194,8 @@ def bvh_traverse_callback(node_lo, node_hi, rope, left_child, range_last,
         fn = _build.function("bvh_callback", "bvh_callback_launch", _ARGS)
         with torch.cuda.device(dev):
             err = fn(*(t.data_ptr() for t in tree), _ptr(pa), _ptr(pb),
-                     _ptr(pr), _ptr(va), _ptr(vb), _ptr(vr), mp.data_ptr(),
-                     n, q, dim, _KIND[type(predicates.geom)],
+                     _ptr(pr), _ptr(va), _ptr(vb), _ptr(vc), _ptr(vr),
+                     mp.data_ptr(), n, q, dim, _KIND[type(pgeom)],
                      _KIND[type(values)], _EPILOGUE[kind], param, early_exit,
                      big, *(_ptr(a) for a in (out + [None, None])[:3]),
                      _ptr(flags), _ptr(weights), _stream(dev))

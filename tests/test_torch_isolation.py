@@ -25,6 +25,7 @@ from repro_torch.core.index import _bcast_state
 from repro_torch.kernels import bvh_callback as TC
 from repro_torch.kernels import bvh_traverse as TT
 from repro_torch.kernels import lbvh_build as TK
+from repro_torch.kernels import ray_box as TR
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")
@@ -76,6 +77,10 @@ def test_port_runs_with_jax_blocked():
         "              callback=rt.callbacks.counting())\n"
         "assert c.tolist() == r.offsets.diff().tolist()\n"
         "labels, core = rt.dbscan(pts, 0.3, 3, policy=pol)\n"
+        "rays = rt.Rays(pts[:5], torch.ones((5, 3)))\n"
+        "t, i = rt.raytracing.cast_nearest(rt.BVH(rt.Boxes(pts, pts + 0.01), policy=pol),\n"
+        "                                  rays)\n"
+        "assert t.shape == (5, 1) and bool((t[:, 0] == 0).all())\n"
         "assert labels.shape == (64,) and bool(core.any())\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules\n"
         "               if sys.modules[m] is not None)\n"
@@ -132,17 +137,24 @@ def test_wrappers_refuse_other_devices():
         TC.bvh_traverse_callback(
             *(meta[f] for f in CALLBACK_TREE), TG.Points(x.to("meta")),
             TP.intersects(TG.Points(q)), cb, _bcast_state(s0, 4, "meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        TC.bvh_traverse_callback(
+            *(meta[f] for f in CALLBACK_TREE), TG.Points(x.to("meta")),
+            TP.RayIntersect(TG.Rays(q, q)), cb, _bcast_state(s0, 4, "meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        TR.ray_box_nearest(q, q, q, q)
 
 
 def test_wrappers_have_no_try_and_count_only_kernel_launches():
     """Read the dispatch: no try/except in the wrappers (no "build failed,
     use the twin"), and a CPU call leaves the launch counters alone."""
-    for mod in (TT, TK, TC):
+    for mod in (TT, TK, TC, TR):
         tree = ast.parse(open(mod.__file__).read())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), mod
     t, x = _tree_args()
     before = (TK.karras_ranges.launches, TT.bvh_traverse_spatial.launches,
-              TT.bvh_traverse_knn.launches, TC.bvh_traverse_callback.launches)
+              TT.bvh_traverse_knn.launches, TC.bvh_traverse_callback.launches,
+              TR.ray_box_nearest.launches)
     TL.build(TG.Boxes(x, x))
     TT.bvh_traverse_knn(t.node_lo, t.node_hi, t.rope, t.left_child,
                         t.leaf_perm, x[:3], k=2)
@@ -150,9 +162,13 @@ def test_wrappers_have_no_try_and_count_only_kernel_launches():
     TC.bvh_traverse_callback(*(getattr(t, f) for f in CALLBACK_TREE),
                              TG.Points(x), TP.intersects(TG.Points(x[:3])),
                              cb, _bcast_state(s0, 3, "cpu"))
+    TC.bvh_traverse_callback(*(getattr(t, f) for f in CALLBACK_TREE),
+                             TG.Points(x), TP.RayIntersect(TG.Rays(x[:3], x[:3])),
+                             cb, _bcast_state(s0, 3, "cpu"))
+    TR.ray_box_nearest(x[:3], x[:3], x, x + 0.1)
     assert (TK.karras_ranges.launches, TT.bvh_traverse_spatial.launches,
-            TT.bvh_traverse_knn.launches,
-            TC.bvh_traverse_callback.launches) == before
+            TT.bvh_traverse_knn.launches, TC.bvh_traverse_callback.launches,
+            TR.ray_box_nearest.launches) == before
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +191,7 @@ def test_wrappers_on_the_card_never_call_the_twins(cuda_device, monkeypatch):
     monkeypatch.setattr(TT, "bvh_traverse_knn_ref", boom)
     monkeypatch.setattr(TK, "karras_ranges_fused", boom)
     monkeypatch.setattr(TC, "bvh_traverse_callback_ref", boom)
+    monkeypatch.setattr(TR, "ray_box_nearest_ref", boom)
     x = torch.rand((500, 3), device=cuda_device)
     t = TL.build(TG.Boxes(x, x))
     r = torch.full((20,), 0.1, device=cuda_device)
@@ -188,9 +205,16 @@ def test_wrappers_on_the_card_never_call_the_twins(cuda_device, monkeypatch):
         *(getattr(t, f) for f in CALLBACK_TREE), TG.Points(x),
         TP.intersects(TG.Spheres(x[:20], r)), cb,
         _bcast_state(s0, 20, cuda_device))
+    rays = TP.RayIntersect(TG.Rays(x[:20], x[20:40] - x[:20]))
+    sr = TC.bvh_traverse_callback(
+        *(getattr(t, f) for f in CALLBACK_TREE), TG.Points(x), rays, cb,
+        _bcast_state(s0, 20, cuda_device))
+    tb, ib = TR.ray_box_nearest(x[:20], x[20:40] - x[:20], x, x + 0.01)
     torch.cuda.synchronize()
     assert bool((c >= 1).all()) and i[:, 0].tolist() == list(range(20))
     assert torch.equal(s, c)
+    # every ray starts at a point of the cloud: t = 0 hits on both
+    assert bool((sr >= 1).all()) and bool((tb == 0).all() & (ib >= 0).all())
 
 
 @pytest.mark.cuda
@@ -270,3 +294,80 @@ def test_callback_kernel_matches_twin_on_the_card(cuda_device, name, vkind,
     want = want if isinstance(want, tuple) else (want,)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _ray_case(vkind, name, dev, n=3000, q=500, seed=0):
+    """A ray callback call: seeded values, rays from the unit cube (a
+    third aimed at a value, a tenth with a zero direction component)."""
+    g = torch.Generator().manual_seed(seed)
+    c = torch.rand((n, 3), generator=g)
+    e = 0.03 * (torch.rand((n, 3), generator=g) - 0.5)
+    values = {"points": TG.Points(c),
+              "boxes": TG.Boxes(c, c + 0.03 * torch.rand((n, 3), generator=g)),
+              "spheres": TG.Spheres(c, 0.03 * torch.rand((n,), generator=g)),
+              "triangles": TG.Triangles(c, c + e, c + e.roll(1, 1))}[vkind]
+    o = torch.rand((q, 3), generator=g)
+    d = torch.randn((q, 3), generator=g)
+    d[::3] = c[:q:3] - o[::3]
+    d[1::10, 0] = 0.0
+    flags = torch.rand((n,), generator=g) < 0.5
+    weights = torch.randint(0, 10 * n, (n,), generator=g, dtype=torch.int32)
+    cb, s0 = {"counting": CB.counting, "min_distance": CB.min_distance,
+              "count_with_limit": lambda: CB.count_with_limit(3),
+              "collect_first_k": lambda: CB.collect_first_k(4),
+              "collect_hits": lambda: CB.collect_hits(32),
+              "min_where": lambda: CB._min_where(flags, weights, 10**9)}[name]()
+    values = values.to(dev)
+    tree = TL.build(TG.to_boxes(values))
+    if name == "min_where":
+        cb = CB._min_where(flags.to(dev), weights.to(dev), 10**9)[0]
+    return ([getattr(tree, f) for f in CALLBACK_TREE], values,
+            TP.RayIntersect(TG.Rays(o, d).to(dev)), cb,
+            _bcast_state(s0, q, dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vkind", ["points", "boxes", "spheres", "triangles"])
+@pytest.mark.parametrize("name", ["counting", "count_with_limit",
+                                  "min_distance", "collect_first_k",
+                                  "collect_hits", "min_where"])
+def test_ray_callback_kernel_matches_twin_on_the_card(cuda_device, name,
+                                                      vkind):
+    """The ray instances of the callback kernel, every epilogue over every
+    value geometry: final states (the ray parameter t included) equal the
+    twin's bit for bit."""
+    args = _ray_case(vkind, name, cuda_device)
+    before = TC.bvh_traverse_callback.launches
+    got = TC.bvh_traverse_callback(*args[0], *args[1:])
+    torch.cuda.synchronize()
+    assert TC.bvh_traverse_callback.launches == before + 1
+    want = TC.bvh_traverse_callback_ref(*args[0], *args[1:])
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    if name == "counting":
+        assert int(got[0].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,b", [(1, 1), (129, 257), (1000, 3001)])
+def test_ray_box_nearest_matches_twin_on_the_card(cuda_device, r, b):
+    """ray_box_nearest against its twin: t and index bit-identical, with
+    duplicated boxes (ties), misses, zero direction components and R, B
+    that are not multiples of the block or the tile."""
+    g = torch.Generator().manual_seed(r + b)
+    lo = torch.rand((b, 3), generator=g)
+    hi = lo + 0.05 * torch.rand((b, 3), generator=g)
+    lo[1::4], hi[1::4] = lo[::4][:lo[1::4].shape[0]], hi[::4][:hi[1::4].shape[0]]
+    o = torch.rand((r, 3), generator=g)
+    d = torch.randn((r, 3), generator=g)
+    d[::5, 1] = 0.0
+    o[::7] = o[::7] + 5.0                               # misses
+    args = [a.to(cuda_device) for a in (o, d, lo, hi)]
+    before = TR.ray_box_nearest.launches
+    t, i = TR.ray_box_nearest(*args)
+    torch.cuda.synchronize()
+    assert TR.ray_box_nearest.launches == before + 1
+    wt, wi = TR.ray_box_nearest_ref(o, d, lo, hi)
+    assert torch.equal(t.cpu(), wt) and torch.equal(i.cpu(), wi)

@@ -73,6 +73,24 @@ Phases (one line or more each, then the two closing lines):
      over ``BVH(Boxes)`` of the same boxes (t identical, indices where
      the minimum is unique), timed beside its operations bound.
 
+ 11. ops (slice 4's main path): ``kernels.ops.morton64`` over the 2^20
+     search points and ``kernels.ops.bruteforce_knn`` of 2^13 of the
+     queries against them (k = 10), the two launch counters zeroed just
+     before and read just after: one launch each.
+ 12. morton: the kernel bit-identical to its twin (``core.morton.morton64``,
+     the LBVH build's encoder) on every point, at N = 2^20 in 3-D and at
+     2^16 points in dims 1, 2, 4, 6 and 10 (the bits rule, the hi lane);
+     timed beside its bytes bound and the twin.
+ 13. bruteforce: the kernel bit-identical to its twin on every row at
+     Q = 2^13, N = 2^20, k = 10 (2^33 pairs), its distances against
+     ``BVH.query(nearest)`` within the expansion's error, timed beside its
+     operations bound, the twin and ``torch.topk(torch.cdist(q, p))`` (the
+     yardstick, two calls); at ``bench_bruteforce.py``'s crossover sizes
+     (Q = 1024, k = 8, N = 512, 4096, 32768) beside BVH kNN and
+     ``BruteForce.query``; at k = 256, dim 64, float16 inputs and the
+     k > N tail in one panel and in three, each against its twin.
+ 14. sanitize: one pass of the small sizes with ``REPRO_SANITIZE=1``.
+
 The line before the last is ``{"kernels": [...]}`` (name, route, source,
 replaced TPU kernel, launches, max_abs_err, ms, plain_ms, bound_ms,
 bound_by, library_ms); the last is
@@ -213,8 +231,12 @@ def _ptxas_summary(text):
             cb = re.search(r"(callback_kernel|ray_kernel).*?(CountWithLimit|"
                            r"Counting|MinDistance|CollectILb[01]E|MinWhere)",
                            m.group(1))
-            rb = re.search(r"ray_box_kernel", m.group(1))
+            rb = re.search(r"ray_box_kernel|morton_kernel", m.group(1))
+            bf = re.search(r"bruteforce_knn_kernelILi(n?\d+)ELi(\d+)ELb([01])E",
+                           m.group(1))
             fn = (f"{cb.group(1)}<{cb.group(2)}>" if cb
+                  else f"bruteforce_knn_kernel<dim {bf.group(1).replace('n', '-')}, K "
+                       f"{bf.group(2)}, regs {bf.group(3)}>" if bf
                   else k.group(1) if k else rb.group(0) if rb
                   else m.group(1))
             fn = re.sub(r"ILb([01])E", r"<\1>", re.sub(r"ILi(\d+)E", r"<\1>", fn))
@@ -1279,6 +1301,246 @@ def phase_rays(dev, box_lo, box_hi, policy, card):
     return launches, record, box_record
 
 
+# ---------------------------------------------------------------------------
+# slice 4: the stand-alone kernel ops (morton64, bruteforce_knn), sanitizer
+# ---------------------------------------------------------------------------
+
+Q_BF = 1 << 13           # brute-force queries against the 2^20 points
+MORTON_DIMS_N = 1 << 16  # points per dimension of the bits-rule sweep
+XOVER_Q, XOVER_K, XOVER_N = 1024, 8, (512, 4096, 32768)
+LIB_CHUNK = 2048         # cdist rows per call of the library yardstick
+
+
+def _bf_module():
+    """repro_torch.kernels.bruteforce_knn (the package exports the function
+    under the module's name)."""
+    import importlib
+    return importlib.import_module("repro_torch.kernels.bruteforce_knn")
+
+
+def morton_bound(n, dim):
+    """Coordinates read once, the scene once, two int64 lanes written; per
+    point 7 operations per dimension to quantize and 3 per interleaved
+    bit."""
+    from repro_torch.core.morton import bits_per_dim
+    bits = min(bits_per_dim(dim) * dim, 64)
+    return bound(n * dim * 4 + 2 * dim * 4 + n * 16, n * (7 * dim + 3 * bits))
+
+
+def bf_bound(q, n, dim, k):
+    """Queries and points read once, (dists, idxs) written once; per pair
+    the dot product (2 dim - 1), the expansion (3), the clamp and the
+    compare with the k-th best: every pair is needed."""
+    return bound((q + n) * dim * 4 + q * k * 8, q * n * (2 * dim + 4))
+
+
+def phase_ops_main(pts, qc):
+    """The slice's main path: ``kernels.ops.morton64`` over the search cloud
+    and ``kernels.ops.bruteforce_knn`` of Q_BF queries against it, as a
+    user calls them; the two counters zeroed just before, read just after.
+    Returns (launches, outputs, times)."""
+    import torch
+    from repro_torch.kernels import morton as KM
+    from repro_torch.kernels import ops
+    KB = _bf_module()
+    qb = qc[:Q_BF].contiguous()
+    KM.morton64.launches = 0
+    KB.bruteforce_knn.launches = 0
+    codes, m_ms = timed_once(lambda: ops.morton64(pts))
+    knn, b_ms = timed_once(lambda: ops.bruteforce_knn(qb, pts, K))
+    torch.cuda.synchronize()
+    launches = {"morton64": KM.morton64.launches,
+                "bruteforce_knn": KB.bruteforce_knn.launches}
+    check(launches == {"morton64": 1, "bruteforce_knn": 1},
+          f"the ops path launched {launches}, not one of each")
+    log(f"[ops] main path: ops.morton64 N={N} {m_ms:.3f} ms, "
+        f"ops.bruteforce_knn Q={Q_BF} N={N} k={K} {b_ms:.2f} ms (one call "
+        f"each, CUDA events); launches {json.dumps(launches)}")
+    return launches, codes, knn
+
+
+def phase_morton(dev, pts, codes, card):
+    """The Morton kernel bit-identical to its twin (core.morton.morton64,
+    the LBVH build's encoder) on every point of the search cloud and of a
+    sweep of dims, timed beside its bound and the twin."""
+    import torch
+    from repro_torch.kernels import morton as KM
+    lo, hi = pts.amin(0), pts.amax(0)
+    want, plain = timed_once(lambda: KM.morton64_ref(pts, lo, hi))
+    check(all(torch.equal(a, b) for a, b in zip(codes, want)),
+          "morton64 differs from its twin on the search cloud")
+    check(bool((codes[0] > 0).any()) and bool((codes[0] < 2**32).all()),
+          "morton64: the hi lane is unused or out of the uint32 range")
+    ms = time_ms(lambda: KM.morton64(pts, lo, hi), reps=50)
+    plain = time_ms(lambda: KM.morton64_ref(pts, lo, hi), reps=3)
+    b_ms, b_by = morton_bound(N, 3)
+    log(f"[morton] N={N} dim 3: all points identical to twin (tolerance 0); "
+        f"{ms:.4f} ms vs twin {plain:.3f} ms; bound {b_ms:.4f} ms ({b_by})  "
+        f"[{card}]")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    for dim in (1, 2, 4, 6, 10):
+        x = torch.rand((MORTON_DIMS_N, dim), generator=gen, device=dev)
+        xlo, xhi = x.amin(0), x.amax(0)
+        got = KM.morton64(x, xlo, xhi)
+        twin = KM.morton64_ref(x, xlo, xhi)
+        check(all(torch.equal(a, b) for a, b in zip(got, twin)),
+              f"morton64 differs from its twin at dim {dim}")
+        check(dim == 1 or bool((got[0] > 0).any()),
+              f"morton64 dim {dim}: the hi lane is unused")
+        dms = time_ms(lambda: KM.morton64(x, xlo, xhi), reps=20)
+        log(f"[morton] N={MORTON_DIMS_N} dim {dim}: identical to twin; "
+            f"{dms:.4f} ms; bound {morton_bound(MORTON_DIMS_N, dim)[0]:.4f} ms")
+    return dict(source="src/repro_torch/csrc/morton.cu",
+                replaces="src/repro/kernels/morton.py:59", max_abs_err=0,
+                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def _library_knn(q, p, k):
+    """torch.topk(torch.cdist(q, p), k, largest=False) over LIB_CHUNK
+    queries at a time (the (Q, N) matrix of the main size is 32 GiB)."""
+    import torch
+    for s in range(0, q.shape[0], LIB_CHUNK):
+        torch.topk(torch.cdist(q[s:s + LIB_CHUNK], p), k, largest=False)
+
+
+def _same_knn(got, want, label):
+    import torch
+    err = float(torch.where(got[0] == want[0], 0.0,
+                            (got[0] - want[0]).abs()).max())
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"{label}: differs from its twin (max abs {err:.3g}, "
+          f"{int((got[1] != want[1]).sum())} indices)")
+    return err
+
+
+def phase_bruteforce(dev, pts, qc, knn, policy, card):
+    """The brute-force kernel against its twin on every row, at the main
+    size, the bench's crossover sizes, k = 256, dim 64, float16 inputs and
+    the k > N tail; the main size also against BVH.query(nearest)."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.core import geometry as G
+    from repro_torch.kernels import ops
+    KB = _bf_module()
+    qb = qc[:Q_BF].contiguous()
+    t0 = time.perf_counter()
+    want, plain = timed_once(lambda: KB.bruteforce_knn_ref(qb, pts, K))
+    err = _same_knn(knn, want, f"bruteforce_knn Q={Q_BF} N={N}")
+    del want
+    check(bool(torch.isfinite(knn[0]).all())
+          and bool((knn[0][:, 1:] >= knn[0][:, :-1]).all()),
+          "bruteforce_knn: distances not finite and ascending")
+    index = rt.BVH(G.Points(pts), policy=policy)
+    nn = index.query(rt.nearest(G.Points(qb), k=K))
+    # the kernel carries the expansion's rounding, about 4 * 2^-23 *
+    # (|q|^2 + |p|^2) in the square (coordinates in [0, 1]^3)
+    d2_tol = 4 * 2.0 ** -23 * 6
+    gap = float((nn.distances.double() ** 2 - knn[0].double() ** 2).abs().max())
+    same = nn.indices == knn[1]
+    near = (nn.distances.double() ** 2 - knn[0].double() ** 2).abs() <= d2_tol
+    check(gap <= d2_tol and bool((same | near).all()),
+          f"bruteforce_knn differs from BVH.query(nearest) beyond the "
+          f"expansion's error (max |d2 diff| {gap:.3g})")
+    ms = time_ms(lambda: KB.bruteforce_knn(qb, pts, K), reps=5)
+    torch.cuda.empty_cache()
+    lib = time_ms(lambda: _library_knn(qb, pts, K), reps=2)
+    b_ms, b_by = bf_bound(Q_BF, N, 3, K)
+    log(f"[bruteforce] Q={Q_BF} N={N} k={K} dim 3: all rows identical to "
+        f"twin (tolerance 0); {ms:.3f} ms vs twin {plain:.1f} ms; cdist + "
+        f"topk ({LIB_CHUNK}-query calls) {lib:.3f} ms; bound {b_ms:.4f} ms "
+        f"({b_by}); vs BVH.query(nearest): max |d2 diff| {gap:.3g} (tol "
+        f"{d2_tol:.3g}), {int((~same).sum())} indices differ, all within "
+        f"it  [{card}]")
+    del index, nn
+
+    # -- the bench's crossover sizes: kernel, BVH kNN, BruteForce ----------
+    xq = qc[:XOVER_Q].contiguous()
+    for n in XOVER_N:
+        xp = pts[:n].contiguous()
+        got = KB.bruteforce_knn(xq, xp, XOVER_K)
+        err = max(err, _same_knn(got, KB.bruteforce_knn_ref(xq, xp, XOVER_K),
+                                 f"bruteforce_knn crossover N={n}"))
+        preds = rt.nearest(G.Points(xq), k=XOVER_K)
+        bvh = rt.BVH(G.Points(xp), policy=policy)
+        bf = rt.BruteForce(G.Points(xp), policy=policy)
+        k_ms = time_ms(lambda: KB.bruteforce_knn(xq, xp, XOVER_K), reps=10)
+        t_ms = time_ms(lambda: bvh.query(preds), reps=5)
+        f_ms = time_ms(lambda: bf.query(preds), reps=5)
+        l_ms = time_ms(lambda: torch.topk(torch.cdist(xq, xp), XOVER_K,
+                                          largest=False), reps=5)
+        log(f"[bruteforce] crossover Q={XOVER_Q} k={XOVER_K} N={n}: kernel "
+            f"{k_ms:.3f} ms, BVH.query(nearest) {t_ms:.3f} ms, "
+            f"BruteForce.query {f_ms:.3f} ms, cdist + topk {l_ms:.3f} ms; "
+            f"kernel identical to twin  [{card}]")
+
+    # -- k = 256, dim 64, float16, the k > N tail --------------------------
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    cases = (("k=256", qc[:1024], pts[:1 << 16], 256, 512),
+             ("dim 64", torch.rand((1024, 64), generator=gen, device=dev),
+              torch.rand((1 << 14, 64), generator=gen, device=dev), K, 512),
+             ("tail, one panel", qc[:1024], pts[:100], 128, 512),
+             ("tail, three panels", qc[:1024], pts[:300], 256, 128))
+    for label, cq, cp, k, bn in cases:
+        cq, cp = cq.contiguous(), cp.contiguous()
+        got = ops.bruteforce_knn(cq, cp, k, bn=bn)
+        err = max(err, _same_knn(got, KB.bruteforce_knn_ref(cq, cp, k, bn=bn),
+                                 f"bruteforce_knn {label}"))
+        c_ms = time_ms(lambda: ops.bruteforce_knn(cq, cp, k, bn=bn), reps=3)
+        n = cp.shape[0]
+        if k > n:
+            tail = got[1][:, n:]
+            start = KB.tail_from(n, bn)
+            nearest_below = -1 if start == 0 else KB.bruteforce_knn_ref(
+                cq, cp[:start], 1)[1]
+            check(bool(torch.isinf(got[0][:, n:]).all())
+                  and bool((tail == nearest_below).all()),
+                  f"bruteforce_knn {label}: the rows past N are not the "
+                  f"reference's tail")
+        log(f"[bruteforce] {label}: Q={cq.shape[0]} N={n} dim "
+            f"{cp.shape[1]} k={k} bn={bn}: identical to twin; {c_ms:.3f} ms; "
+            f"bound {bf_bound(cq.shape[0], n, cp.shape[1], k)[0]:.4f} ms")
+    hq, hp = qc[:1024].half(), pts[:1 << 16].half()
+    got = ops.bruteforce_knn(hq, hp, K)
+    err = max(err, _same_knn(got, KB.bruteforce_knn_ref(
+        hq.float(), hp.float(), K), "bruteforce_knn float16"))
+    log(f"[bruteforce] float16 inputs Q=1024 N={1 << 16}: identical to the "
+        f"twin on the float32 cast; phase {time.perf_counter() - t0:.1f} s")
+    return dict(source="src/repro_torch/csrc/bruteforce_knn.cu",
+                replaces="src/repro/kernels/bruteforce_knn.py:102",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib)
+
+
+def phase_sanitized(dev, policy):
+    """One pass of the small sizes with REPRO_SANITIZE=1: a build, CSR, kNN
+    and a callback query, and both ops, every output checked (and the
+    Karras kernel held against its twin)."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.core import geometry as G
+    from repro_torch.kernels import ops, sanitize
+    os.environ["REPRO_SANITIZE"] = "1"
+    check(sanitize.enabled(), "REPRO_SANITIZE did not arm")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    x = torch.rand((1 << 14, 3), generator=gen, device=dev)
+    qx = torch.rand((1 << 10, 3), generator=gen, device=dev)
+    index = rt.BVH(G.Points(x), policy=policy)
+    spheres = rt.intersects(G.Spheres(qx, torch.full((1 << 10,), 0.05,
+                                                     device=dev)))
+    index.query(spheres)
+    index.query(rt.nearest(G.Points(qx), k=K))
+    index.query(spheres, callback=rt.callbacks.min_distance())
+    ops.morton64(x)
+    ops.bruteforce_knn(qx, x, K)
+    ops.bruteforce_knn(qx, x[:5], 8)
+    torch.cuda.synchronize()
+    del os.environ["REPRO_SANITIZE"]
+    log("[sanitize] REPRO_SANITIZE=1: BVH build, CSR, kNN and callback "
+        "queries, ops.morton64 and ops.bruteforce_knn at N=2^14, Q=2^10 on "
+        "the card: every output contract held")
+
+
 def main():
     name, count, card = phase_device()
     import torch
@@ -1308,10 +1570,17 @@ def main():
         ray_launches["bvh_traverse_callback"]
     records["ray_box_nearest"] = box_record
     launches["ray_box_nearest"] = ray_launches["ray_box_nearest"]
+    ops_launches, codes, knn_out = phase_ops_main(pts, qc)
+    launches.update(ops_launches)
+    records["morton64"] = phase_morton(dev, pts, codes, card)
+    records["bruteforce_knn"] = phase_bruteforce(dev, pts, qc, knn_out,
+                                                 policy, card)
+    del codes, knn_out
+    phase_sanitized(dev, policy)
     kernels = []
     for kname in ("karras_ranges", "bvh_traverse_spatial", "bvh_traverse_knn",
                   "bvh_traverse_callback", "bvh_traverse_callback_rays",
-                  "ray_box_nearest"):
+                  "ray_box_nearest", "morton64", "bruteforce_knn"):
         r = records[kname]
         check(launches[kname] > 0, f"{kname} was not launched in its path")
         kernels.append({"name": kname, "route": "cuda", "source": r["source"],
@@ -1319,7 +1588,8 @@ def main():
                         "launches": launches[kname],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None})
+                        "bound_by": r["bound_by"],
+                        "library_ms": r.get("library_ms")})
         check(all(math.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms")),
               f"{kname}: a time is not finite")
     log(f"[done] {time.perf_counter() - t0:.1f} s after the device phase")

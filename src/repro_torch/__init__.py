@@ -5,9 +5,14 @@ The main path builds an LBVH over points, boxes, spheres or triangles,
 then answers batched spatial (CSR) and k-nearest queries through
 ``BVH(...).query()``, callback queries (``query(callback=)``,
 ``query(out=)``), DBSCAN (``dbscan``) and ray tracing (``raytracing``:
-``cast_nearest``, ``cast_intersect``, ``cast_ordered``). Entry points run on the CUDA card unless the caller asks
-for the CPU with ``ExecutionPolicy(device="cpu")``, where the kernels'
-plain PyTorch twins run instead.
+``cast_nearest``, ``cast_intersect``, ``cast_ordered``). The stand-alone
+kernel ops are ``kernels.ops`` (``morton64``, ``bruteforce_knn``,
+``ray_box_nearest``, as ``repro.kernels.ops``), with their oracles in
+``kernels.ref``; ``REPRO_SANITIZE=1`` arms the kernels' output-contract
+checks (``kernels.sanitize``). Entry points run on the CUDA card unless
+the caller asks for the CPU with ``ExecutionPolicy(device="cpu")`` (or
+passes CPU tensors to a kernel op), where the kernels' plain PyTorch
+twins run instead.
 """
 from .core import (BVH, BruteForce, EngineConfig, ExecutionPolicy, LBVH,
                    QueryEngine, QueryResult, RayIntersect, RayNearest,

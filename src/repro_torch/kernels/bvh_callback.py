@@ -19,7 +19,8 @@ that walk.
 A CPU tensor takes the twin; a CUDA tensor launches the kernel (one
 thread per query, the state held in registers or written straight to the
 (Q, cap) outputs); any other device raises. The kernel's launch count is
-``bvh_traverse_callback.launches``.
+``bvh_traverse_callback.launches``. Under ``REPRO_SANITIZE`` the final
+states are checked for NaN (``sanitize.check_state_tree``).
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from ..core import callbacks as CB
 from ..core import geometry as G
 from ..core import predicates as P
 from ..core import traversal
-from . import _build
+from . import _build, sanitize
 from .bvh_traverse import MAX_DIM, _check_tree, _device_of, _stream
 
 __all__ = ["bvh_traverse_callback", "bvh_traverse_callback_ref",
@@ -146,9 +147,20 @@ def bvh_traverse_callback(node_lo, node_hi, rope, left_child, range_last,
     what = "bvh_traverse_callback"
     _check_call(what, leaf_perm.shape[0], values, predicates, callback, state0)
     if _device_of(node_lo, what) == "cpu":
-        return bvh_traverse_callback_ref(
+        final = bvh_traverse_callback_ref(
             node_lo, node_hi, rope, left_child, range_last, leaf_perm, values,
             predicates, callback, state0, min_pos=min_pos)
+    else:
+        final = _callback_launch(what, node_lo, node_hi, rope, left_child,
+                                 range_last, leaf_perm, values, predicates,
+                                 callback, state0, min_pos)
+    sanitize.check_state_tree(final, kernel=what)
+    return final
+
+
+def _callback_launch(what, node_lo, node_hi, rope, left_child, range_last,
+                     leaf_perm, values, predicates, callback, state0,
+                     min_pos):
     dev = node_lo.device
     q = len(predicates)
     n = leaf_perm.shape[0]

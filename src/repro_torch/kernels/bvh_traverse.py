@@ -20,7 +20,9 @@ other device raises. The twins and the kernels sum the per-dimension
 squares in the same fixed order (``geometry.sum_sq_fused``: the first
 square, then one fused multiply-add per further dimension, as XLA:CPU
 runs the reference kernels) and the kernels allow no other contraction,
-so counts, buffers and distances agree bit for bit.
+so counts, buffers and distances agree bit for bit. Under
+``REPRO_SANITIZE`` each wrapper checks its output contract
+(``sanitize.check_spatial`` / ``check_knn``).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import ctypes
 import torch
 
 from ..core.geometry import sqrt, sum_sq_fused
-from . import _build
+from . import _build, sanitize
 
 __all__ = ["bvh_traverse_spatial", "bvh_traverse_knn",
            "bvh_traverse_spatial_ref", "bvh_traverse_knn_ref",
@@ -196,10 +198,21 @@ def bvh_traverse_spatial(node_lo, node_hi, rope, left_child, range_last,
     if capacity < 1:
         raise ValueError(f"{what}: capacity must be >= 1, got {capacity}")
     if _device_of(q_lo, what) == "cpu":
-        return bvh_traverse_spatial_ref(
+        counts, buf = bvh_traverse_spatial_ref(
             node_lo, node_hi, rope, left_child, range_last, leaf_perm, q_lo,
             q_hi, radius, capacity=capacity, fine_sqrt=fine_sqrt,
             min_pos=min_pos)
+    else:
+        counts, buf = _spatial_launch(
+            what, node_lo, node_hi, rope, left_child, range_last, leaf_perm,
+            q_lo, q_hi, radius, capacity, fine_sqrt, min_pos)
+    sanitize.check_spatial(counts, buf, n=leaf_perm.shape[0], kernel=what)
+    return counts, buf
+
+
+def _spatial_launch(what, node_lo, node_hi, rope, left_child, range_last,
+                    leaf_perm, q_lo, q_hi, radius, capacity, fine_sqrt,
+                    min_pos):
     dev = q_lo.device
     q, dim = q_lo.shape
     n = leaf_perm.shape[0]
@@ -230,9 +243,6 @@ def bvh_traverse_spatial(node_lo, node_hi, rope, left_child, range_last,
     return counts, buf
 
 
-bvh_traverse_spatial.launches = 0
-
-
 def bvh_traverse_knn(node_lo, node_hi, rope, left_child, leaf_perm, queries,
                      *, k: int):
     """(dists, idxs) (Q, k) float32/int32, ascending, (inf, -1) padded,
@@ -241,8 +251,17 @@ def bvh_traverse_knn(node_lo, node_hi, rope, left_child, leaf_perm, queries,
     if k < 1:
         raise ValueError(f"{what}: k must be >= 1, got {k}")
     if _device_of(queries, what) == "cpu":
-        return bvh_traverse_knn_ref(node_lo, node_hi, rope, left_child,
-                                    leaf_perm, queries, k=k)
+        dists, idxs = bvh_traverse_knn_ref(node_lo, node_hi, rope,
+                                           left_child, leaf_perm, queries, k=k)
+    else:
+        dists, idxs = _knn_launch(what, node_lo, node_hi, rope, left_child,
+                                  leaf_perm, queries, k)
+    sanitize.check_knn(dists, idxs, n=leaf_perm.shape[0], kernel=what)
+    return dists, idxs
+
+
+def _knn_launch(what, node_lo, node_hi, rope, left_child, leaf_perm, queries,
+                k):
     if k > KNN_MAX_K:
         raise ValueError(f"{what}: k={k} above the kernel's cap {KNN_MAX_K}")
     dev = queries.device
@@ -268,4 +287,5 @@ def bvh_traverse_knn(node_lo, node_hi, rope, left_child, leaf_perm, queries,
     return dists, idxs
 
 
+bvh_traverse_spatial.launches = 0
 bvh_traverse_knn.launches = 0

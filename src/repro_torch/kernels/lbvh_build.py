@@ -19,7 +19,7 @@ import ctypes
 import torch
 
 from ..core import morton as M
-from . import _build
+from . import _build, sanitize
 
 __all__ = ["karras_ranges", "karras_ranges_fused", "aabb_rmq"]
 
@@ -113,10 +113,28 @@ def karras_ranges(hi, lo, idx, n: int, max_log2: int):
 
     CPU tensors take the plain twin; CUDA tensors launch
     ``csrc/karras.cu`` (one thread per internal node); any other device
-    raises."""
+    raises. Under ``REPRO_SANITIZE`` the twin also runs beside the
+    kernel and must agree with it bit for bit (the reference's
+    build-conformance check), and each result is held to
+    ``sanitize.check_karras``."""
+    what = "karras_ranges"
+    if hi.device.type == "cpu":
+        out = karras_ranges_fused(hi, lo, idx, n, max_log2)
+        sanitize.check_karras(*out, n=n, kernel="karras_ranges_fused")
+        return out
+    out = _karras_launch(hi, lo, idx, n, max_log2)
+    if sanitize.enabled():
+        twin = karras_ranges_fused(hi, lo, idx, n, max_log2)
+        if not all(torch.equal(a, b) for a, b in zip(out, twin)):
+            raise AssertionError(f"REPRO_SANITIZE: the {what} kernel "
+                                 "disagrees with karras_ranges_fused")
+        for r, kern in ((out, what), (twin, "karras_ranges_fused")):
+            sanitize.check_karras(*r, n=n, kernel=kern)
+    return out
+
+
+def _karras_launch(hi, lo, idx, n: int, max_log2: int):
     dev = hi.device
-    if dev.type == "cpu":
-        return karras_ranges_fused(hi, lo, idx, n, max_log2)
     if dev.type != "cuda":
         raise ValueError(f"karras_ranges: no kernel for device {dev}")
     for name, t in (("hi", hi), ("lo", lo), ("idx", idx)):

@@ -69,7 +69,7 @@ def _query_arrays(qkind, values_c, q=Q, seed=51):
 
 def _carry(jtree):
     return convert.lbvh_from_numpy({f: np.asarray(getattr(jtree, f))
-                                    for f in FIELDS})
+                                    for f in FIELDS}, CPU)
 
 
 @functools.lru_cache(maxsize=None)

@@ -9,6 +9,7 @@
     called.
 """
 import ast
+import importlib
 import os
 import subprocess
 import sys
@@ -16,16 +17,21 @@ import sys
 import pytest
 import torch
 
-from repro_torch import BVH, BruteForce, ExecutionPolicy, dbscan
+from repro_torch import BVH, BruteForce, ExecutionPolicy, convert, dbscan
 from repro_torch.core import callbacks as CB
 from repro_torch.core import geometry as TG
 from repro_torch.core import lbvh as TL
+from repro_torch.core import morton as M
 from repro_torch.core import predicates as TP
-from repro_torch.core.index import _bcast_state
+from repro_torch.core.index import _bcast_state, resolve_device
 from repro_torch.kernels import bvh_callback as TC
 from repro_torch.kernels import bvh_traverse as TT
 from repro_torch.kernels import lbvh_build as TK
+from repro_torch.kernels import morton as TM
+from repro_torch.kernels import ops as TO
 from repro_torch.kernels import ray_box as TR
+from repro_torch.kernels import ref as TRF
+from repro_torch.kernels import sanitize as TS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")
@@ -371,3 +377,136 @@ def test_ray_box_nearest_matches_twin_on_the_card(cuda_device, r, b):
     assert TR.ray_box_nearest.launches == before + 1
     wt, wi = TR.ray_box_nearest_ref(o, d, lo, hi)
     assert torch.equal(t.cpu(), wt) and torch.equal(i.cpu(), wi)
+
+
+# ---------------------------------------------------------------------------
+# slice 4: the stand-alone kernel ops, the sanitizer, convert's default
+# ---------------------------------------------------------------------------
+
+TB = importlib.import_module("repro_torch.kernels.bruteforce_knn")
+NEW_MODULES = (TM, TB, TO, TRF, TS)
+
+
+def test_kernel_ops_run_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import torch\n"
+        "from repro_torch.kernels import ops, ref, sanitize\n"
+        "x = torch.rand((300, 3), generator=torch.Generator().manual_seed(0))\n"
+        "hi, lo = ops.morton64(x)\n"
+        "d, i = ops.bruteforce_knn(x[:7], x, 4)\n"
+        "assert i[:, 0].tolist() == list(range(7)) and hi.shape == (300,)\n"
+        "assert torch.equal(ref.bruteforce_knn_ref(x[:7], x, 4)[1], i)\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules\n"
+        "               if sys.modules[m] is not None)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_new_modules_are_scanned_for_imports():
+    files = {os.path.realpath(p) for p in _port_files()}
+    for mod in NEW_MODULES:
+        assert os.path.realpath(mod.__file__) in files, mod
+
+
+def test_convert_defaults_to_the_card(monkeypatch):
+    """With no card, the no-argument calls raise resolve_device's error;
+    a missing tree field still raises KeyError first."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError) as want:
+        resolve_device(None)
+    t, _ = _tree_args()
+    fields = convert.lbvh_to_numpy(t)
+    with pytest.raises(RuntimeError) as got:
+        convert.lbvh_from_numpy(fields)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(RuntimeError) as got:
+        convert.geometry_from_numpy("points", [fields["node_lo"]])
+    assert str(got.value) == str(want.value)
+    with pytest.raises(KeyError):
+        convert.lbvh_from_numpy({"node_lo": fields["node_lo"]})
+    assert convert.lbvh_from_numpy(fields, "cpu").node_lo.device.type == "cpu"
+
+
+def test_new_wrappers_refuse_other_devices():
+    q = torch.zeros((4, 3), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        TM.morton64(q, q[0], q[0])
+    with pytest.raises(ValueError, match="no kernel"):
+        TB.bruteforce_knn(q, q, 2)
+
+
+def test_new_wrappers_have_no_try_and_count_only_kernel_launches():
+    for mod in NEW_MODULES:
+        tree = ast.parse(open(mod.__file__).read())
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), mod
+    x = torch.rand((50, 3), generator=torch.Generator().manual_seed(3))
+    before = (TM.morton64.launches, TB.bruteforce_knn.launches)
+    TO.morton64(x)
+    TO.bruteforce_knn(x[:5], x, 3)
+    assert (TM.morton64.launches, TB.bruteforce_knn.launches) == before
+
+
+@pytest.mark.cuda
+def test_new_wrappers_on_the_card_never_call_the_twins(cuda_device,
+                                                       monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("a twin ran for a CUDA tensor")
+
+    monkeypatch.setattr(TM, "morton64_ref", boom)
+    monkeypatch.setattr(TB, "bruteforce_knn_ref", boom)
+    x = torch.rand((500, 3), device=cuda_device)
+    hi, lo = TO.morton64(x)
+    d, i = TO.bruteforce_knn(x[:20], x, 3)
+    torch.cuda.synchronize()
+    assert hi.shape == (500,) and i[:, 0].tolist() == list(range(20))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dim", [(1, 3), (1000, 1), (4099, 2), (5000, 3),
+                                   (777, 6), (300, 10), (200, 21)])
+def test_morton_kernel_matches_twin_on_the_card(cuda_device, n, dim):
+    g = torch.Generator().manual_seed(n + dim)
+    x = torch.rand((n, dim), generator=g) * 4 - 1
+    lo, hi = torch.zeros(dim), torch.ones(dim)      # points outside clamp
+    before = TM.morton64.launches
+    got = TM.morton64(x.to(cuda_device), lo.to(cuda_device),
+                      hi.to(cuda_device))
+    torch.cuda.synchronize()
+    assert TM.morton64.launches == before + 1
+    want = TM.morton64_ref(x, lo, hi)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    core = M.morton64(x.to(cuda_device), lo.to(cuda_device),
+                      hi.to(cuda_device))
+    assert all(torch.equal(a, b) for a, b in zip(got, core))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,n,dim,k,bn", [
+    (1, 1, 3, 1, 512), (100, 300, 3, 8, 512), (257, 2000, 3, 10, 512),
+    (70, 1000, 2, 32, 512), (65, 700, 5, 33, 512), (40, 600, 17, 4, 512),
+    (30, 100, 64, 16, 512), (20, 5, 3, 8, 512), (20, 513, 3, 256, 512),
+    (33, 200, 3, 256, 64), (64, 3000, 3, 256, 512)])
+def test_bruteforce_kernel_matches_twin_on_the_card(cuda_device, q, n, dim,
+                                                    k, bn):
+    """Distances and indices bit-identical to the twin: register and
+    local-memory lists, dims in registers and read from memory, duplicate
+    points (ties), and the k > N tail in one panel and in several."""
+    g = torch.Generator().manual_seed(q + n + k)
+    p = torch.rand((n, dim), generator=g)
+    p[1::3] = p[::3][:p[1::3].shape[0]].clone()
+    qs = torch.cat([p[:q // 2], torch.rand((q - q // 2, dim), generator=g)])
+    before = TB.bruteforce_knn.launches
+    got = TB.bruteforce_knn(qs.to(cuda_device), p.to(cuda_device), k, bn=bn)
+    torch.cuda.synchronize()
+    assert TB.bruteforce_knn.launches == before + 1
+    want = TB.bruteforce_knn_ref(qs, p, k, bn=bn)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    if k > n:
+        assert bool(torch.isinf(got[0][:, n:]).all())

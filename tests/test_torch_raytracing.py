@@ -122,7 +122,7 @@ def ray_arrays(vkind, varr, q=Q, seed=2, paired=False):
 
 def _carry(jtree):
     return convert.lbvh_from_numpy({f: np.asarray(getattr(jtree, f))
-                                    for f in FIELDS})
+                                    for f in FIELDS}, CPU)
 
 
 @functools.lru_cache(maxsize=None)
@@ -497,8 +497,8 @@ def test_triangle_spatial_queries_wait_for_a_later_slice():
 def test_geometry_from_numpy_carries_triangles_and_rays():
     a = np.arange(9, dtype=np.float32).reshape(3, 3)
     t = convert.geometry_from_numpy("triangles", {"a": a, "b": a + 1,
-                                                  "c": a + 2})
-    r = convert.geometry_from_numpy("rays", (a, -a))
+                                                  "c": a + 2}, "cpu")
+    r = convert.geometry_from_numpy("rays", (a, -a), "cpu")
     assert isinstance(t, TG.Triangles) and len(t) == 3 and t.dim == 3
     assert isinstance(r, TG.Rays) and torch.equal(r.direction,
                                                   -torch.from_numpy(a))

@@ -25,7 +25,8 @@ def _trees(n, dim, kind="points", seed=0):
     hi = lo if kind == "points" else lo + np.random.default_rng(seed).uniform(
         0.0, 0.1, lo.shape).astype(np.float32)
     jt = JL.build(JG.Boxes(jnp.asarray(lo), jnp.asarray(hi)))
-    tt = convert.lbvh_from_numpy({f: np.asarray(getattr(jt, f)) for f in TL.FIELDS})
+    tt = convert.lbvh_from_numpy({f: np.asarray(getattr(jt, f))
+                                  for f in TL.FIELDS}, "cpu")
     return jt, tt
 
 
@@ -130,7 +131,8 @@ def _grid(dim):
     g = np.stack(np.meshgrid(*([ax] * dim), indexing="ij"), -1).reshape(-1, dim)
     g = g.astype(np.float32)
     jt = JL.build(JG.Boxes(jnp.asarray(g), jnp.asarray(g)))
-    tt = convert.lbvh_from_numpy({f: np.asarray(getattr(jt, f)) for f in TL.FIELDS})
+    tt = convert.lbvh_from_numpy({f: np.asarray(getattr(jt, f))
+                                  for f in TL.FIELDS}, "cpu")
     return g, jt, tt
 
 

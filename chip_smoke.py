@@ -90,10 +90,28 @@ Phases (one line or more each, then the two closing lines):
      ``BruteForce.query``; at k = 256, dim 64, float16 inputs and the
      k > N tail in one panel and in three, each against its twin.
  14. sanitize: one pass of the small sizes with ``REPRO_SANITIZE=1``.
+ 15. flash: ``flash_attention``'s kernel against its twin on the card at
+     the LM's shape (B = 4, Hq = 32, Hkv = 4, S = 2048, D = 64, bf16,
+     causal), ``tests/test_kernels.py``'s float32 sweep (GQA, MQA,
+     unaligned S, Sq < Skv, window 32, bidirectional D = 128), Sq > Skv
+     (rows of zeros), D = 96 and 16, and float16; within 2e-5 plus two
+     steps of the output type. Timed beside the twin, its bound (bf16
+     tensor-core rate) and ``scaled_dot_product_attention`` (the
+     yardstick, never called by the port).
+ 16. lm (slice 5's main path): ``LM.from_config`` of TinyLlama-1.1B with
+     attn_impl="flash" at full width and depth (22 layers), random bf16
+     weights from the seed, one forward of 4 x 2048 seeded tokens with the
+     counters zeroed just before and read just after: 22 flash launches,
+     no twin call, finite logits. The logits against the plain path
+     (attn_impl="xla") on the same weights: bf16 at full depth within 2e-2
+     of max |logit| with top-1 agreement of at least 0.95, float32 at
+     full width with the depth cut to 2 layers within 1e-5 (top-1 at
+     least 0.999). The forward's
+     time (ms, tokens/s) and one profiled forward.
 
-The line before the last is ``{"kernels": [...]}`` (name, route, source,
-replaced TPU kernel, launches, max_abs_err, ms, plain_ms, bound_ms,
-bound_by, library_ms); the last is
+The line before the last is ``{"kernels": [...]}`` (9 entries: name,
+route, source, replaced TPU kernel, launches, max_abs_err, ms, plain_ms,
+bound_ms, bound_by, library_ms); the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed check raises and the script exits nonzero without them.
 """
@@ -124,6 +142,11 @@ SEED = 0
 # bound stays a floor)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# bf16 dense tensor-core peak: the flash kernel's inputs are bf16 and
+# their products exact in float32, so the least time its work could take
+# is at the tensor cores' rate (the other kernels' bounds keep the
+# float32 rate)
+BF16_OPS_PER_S = 989e12
 
 
 def log(*a):
@@ -232,9 +255,13 @@ def _ptxas_summary(text):
                            r"Counting|MinDistance|CollectILb[01]E|MinWhere)",
                            m.group(1))
             rb = re.search(r"ray_box_kernel|morton_kernel", m.group(1))
+            fa = re.search(r"flash_kernelI(6__half|13__nv_bfloat16|f)Li(\d+)E",
+                           m.group(1))
             bf = re.search(r"bruteforce_knn_kernelILi(n?\d+)ELi(\d+)ELb([01])E",
                            m.group(1))
-            fn = (f"{cb.group(1)}<{cb.group(2)}>" if cb
+            fn = (f"flash_kernel<{fa.group(1).lstrip('0123456789')}, "
+                  f"D {fa.group(2)}>" if fa
+                  else f"{cb.group(1)}<{cb.group(2)}>" if cb
                   else f"bruteforce_knn_kernel<dim {bf.group(1).replace('n', '-')}, K "
                        f"{bf.group(2)}, regs {bf.group(3)}>" if bf
                   else k.group(1) if k else rb.group(0) if rb
@@ -1541,6 +1568,232 @@ def phase_sanitized(dev, policy):
         "the card: every output contract held")
 
 
+# ---------------------------------------------------------------------------
+# slice 5: the LM forward (TinyLlama-1.1B) and the flash-attention kernel
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "tinyllama-1.1b"
+LM_B, LM_S = 4, 2048
+LM_F32_LAYERS = 2        # depth of the float32 comparison at full width
+# logits, flash against the plain path ("xla"), as a share of max |logit|:
+# float32 sums in other orders (6e-7 measured at 2 layers); in bf16 at
+# full depth the plain path rounds p to bf16 before P.V and the kernel
+# does not, through 22 layers (5e-3 measured), and top-1 must agree
+LM_F32_TOL, LM_BF16_TOL, LM_TOP1 = 1e-5, 2e-2, 0.95
+# kernel against twin: 2e-5 plus two steps of the output type (the two
+# round float32 values that differ in their last bits)
+FLASH_ABS = 2e-5
+FLASH_CASES = (   # (B, Hq, Hkv, Sq, Skv, D, causal, window, dtype name)
+    # tests/test_kernels.py's sweep, float32
+    (1, 4, 4, 128, 128, 64, True, None, "float32"),
+    (2, 8, 2, 128, 128, 64, True, None, "float32"),       # GQA 4:1
+    (1, 4, 1, 256, 256, 32, True, None, "float32"),       # MQA
+    (1, 4, 4, 100, 100, 64, True, None, "float32"),       # unaligned S
+    (1, 2, 2, 64, 192, 64, True, None, "float32"),        # Sq < Skv
+    (1, 4, 2, 128, 128, 64, True, 32, "float32"),         # window 32
+    (1, 2, 2, 96, 96, 128, False, None, "float32"),       # bidirectional
+    # rows with no key, the other head widths, float16
+    (1, 4, 2, 192, 64, 64, True, None, "float32"),        # Sq > Skv
+    (2, 32, 32, 512, 512, 96, True, None, "bfloat16"),    # Phi-3's heads
+    (2, 4, 2, 300, 300, 16, True, None, "float32"),       # smoke heads
+    (2, 32, 4, 1024, 1024, 64, True, None, "float16"),
+    (1, 8, 2, 700, 700, 128, True, 256, "float16"),
+)
+
+
+def flash_step(dtype):
+    import torch
+    return {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7,
+            torch.float16: 2.0 ** -10}[dtype]
+
+
+def visible_pairs(sq, skv, causal, window):
+    """(query, key) pairs the masks leave visible, row by row."""
+    import torch
+    qpos = torch.arange(sq, dtype=torch.int64) + (skv - sq)
+    hi = torch.minimum(qpos + 1, torch.tensor(skv)) if causal else \
+        torch.full_like(qpos, skv)
+    lo = torch.clamp_min(qpos - window + 1, 0) if window else \
+        torch.zeros_like(qpos)
+    return int(torch.clamp_min(hi - lo, 0).sum())
+
+
+def flash_bound(b, hq, hkv, sq, skv, d, causal, window, itemsize):
+    """q, k, v read once and o written once; 4 D operations (two products
+    of length D) per visible pair, at the bf16 tensor-core rate."""
+    nbytes = (2 * b * hq * sq * d + 2 * b * hkv * skv * d) * itemsize
+    ops = 4 * d * b * hq * visible_pairs(sq, skv, causal, window)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _flash_against_twin(KF, q, k, v, causal, window, label):
+    """The kernel and its twin on the same inputs; returns (max |diff|,
+    kernel output)."""
+    import torch
+    got = KF.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = KF.flash_attention_ref(q, k, v, causal=causal, window=window)
+    diff = (got.float() - want.float()).abs()
+    tol = FLASH_ABS + 2 * flash_step(q.dtype) * want.float().abs()
+    check(got.dtype == q.dtype and got.shape == q.shape
+          and bool(torch.isfinite(got).all()),
+          f"flash_attention {label}: wrong dtype or shape, or not finite")
+    check(bool((diff <= tol).all()),
+          f"flash_attention {label}: differs from its twin beyond 2e-5 + two "
+          f"steps of {q.dtype} (max |diff| {float(diff.max()):.3g})")
+    return float(diff.max()), got
+
+
+def phase_flash(dev, card):
+    """The flash kernel against its twin on the card: the LM's shape (B = 4,
+    Hq = 32, Hkv = 4, S = 2048, D = 64, bf16, causal) and FLASH_CASES;
+    timed beside the twin, its bound and scaled_dot_product_attention."""
+    import torch
+    from repro_torch.kernels import flash_attention as KF
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+
+    def qkv(b, hq, hkv, sq, skv, d, dtype):
+        return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     for shape in ((b, hq, sq, d), (b, hkv, skv, d),
+                                   (b, hkv, skv, d)))
+
+    cfg_shape = (LM_B, 32, 4, LM_S, LM_S, 64)
+    q, k, v = qkv(*cfg_shape, torch.bfloat16)
+    errs = {}
+    err, _ = _flash_against_twin(KF, q, k, v, True, None, "LM shape")
+    errs["bfloat16"] = err
+    for b, hq, hkv, sq, skv, d, causal, window, dt in FLASH_CASES:
+        cq, ck, cv = qkv(b, hq, hkv, sq, skv, d, getattr(torch, dt))
+        label = f"({b}, {hq}, {hkv}, {sq}, {skv}, {d}, {causal}, {window}, {dt})"
+        err, got = _flash_against_twin(KF, cq, ck, cv, causal, window, label)
+        errs[dt] = max(errs.get(dt, 0.0), err)
+        if causal and sq > skv:
+            check(bool((got[:, :, :sq - skv] == 0).all()),
+                  f"flash_attention {label}: rows with no key are not 0")
+    log(f"[flash] kernel against twin on {len(FLASH_CASES) + 1} shapes (the "
+        f"LM's, tests/test_kernels.py's sweep, Sq > Skv, D 16 / 96 / 128, "
+        f"float16): max |diff| per dtype {json.dumps(errs)}; tolerance 2e-5 "
+        f"+ two steps of the output type")
+    ms = time_ms(lambda: KF.flash_attention(q, k, v), reps=20)
+    plain = time_ms(lambda: KF.flash_attention_ref(q, k, v), reps=3)
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), reps=20)
+    b_ms, b_by = flash_bound(*cfg_shape, True, None, 2)
+    log(f"[flash] B={LM_B} Hq=32 Hkv=4 S={LM_S} D=64 bf16 causal: "
+        f"{ms:.4f} ms vs twin {plain:.3f} ms; scaled_dot_product_attention "
+        f"{lib:.4f} ms; bound {b_ms:.4f} ms ({b_by}); phase "
+        f"{time.perf_counter() - t0:.1f} s  [{card}]")
+    return dict(source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:117",
+                max_abs_err=max(errs.values()), ms=ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+
+
+def _logit_gap(got, want):
+    """(max |diff| / max |want|, top-1 agreement share) of two logit sets."""
+    gap = float((got.float() - want.float()).abs().max())
+    top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    return gap / float(want.float().abs().max()), top1
+
+
+def _plain_twin_of(model, cfg):
+    """The same weights behind attn_impl="xla" (the port's plain path)."""
+    import dataclasses
+    import repro_torch as rt
+    twin = rt.LM(dataclasses.replace(cfg, attn_impl="xla"), model.device)
+    twin.load_state_dict(model.state_dict())
+    return twin
+
+
+def phase_lm(dev, card):
+    """The slice's main path: ``LM.from_config`` of TinyLlama-1.1B with
+    attn_impl="flash" at full width and depth, bf16, one forward of
+    B x S tokens with the counters zeroed just before and read just after
+    (22 flash launches, no twin call). Then the logits against the plain
+    path on the same weights (float32 at 2 layers, bf16 at full depth),
+    the forward's time and a profiled forward. Returns the launches."""
+    import dataclasses
+    import torch
+    import repro_torch as rt
+    from repro_torch.kernels import flash_attention as KF
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = dataclasses.replace(rt.get_config(LM_ARCH), attn_impl="flash")
+    model = rt.LM.from_config(cfg, seed=SEED)
+    check(model.device.type == "cuda", "LM.from_config did not land on the card")
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    tokens = torch.randint(0, cfg.vocab, (LM_B, LM_S), generator=gen,
+                           device=dev)
+    twin_calls = []
+    twin = KF.flash_attention_ref
+
+    def counted_twin(*a, **kw):
+        twin_calls.append(1)
+        return twin(*a, **kw)
+
+    KF.flash_attention_ref = counted_twin
+    with torch.inference_mode():
+        KF.flash_attention.launches = 0
+        logits, aux = model(tokens)
+        torch.cuda.synchronize()
+        launches = {"flash_attention": KF.flash_attention.launches}
+        KF.flash_attention_ref = twin
+        check(launches["flash_attention"] == cfg.n_layers and not twin_calls,
+              f"the LM forward launched flash {launches['flash_attention']} "
+              f"times for {cfg.n_layers} layers, the twin {len(twin_calls)}")
+        check(logits.shape == (LM_B, LM_S, cfg.vocab)
+              and logits.dtype == torch.bfloat16
+              and bool(torch.isfinite(logits).all()) and float(aux) == 0.0,
+              "LM forward: logits of the wrong shape or type, or not finite")
+        log(f"[lm] {cfg.name} attn_impl=flash, {cfg.n_layers} layers, "
+            f"d_model {cfg.d_model}, {n_params / 1e9:.3f} B parameters, bf16; "
+            f"B={LM_B} S={LM_S}: logits finite, max |logit| "
+            f"{float(logits.float().abs().max()):.1f}; launches "
+            f"{json.dumps(launches)}, twin calls 0")
+
+        plain = _plain_twin_of(model, cfg)
+        rel, top1 = _logit_gap(logits, plain(tokens)[0])
+        check(rel <= LM_BF16_TOL and top1 >= LM_TOP1,
+              f"LM bf16 flash vs plain: max |diff| {rel:.3g} of max |logit| "
+              f"(tolerance {LM_BF16_TOL}), top-1 agreement {top1:.4f}")
+        xla_ms = time_ms(lambda: plain(tokens), reps=1)
+        del plain
+        log(f"[lm] bf16, {cfg.n_layers} layers, flash vs the plain path on "
+            f"the same weights: max |diff| {rel:.3g} of max |logit| "
+            f"(tolerance {LM_BF16_TOL}), top-1 agreement {top1:.4f} (at "
+            f"least {LM_TOP1})")
+        c32 = dataclasses.replace(cfg, n_layers=LM_F32_LAYERS,
+                                  dtype="float32")
+        m32 = rt.LM.from_config(c32, seed=SEED)
+        rel32, top32 = _logit_gap(m32(tokens)[0],
+                                  _plain_twin_of(m32, c32)(tokens)[0])
+        check(rel32 <= LM_F32_TOL and top32 >= 0.999,
+              f"LM float32 flash vs plain: max |diff| {rel32:.3g} of max "
+              f"|logit| (tolerance {LM_F32_TOL}), top-1 {top32:.4f}")
+        del m32
+        log(f"[lm] float32, full width, {LM_F32_LAYERS} layers: flash vs the "
+            f"plain path max |diff| {rel32:.3g} of max |logit| (tolerance "
+            f"{LM_F32_TOL}), top-1 agreement {top32:.4f}")
+
+        torch.cuda.reset_peak_memory_stats()
+        fwd_ms = time_ms(lambda: model(tokens), reps=3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[lm] forward B={LM_B} x S={LM_S}: {fwd_ms:.2f} ms, "
+            f"{LM_B * LM_S / fwd_ms * 1e3:.0f} tokens/s (CUDA events, 3 "
+            f"forwards after a warm-up); the plain path {xla_ms:.2f} ms; peak "
+            f"device memory {peak:.2f} GiB  [{card}]")
+        profile_window(f"LM forward ({cfg.name}, flash, B={LM_B}, S={LM_S})",
+                       lambda: model(tokens), card)
+    del model, logits
+    torch.cuda.empty_cache()
+    log(f"[lm] phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main():
     name, count, card = phase_device()
     import torch
@@ -1577,10 +1830,13 @@ def main():
                                                  policy, card)
     del codes, knn_out
     phase_sanitized(dev, policy)
+    records["flash_attention"] = phase_flash(dev, card)
+    launches.update(phase_lm(dev, card))
     kernels = []
     for kname in ("karras_ranges", "bvh_traverse_spatial", "bvh_traverse_knn",
                   "bvh_traverse_callback", "bvh_traverse_callback_rays",
-                  "ray_box_nearest", "morton64", "bruteforce_knn"):
+                  "ray_box_nearest", "morton64", "bruteforce_knn",
+                  "flash_attention"):
         r = records[kname]
         check(launches[kname] > 0, f"{kname} was not launched in its path")
         kernels.append({"name": kname, "route": "cuda", "source": r["source"],
@@ -1590,7 +1846,9 @@ def main():
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r.get("library_ms")})
-        check(all(math.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms")),
+        check(all(math.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms"))
+              and (r.get("library_ms") is None
+                   or math.isfinite(r["library_ms"])),
               f"{kname}: a time is not finite")
     log(f"[done] {time.perf_counter() - t0:.1f} s after the device phase")
     print(card)

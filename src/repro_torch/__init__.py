@@ -9,20 +9,26 @@ then answers batched spatial (CSR) and k-nearest queries through
 kernel ops are ``kernels.ops`` (``morton64``, ``bruteforce_knn``,
 ``ray_box_nearest``, as ``repro.kernels.ops``), with their oracles in
 ``kernels.ref``; ``REPRO_SANITIZE=1`` arms the kernels' output-contract
-checks (``kernels.sanitize``). Entry points run on the CUDA card unless
-the caller asks for the CPU with ``ExecutionPolicy(device="cpu")`` (or
-passes CPU tensors to a kernel op), where the kernels' plain PyTorch
-twins run instead.
+checks (``kernels.sanitize``). The LM substrate's dense forward is
+``LM`` (``LM.from_config(get_config("tinyllama-1.1b"), seed=0)``), whose
+``attn_impl="flash"`` runs ``kernels.ops.flash_attention``. Entry points
+run on the CUDA card unless the caller asks for the CPU with
+``ExecutionPolicy(device="cpu")`` (``device="cpu"`` for ``LM`` and
+``convert``, or CPU tensors for a kernel op), where the kernels' plain
+PyTorch twins run instead.
 """
 from .core import (BVH, BruteForce, EngineConfig, ExecutionPolicy, LBVH,
                    QueryEngine, QueryResult, RayIntersect, RayNearest,
                    RayOrderedIntersect, RouteRule, RouteTable, build,
                    callbacks, dbscan, intersects, nearest, raytracing, refit,
                    sah_cost)
+from .configs import get_config
 from .core.geometry import Boxes, Points, Rays, Spheres, Triangles
+from .models import LM, ModelConfig
 
 __all__ = ["BVH", "BruteForce", "EngineConfig", "ExecutionPolicy", "LBVH",
            "QueryEngine", "QueryResult", "RouteRule", "RouteTable", "build",
            "callbacks", "dbscan", "intersects", "nearest", "raytracing",
            "refit", "sah_cost", "Points", "Boxes", "Spheres", "Triangles",
-           "Rays", "RayNearest", "RayIntersect", "RayOrderedIntersect"]
+           "Rays", "RayNearest", "RayIntersect", "RayOrderedIntersect",
+           "LM", "ModelConfig", "get_config"]

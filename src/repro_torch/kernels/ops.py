@@ -1,6 +1,6 @@
 """The stand-alone kernel entry points, with the reference's signatures
-(``repro.kernels.ops``): ``morton64``, ``bruteforce_knn`` and
-``ray_box_nearest``. ``flash_attention`` arrives with its slice.
+(``repro.kernels.ops``): ``morton64``, ``bruteforce_knn``,
+``ray_box_nearest`` and ``flash_attention``.
 
 Each takes tensors on the CUDA card (the kernel runs) or on the CPU (its
 plain twin runs); the results equal the reference's. The card needs no
@@ -8,7 +8,9 @@ padding, so the block sizes ``bq``, ``br`` and ``bb`` that shaped the
 reference's TPU tiles are accepted and change nothing. ``bn`` changes a
 result in one place only: the rows of ``bruteforce_knn`` past N when
 k > N (see ``kernels.bruteforce_knn``). ``morton64``'s ``bn`` changes
-nothing.
+nothing. ``flash_attention``'s ``bk`` sets the twin's KV panels, and so
+its float32 rounding, as it does the reference's; the kernel's tiles are
+its own, and it masks the ragged edges itself.
 """
 from __future__ import annotations
 
@@ -16,10 +18,12 @@ import torch
 
 from . import sanitize
 from .bruteforce_knn import bruteforce_knn as _bruteforce_knn
+from .flash_attention import flash_attention as _flash_attention
 from .morton import morton64 as _morton64
 from .ray_box import ray_box_nearest as _ray_box_nearest
 
-__all__ = ["morton64", "bruteforce_knn", "ray_box_nearest"]
+__all__ = ["morton64", "bruteforce_knn", "ray_box_nearest",
+           "flash_attention"]
 
 
 def _f32(x):
@@ -55,3 +59,13 @@ def ray_box_nearest(origins, directions, box_lo, box_hi, *, br: int = 256,
     miss."""
     return _ray_box_nearest(*(_f32(x) for x in (origins, directions, box_lo,
                                                 box_hi)))
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
+                    bq: int = 128, bk: int = 128):
+    """Flash attention: q (B, Hq, Sq, D), k / v (B, Hkv, Skv, D) ->
+    (B, Hq, Sq, D) in q's dtype. GQA via Hq = G * Hkv; optional sliding
+    window; query rows right-aligned to the true lengths (a row with no
+    visible key gives 0)."""
+    return _flash_attention(q, k, v, causal=causal, window=window, bq=bq,
+                            bk=bk)

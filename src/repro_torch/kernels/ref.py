@@ -5,7 +5,7 @@ A kernel's twin (``<kernel>_ref`` in the kernel's own module) repeats
 the kernel's algorithm and float order, so the two agree bit for bit;
 these oracles state what the kernels compute in the plainest form, over
 the full (queries x points) or (rays x boxes) matrix, and both are held
-to them. ``attention_ref`` arrives with the flash-attention slice.
+to them.
 """
 from __future__ import annotations
 
@@ -14,7 +14,8 @@ import torch
 from ..core import geometry as G
 from ..core import morton as M
 
-__all__ = ["morton64_ref", "bruteforce_knn_ref", "ray_box_nearest_ref"]
+__all__ = ["morton64_ref", "bruteforce_knn_ref", "ray_box_nearest_ref",
+           "attention_ref"]
 
 
 def morton64_ref(coords, scene_lo, scene_hi):
@@ -56,3 +57,29 @@ def ray_box_nearest_ref(origins, directions, box_lo, box_hi):
                            device=t.device))
     tmin, idx = t.min(dim=1)
     return tmin, torch.where(torch.isfinite(tmin), idx.to(torch.int32), -1)
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
+                  scale: float | None = None):
+    """(B, Hq, Sq, D) x (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q's dtype:
+    GQA by head repetition, float32 softmax over the full score matrix,
+    causal and sliding-window masks right-aligned (query row i at position
+    i + Skv - Sq) as -inf, so a row with no visible key is NaN."""
+    sq, d = q.shape[2], q.shape[3]
+    g = q.shape[1] // k.shape[1]
+    k = k.repeat_interleave(g, dim=1)
+    v = v.repeat_interleave(g, dim=1)
+    if scale is None:
+        scale = 1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32))
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    skv = k.shape[2]
+    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask, logits, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    return torch.matmul(p, v.float()).to(q.dtype)

@@ -3,21 +3,26 @@
   * no file of ``src/repro_torch`` (nor ``chip_smoke.py``) imports JAX or
     the JAX package, and the port imports and answers a query with JAX
     blocked;
-  * entry points default to the CUDA card and raise without one;
+  * entry points (the LM's too) default to the CUDA card and raise
+    without one;
   * a kernel wrapper takes its twin only for CPU tensors: other devices
     raise, and on the card (tests marked ``cuda``) the twin is never
     called.
 """
 import ast
+import dataclasses
 import importlib
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
-from repro_torch import BVH, BruteForce, ExecutionPolicy, convert, dbscan
+from repro_torch import (BVH, LM, BruteForce, ExecutionPolicy, convert,
+                         dbscan, get_config)
+from repro_torch import configs as TCF
 from repro_torch.core import callbacks as CB
 from repro_torch.core import geometry as TG
 from repro_torch.core import lbvh as TL
@@ -26,12 +31,17 @@ from repro_torch.core import predicates as TP
 from repro_torch.core.index import _bcast_state, resolve_device
 from repro_torch.kernels import bvh_callback as TC
 from repro_torch.kernels import bvh_traverse as TT
+from repro_torch.kernels import flash_attention as TF
 from repro_torch.kernels import lbvh_build as TK
 from repro_torch.kernels import morton as TM
 from repro_torch.kernels import ops as TO
 from repro_torch.kernels import ray_box as TR
 from repro_torch.kernels import ref as TRF
 from repro_torch.kernels import sanitize as TS
+from repro_torch.models import attention as TA
+from repro_torch.models import config as TMC
+from repro_torch.models import layers as TLY
+from repro_torch.models import lm as TLM
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")
@@ -384,7 +394,7 @@ def test_ray_box_nearest_matches_twin_on_the_card(cuda_device, r, b):
 # ---------------------------------------------------------------------------
 
 TB = importlib.import_module("repro_torch.kernels.bruteforce_knn")
-NEW_MODULES = (TM, TB, TO, TRF, TS)
+NEW_MODULES = (TM, TB, TO, TRF, TS, TF, TCF, TMC, TLY, TA, TLM)
 
 
 def test_kernel_ops_run_with_jax_blocked():
@@ -440,6 +450,9 @@ def test_new_wrappers_refuse_other_devices():
         TM.morton64(q, q[0], q[0])
     with pytest.raises(ValueError, match="no kernel"):
         TB.bruteforce_knn(q, q, 2)
+    a = torch.zeros((1, 2, 8, 64), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        TF.flash_attention(a, a, a)
 
 
 def test_new_wrappers_have_no_try_and_count_only_kernel_launches():
@@ -447,10 +460,14 @@ def test_new_wrappers_have_no_try_and_count_only_kernel_launches():
         tree = ast.parse(open(mod.__file__).read())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), mod
     x = torch.rand((50, 3), generator=torch.Generator().manual_seed(3))
-    before = (TM.morton64.launches, TB.bruteforce_knn.launches)
+    a = torch.rand((1, 2, 8, 16), generator=torch.Generator().manual_seed(4))
+    before = (TM.morton64.launches, TB.bruteforce_knn.launches,
+              TF.flash_attention.launches)
     TO.morton64(x)
     TO.bruteforce_knn(x[:5], x, 3)
-    assert (TM.morton64.launches, TB.bruteforce_knn.launches) == before
+    TO.flash_attention(a, a, a)
+    assert (TM.morton64.launches, TB.bruteforce_knn.launches,
+            TF.flash_attention.launches) == before
 
 
 @pytest.mark.cuda
@@ -510,3 +527,142 @@ def test_bruteforce_kernel_matches_twin_on_the_card(cuda_device, q, n, dim,
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
     if k > n:
         assert bool(torch.isinf(got[0][:, n:]).all())
+
+
+# ---------------------------------------------------------------------------
+# slice 5: the LM forward and the flash-attention kernel
+# ---------------------------------------------------------------------------
+
+SMOKE = "tinyllama-1.1b"
+
+
+def _lm_tree(model):
+    """A CPU LM's weights as the reference's numpy parameter tree: the
+    blocks' leaves stacked along a leading layer axis."""
+    tree = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            if parts[1] != "0":
+                continue
+            parts = ["layers"] + parts[2:]
+            a = np.stack([dict(model.named_parameters())[
+                ".".join(["layers", str(i)] + parts[1:])].detach().numpy()
+                for i in range(len(model.layers))])
+        else:
+            a = p.detach().numpy()
+        node = tree
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        node[parts[-1]] = a
+    return tree
+
+
+def test_lm_entry_points_default_to_the_card(monkeypatch):
+    """LM.from_config, LM() and convert.lm_from_numpy take the card when no
+    device is given, and raise resolve_device's error without one."""
+    cfg = get_config(SMOKE, smoke=True)
+    cpu = LM.from_config(cfg, seed=0, device="cpu")
+    tree = _lm_tree(cpu)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError) as want:
+        resolve_device(None)
+    for make in (lambda: LM.from_config(cfg), lambda: LM(cfg),
+                 lambda: convert.lm_from_numpy(cfg, tree)):
+        with pytest.raises(RuntimeError) as got:
+            make()
+        assert str(got.value) == str(want.value)
+    back = convert.lm_from_numpy(cfg, tree, "cpu")
+    assert back.device.type == "cpu"
+    for (name, a), b in zip(cpu.named_parameters(), back.parameters()):
+        assert torch.equal(a, b), name
+
+
+def test_lm_forward_runs_with_jax_blocked():
+    code = (
+        "import sys, dataclasses\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import torch, repro_torch as rt\n"
+        f"cfg = rt.get_config({SMOKE!r}, smoke=True)\n"
+        "tok = torch.randint(0, cfg.vocab, (2, 70),\n"
+        "                    generator=torch.Generator().manual_seed(0))\n"
+        "out = {}\n"
+        "for impl in ('xla', 'flash'):\n"
+        "    c = dataclasses.replace(cfg, attn_impl=impl)\n"
+        "    m = rt.LM.from_config(c, seed=0, device='cpu')\n"
+        "    with torch.inference_mode():\n"
+        "        out[impl], aux = m(tok)\n"
+        "assert out['xla'].shape == (2, 70, cfg.vocab) and float(aux) == 0\n"
+        "gap = (out['xla'] - out['flash']).abs().max()\n"
+        "assert float(gap) <= 1e-5 * float(out['xla'].abs().max()), gap\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules\n"
+        "               if sys.modules[m] is not None)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+#: (B, Hq, Hkv, Sq, Skv, D, causal, window): the reference's sweep, Sq >
+#: Skv, the kernel's other head widths, ragged tiles
+FLASH_CASES = [
+    (1, 4, 4, 128, 128, 64, True, None), (2, 8, 2, 128, 128, 64, True, None),
+    (1, 4, 1, 256, 256, 32, True, None), (1, 4, 4, 100, 100, 64, True, None),
+    (1, 2, 2, 64, 192, 64, True, None), (1, 4, 2, 128, 128, 64, True, 32),
+    (1, 2, 2, 96, 96, 128, False, None), (1, 4, 2, 192, 64, 64, True, None),
+    (1, 4, 2, 300, 300, 96, True, None), (2, 4, 2, 77, 77, 16, True, 10),
+]
+#: output type -> relative step: kernel and twin round two float32 values
+#: that differ in their last bits, so their outputs may differ by a step
+FLASH_STEP = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7,
+              torch.float16: 2.0 ** -10}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_twin_on_the_card(cuda_device, case, dtype):
+    """Within 2e-5 plus two steps of the output type: float32 sums in
+    other orders, then one rounding each."""
+    b, hq, hkv, sq, skv, d, causal, window = case
+    g = torch.Generator().manual_seed(sq + skv + d)
+    q = torch.randn((b, hq, sq, d), generator=g).to(dtype)
+    k = torch.randn((b, hkv, skv, d), generator=g).to(dtype)
+    v = torch.randn((b, hkv, skv, d), generator=g).to(dtype)
+    before = TF.flash_attention.launches
+    got = TF.flash_attention(*(x.to(cuda_device) for x in (q, k, v)),
+                             causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert TF.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = TF.flash_attention_ref(q, k, v, causal=causal, window=window)
+    got, want = got.cpu().float(), want.float()
+    tol = 2e-5 + 2 * FLASH_STEP[dtype] * want.abs()
+    assert bool(((got - want).abs() <= tol).all())
+    if sq > skv and causal:
+        assert bool((got[:, :, :sq - skv] == 0).all())
+
+
+@pytest.mark.cuda
+def test_lm_forward_on_the_card_launches_flash_per_layer(cuda_device,
+                                                         monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("a twin ran for a CUDA tensor")
+
+    monkeypatch.setattr(TF, "flash_attention_ref", boom)
+    cfg = dataclasses.replace(get_config(SMOKE, smoke=True), attn_impl="flash")
+    model = LM.from_config(cfg, seed=0)
+    assert model.device.type == "cuda"
+    tok = torch.randint(0, cfg.vocab, (2, 100), device=cuda_device)
+    before = TF.flash_attention.launches
+    with torch.inference_mode():
+        logits, _ = model(tok)
+    torch.cuda.synchronize()
+    assert TF.flash_attention.launches == before + cfg.n_layers
+    assert bool(torch.isfinite(logits).all())
+    with pytest.raises(ValueError, match="forward-only"):
+        model(tok)                                   # grad mode on

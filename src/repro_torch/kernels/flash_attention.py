@@ -3,22 +3,36 @@
 
 For q (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D) it returns softmax(q kᵀ /
 sqrt(D)) v per query head, (B, Hq, Sq, D) in q's dtype, as the
-reference's ``_flash_kernel`` computes it: query head h reads KV head
-h // (Hq / Hkv); query row i sits at position i + (Skv - Sq); key j is
-visible when j < Skv, j <= the row's position (``causal``) and j > the
-row's position - ``window``. The arithmetic is float32: q is scaled
-before the product, masked scores are -1e30, an online softmax (m, l,
-acc) runs over KV panels, and o = acc / max(l, 1e-30), so a row with no
-visible key gives 0 (``attention_ref`` gives NaN there).
+reference's ``_flash_kernel`` (``flash_attention_pallas``) computes it:
+query head h reads KV head h // (Hq / Hkv); query row i sits at position
+i + (Skv - Sq); key j is visible when j < Skv, j <= the row's position
+(``causal``) and j > the row's position - ``window``. The arithmetic is
+float32: q is scaled before the product, masked scores are -1e30, an
+online softmax (m, l, acc) runs over KV panels, and o = acc / max(l,
+1e-30), so a row with no visible key gives 0 (``attention_ref`` gives
+NaN there).
 
 A CPU tensor takes the twin, which walks ``bk``-wide KV panels with the
 reference kernel's live test and update, over the query blocks each
-panel is live for. A CUDA tensor launches ``csrc/flash_attention.cu``
-(one block per batch, query head and 64-row query tile; float32 on the
-CUDA cores); any other device raises. The two agree to float32 rounding
-(their sums run in different orders). The kernel is forward-only, as
-the reference's is: on the card, an input that requires grad raises.
-The kernel's launch count is ``flash_attention.launches``.
+panel is live for. A CUDA tensor launches ``csrc/flash_attention.cu``;
+any other device raises. The kernel is forward-only, as the reference's
+is: on the card, an input that requires grad raises. Its launch count is
+``flash_attention.launches``, and ``kernel_takes(d, dtype)`` says which
+head widths it takes.
+
+  * bfloat16 and float16 go to the tensor cores (``flash_kernel_tc``):
+    one block per (batch, query head, query tile), heaviest tiles first;
+    consumer warpgroups of 64 rows (three at D <= 64, two above) multiply
+    by ``wgmma`` while a producer thread stages K and V by TMA through a
+    two-stage ring. Any D that is a multiple of 8 up to 128 pads to 64 or
+    128 columns. The bound at the LM's shape is the bf16 tensor-core
+    rate. p is rounded to
+    the input type before P·V, where the twin keeps float32, so the two
+    differ by up to u · (the p-weighted mean of |v|) on top of float32
+    rounding, u = 2^-8 (bf16) or 2^-11 (fp16).
+  * float32 stays on the CUDA cores (``flash_kernel_f32``; tensor cores
+    would mean TF32), for D in ``F32_HEAD_DIMS``, and agrees with the twin
+    to float32 rounding.
 """
 from __future__ import annotations
 
@@ -29,11 +43,13 @@ import torch
 from . import _build
 from .bvh_traverse import _device_of, _stream
 
-__all__ = ["flash_attention", "flash_attention_ref", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_ref", "kernel_takes",
+           "F32_HEAD_DIMS"]
 
-#: head widths the kernel is instantiated for (the dense and GQA heads of
-#: the ten configurations, and the reference's MQA test)
-HEAD_DIMS = (16, 32, 64, 96, 128)
+#: head widths of the float32 instances: every head of the ten
+#: configurations whose attention reaches the kernel (16 is the smoke
+#: configurations' and the reference's test width, 112 zamba2-7b's)
+F32_HEAD_DIMS = (16, 32, 64, 96, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _NEG_INF = -1e30
 
@@ -61,6 +77,15 @@ def _check(what, q, k, v):
     if q.dtype not in _DTYPES:
         raise ValueError(f"{what}: dtype must be one of "
                          f"{sorted(map(str, _DTYPES))}, got {q.dtype}")
+
+
+def kernel_takes(d: int, dtype) -> bool:
+    """Whether the CUDA kernel takes head width `d` in `dtype`: any
+    multiple of 8 up to 128 in bfloat16 and float16 (padded to 64 or 128
+    columns), ``F32_HEAD_DIMS`` in float32."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return 8 <= d <= 128 and d % 8 == 0
+    return dtype == torch.float32 and d in F32_HEAD_DIMS
 
 
 def _round_up(x, m):
@@ -138,8 +163,8 @@ _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float]
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     bq: int = 128, bk: int = 128):
     """(B, Hq, Sq, D) attention output in q's dtype; see the module. q, k,
-    v share a dtype (float32, bfloat16, float16) and a device; D is one of
-    HEAD_DIMS on the card. ``bq`` and ``bk`` shape the twin's blocks (the
+    v share a dtype (float32, bfloat16, float16) and a device; on the card
+    ``kernel_takes(D, dtype)`` must hold. ``bq`` and ``bk`` shape the twin's blocks (the
     reference's tiles); the kernel's tiles are its own."""
     what = "flash_attention"
     _check(what, q, k, v)
@@ -150,9 +175,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
         if q.requires_grad or k.requires_grad or v.requires_grad:
             raise ValueError(f"{what}: the kernel is forward-only; call it "
                              "under torch.no_grad() or torch.inference_mode()")
-        if d not in HEAD_DIMS:
-            raise ValueError(f"{what}: the kernel takes head widths "
-                             f"{HEAD_DIMS}, got {d}")
+        if not kernel_takes(d, q.dtype):
+            raise ValueError(f"{what}: the kernel takes head widths that are "
+                             f"multiples of 8 up to 128 in bfloat16 and "
+                             f"float16, and {F32_HEAD_DIMS} in float32; got "
+                             f"{d} in {q.dtype}")
     if _device_of(q, what) == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    bq=bq, bk=bk)

@@ -10,7 +10,8 @@ result in one place only: the rows of ``bruteforce_knn`` past N when
 k > N (see ``kernels.bruteforce_knn``). ``morton64``'s ``bn`` changes
 nothing. ``flash_attention``'s ``bk`` sets the twin's KV panels, and so
 its float32 rounding, as it does the reference's; the kernel's tiles are
-its own, and it masks the ragged edges itself.
+its own, it masks the ragged edges itself, and for 16-bit inputs it
+rounds p to the input type before P·V (``kernels.flash_attention``).
 """
 from __future__ import annotations
 

@@ -8,7 +8,10 @@ them:
             softmax per chunk of 1024 queries, the probabilities cast to
             the model dtype before P.V, as the reference does;
   * "flash" the CUDA kernel (``kernels.ops.flash_attention``), taken only
-            when there is more than one query row (Sq > 1).
+            when there is more than one query row (Sq > 1): bf16 and fp16
+            on the tensor cores, which also round p to the model dtype
+            before P.V (against their own running max, per 128-key
+            tile), float32 on the CUDA cores.
 MLA, cross-attention and the decode paths come with later slices.
 """
 from __future__ import annotations

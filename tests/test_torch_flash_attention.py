@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+from repro_torch import configs as TCF
 from test_torch_parity import np_of, one_torch_thread  # noqa: F401 (fixture)
 from repro.kernels import ops as JO
 from repro.kernels import ref as JR
@@ -126,7 +127,8 @@ def test_window_masks_the_first_live_tile_of_a_row(blk):
 
 @pytest.mark.parametrize("d", [16, 96, 48])
 def test_twin_takes_any_head_width_on_the_cpu(d):
-    """The CPU twin is not bound to the kernel's instances (48 has none)."""
+    """The CPU twin is not bound to the kernel's instances (48 has no
+    float32 one)."""
     q, k, v = _qkv(1, 2, 2, 40, 40, d, seed=5)
     got, want = _both(q, k, v)
     assert np.abs(got - want).max() < F32_TOL
@@ -164,3 +166,78 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
                            * 3)
     with pytest.raises(ValueError, match="window"):
         TF.flash_attention(cpu, cpu, cpu, window=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_kernel_takes_the_head_of_every_configuration(dtype):
+    """Every configuration whose attention reaches the kernel (heads, and
+    not MLA, whose v width differs from its q width) has a head width the
+    kernel takes, zamba2-7b's 112 among them; 12 and 136 are refused."""
+    widths = {arch: TCF.get_config(arch).dh for arch in TCF.all_archs()
+              if TCF.get_config(arch).n_heads > 0
+              and not TCF.get_config(arch).mla}
+    assert widths["zamba2-7b"] == 112 and len(widths) >= 8
+    for arch, d in widths.items():
+        assert TF.kernel_takes(d, dtype), (arch, d)
+    assert not TF.kernel_takes(12, dtype)
+    assert not TF.kernel_takes(136, dtype)
+    assert TF.kernel_takes(80, dtype) == (dtype != torch.float32)
+    assert not TF.kernel_takes(64, torch.float64)
+
+
+def _rounded_p_attention(q, k, v, dtype, causal, window, bk=128):
+    """The tensor-core kernel's update in float32 on the CPU: bk-key
+    panels, s scaled after the product, p rounded to `dtype` before P.V,
+    l summing the float32 p."""
+    b, hq, sq, d = q.shape
+    g, skv = hq // k.shape[1], k.shape[2]
+    kf, vf = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+    qpos = torch.arange(sq)[:, None] + (skv - sq)
+    m = torch.full((b, hq, sq), -torch.inf)
+    l = torch.zeros((b, hq, sq))
+    acc = torch.zeros((b, hq, sq, d))
+    for j0 in range(0, skv, bk):
+        kpos = torch.arange(j0, min(j0 + bk, skv))[None, :]
+        mask = torch.ones((sq, kpos.shape[1]), dtype=torch.bool)
+        if causal:
+            mask &= kpos <= qpos
+        if window is not None:
+            mask &= kpos > qpos - window
+        s = torch.matmul(q, kf[..., j0:j0 + bk, :].transpose(-1, -2)) / d ** 0.5
+        s = torch.where(mask, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        m_use = torch.where(m_new == -torch.inf, 0.0, m_new)
+        alpha = torch.exp(m - m_use)
+        p = torch.exp(s - m_use[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = (acc * alpha[..., None]
+               + torch.matmul(p.to(dtype).float(), vf[..., j0:j0 + bk, :]))
+        m = m_new
+    return acc / torch.clamp_min(l, 1e-30)[..., None]
+
+
+@pytest.mark.parametrize("dtype,u", [(torch.bfloat16, 2.0 ** -8),
+                                     (torch.float16, 2.0 ** -11)])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", [
+    (1, 4, 2, 200, 200, 64, True, None),
+    (1, 2, 1, 150, 300, 32, True, 48),
+    (2, 2, 2, 130, 130, 112, False, None),
+])
+def test_p_rounding_bound_is_sound_and_not_vacuous(dtype, u, b, hq, hkv, sq,
+                                                   skv, d, causal, window):
+    """Rounding p to the input type before P.V moves each output by at
+    most u times the p-weighted mean of |v| (the twin applied to |v|),
+    the bound the cuda test and chip_smoke.py add for 16-bit inputs; the
+    emulated rounding does move the output."""
+    q, k, v = (torch.from_numpy(x).to(dtype).float()
+               for x in _qkv(b, hq, hkv, sq, skv, d, seed=6))
+    kw = dict(causal=causal, window=window)
+    exact = TF.flash_attention_ref(q, k, v, **kw)
+    rounded = _rounded_p_attention(q, k, v, dtype, **kw)
+    unrounded = _rounded_p_attention(q, k, v, torch.float32, **kw)
+    bound = u * TF.flash_attention_ref(q, k, v.abs(), **kw)
+    assert (unrounded - exact).abs().max() < F32_TOL
+    err = (rounded - exact).abs()
+    assert float(err.max()) > 0
+    assert bool((err <= F32_TOL + bound).all())

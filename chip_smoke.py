@@ -41,7 +41,12 @@ Phases (one line or more each, then the two closing lines):
      (sigma 0.01) of 15,360 points and 65,536 uniform noise points, eps =
      0.003, min_pts = 3. Its two walks at Q = N, count_with_limit(3) and
      a hook round's min_where, bit-identical to their twins and timed
-     beside their bounds; then ``dbscan`` with both algorithms, each equal
+     beside their bounds: the wrapper call (the kernels line's ms), the
+     kernel's own device time under torch.profiler (the dim = 3
+     instance, its registers and spills), the wrapper's steps (the walk
+     order, which is the tree's leaf order; the node records, kept as
+     ``LBVH.records``; min_where's weights) and the twin's node visits
+     per query; then ``dbscan`` with both algorithms, each equal
      (labels and core flags) to an oracle built from the spatial kernel's
      CSR and scipy's connected components. Counters are zeroed before
      the two runs and read after: one callback-kernel launch per
@@ -71,7 +76,10 @@ Phases (one line or more each, then the two closing lines):
      an edge, counted);
      ``ray_box_nearest`` against its twin and against ``cast_nearest(k=1)``
      over ``BVH(Boxes)`` of the same boxes (t identical, indices where
-     the minimum is unique), timed beside its operations bound.
+     the minimum is unique), timed beside its operations bound and the
+     instruction-issue time of its slab tests, with its rays per thread,
+     stages, splits and registers, and the device time of its second
+     kernel, the decode pass.
 
  11. ops (slice 4's main path): ``kernels.ops.morton64`` over the 2^20
      search points and ``kernels.ops.bruteforce_knn`` of 2^13 of the
@@ -257,10 +265,12 @@ def _ptxas_summary(text):
         if m:
             k = re.search(r"(karras_kernel|spatial_kernelILb[01]E|knn_kernelILi\d+E)",
                           m.group(1))
-            cb = re.search(r"(callback_kernel|ray_kernel).*?(CountWithLimit|"
-                           r"Counting|MinDistance|CollectILb[01]E|MinWhere)",
+            cb = re.search(r"(callback_kernel3|callback_kernel|ray_kernel).*?"
+                           r"(CountWithLimit|Counting|MinDistance|"
+                           r"CollectILb[01]E|MinWhere)", m.group(1))
+            rb3 = re.search(r"ray_box3_kernelILi(\d+)EE", m.group(1))
+            rb = re.search(r"ray_box_kernel|ray_box_decode|morton_kernel",
                            m.group(1))
-            rb = re.search(r"ray_box_kernel|morton_kernel", m.group(1))
             fa = re.search(r"flash_kernel_(tc|f32)I(6__half|13__nv_bfloat16)?"
                            r"Li(\d+)E", m.group(1))
             bf = re.search(r"bruteforce_knn_kernelILi(n?\d+)ELi(\d+)ELb([01])E",
@@ -271,6 +281,8 @@ def _ptxas_summary(text):
                   else f"{cb.group(1)}<{cb.group(2)}>" if cb
                   else f"bruteforce_knn_kernel<dim {bf.group(1).replace('n', '-')}, K "
                        f"{bf.group(2)}, regs {bf.group(3)}>" if bf
+                  else f"ray_box3_kernel<T {rb3.group(1)}>"
+                  if rb3
                   else k.group(1) if k else rb.group(0) if rb
                   else m.group(1))
             fn = re.sub(r"ILb([01])E", r"<\1>", re.sub(r"ILi(\d+)E", r"<\1>", fn))
@@ -616,6 +628,27 @@ def profile_window(label, fn, card, share_of=None):
             f"device time")
 
 
+def kernel_ms(fn, keys, reps):
+    """Mean device milliseconds of the kernels whose names contain every
+    string of `keys` per call of fn, over `reps` calls under torch.profiler; None when the
+    profiler sees none of them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and all(k in e.key for k in keys))
+    return us / 1e3 / reps if us else None
+
+
 def phase_profile(pts, spheres, knn, policy, card):
     import repro_torch as rt
     from repro_torch.core import geometry as G
@@ -730,7 +763,7 @@ def phase_callback_kernel(dev, pts, box_lo, box_hi, qc, policy, card):
             max_err = max(max_err, check_state(
                 full, want, f"bvh_traverse_callback {label}/{name} Q={Q}"))
             ms = time_ms(lambda: KC.bvh_traverse_callback(
-                *tree, values, preds, cb, s0q), reps=10)
+                *tree, values, preds, cb, s0q, records=t.records), reps=10)
             if name == "counting":
                 counts = full.to(torch.int64)
                 if label != "spheres":
@@ -810,12 +843,33 @@ def dbscan_oracle(coords, policy):
     return lab, core, counts
 
 
+def _registers(src, fn):
+    """"R registers, S B spill stores" of one kernel instance of `src`,
+    from its build log."""
+    from repro_torch.kernels import _build
+    for name, regs, spill in _ptxas_summary(_build.build_log(src)):
+        if name == fn:
+            return f"{regs} registers, {spill} B spill stores"
+    fail(f"{src}: no build-log entry for {fn}")
+
+
+# bytes a 3-D walk gathered per leaf hit before the packed records and
+# min_where's one weight (leaf_perm, the point, and min_where's flag and
+# weight) and after them (min_where's one weight)
+LEAF_BYTES_BEFORE = {"count_with_limit": 4 + 12, "min_where": 4 + 12 + 1 + 4}
+LEAF_BYTES_AFTER = {"count_with_limit": 0, "min_where": 4}
+
+
 def dbscan_walks(coords, is_core, counts, policy, card):
     """The two callback walks of DBSCAN at Q = N on its cloud, each
     against its twin: the core-point pass (count_with_limit(min_pts)) and
     the first hook round (min_where over the oracle's core flags and the
-    initial labels). Returns the kernels-line record of the min_where
-    walk, the one every hook round runs."""
+    initial labels). Each is timed as the wrapper call, which the kernels
+    line reports, and as the kernel's device time alone (torch.profiler),
+    with the wrapper's steps (the walk order, the node records,
+    min_where's weights) and the twin's node visits per query. Returns
+    the kernels-line record of the min_where walk, the one every hook
+    round runs."""
     import torch
     import repro_torch as rt
     from repro_torch.core import callbacks as CB
@@ -830,29 +884,54 @@ def dbscan_walks(coords, is_core, counts, policy, card):
     t = index.tree
     tree = (t.node_lo, t.node_hi, t.rope, t.left_child, t.range_last,
             t.leaf_perm)
-    preds = rt.intersects(G.Spheres(coords, torch.full((n,), DB_EPS,
-                                                       device=dev)))
+    radii = torch.full((n,), DB_EPS, device=dev)
+    preds = rt.intersects(G.Spheres(coords, radii))
+    order_ms = time_ms(lambda: KC.query_order(preds, index.values,
+                                              t.leaf_perm), reps=5)
+    check(KC.query_order(preds, index.values, t.leaf_perm) is t.leaf_perm,
+          "dbscan: the walk order of the indexed points is not leaf_perm")
+    pack_ms = time_ms(lambda: KC.pack_nodes(
+        t.node_lo, t.node_hi, t.rope, t.left_child, t.leaf_perm), reps=5)
     labels0 = torch.where(is_core, torch.arange(n, dtype=torch.int32,
                                                 device=dev), _BIG)
     walks = (("count_with_limit", CB.count_with_limit(DB_MIN_PTS),
-              counts.clamp_max(DB_MIN_PTS), 0),
+              counts.clamp_max(DB_MIN_PTS), 0, "CountWithLimit"),
              ("min_where", CB._min_where(is_core, labels0, _BIG), counts,
-              n * 5))
+              n * 5, "MinWhere"))
     record = None
-    for name, (cb, s0), need, extra in walks:
+    for name, (cb, s0), need, extra, ep in walks:
         s0q = _bcast_state(s0, n, dev)
         got = KC.bvh_traverse_callback(*tree, index.values, preds, cb, s0q)
+        stats = {}
         want, plain = timed_once(lambda: KC.bvh_traverse_callback_ref(
-            *tree, index.values, preds, cb, s0q))
+            *tree, index.values, preds, cb, s0q, stats=stats))
         err = check_state(got, want, f"bvh_traverse_callback dbscan/{name} "
                           f"Q={n}")
-        ms = time_ms(lambda: KC.bvh_traverse_callback(
-            *tree, index.values, preds, cb, s0q), reps=5)
+        def wrapper():
+            return KC.bvh_traverse_callback(*tree, index.values, preds, cb,
+                                            s0q, records=t.records)
+
+        ms = time_ms(wrapper, reps=5)
+        alone = kernel_ms(wrapper, ("callback_kernel3<", ep), reps=5)
+        alone = "not measured" if alone is None else f"{alone:.3f} ms"
+        steps = f"order {order_ms:.4f} ms (leaf_perm)"
+        if name == "min_where":
+            where_ms = time_ms(lambda: KC.min_where_weights(cb), reps=5)
+            steps += f", weights {where_ms:.4f} ms"
         leaves = int(need.sum())
+        hits = int(counts.sum()) if name == "min_where" else leaves
         b_ms, b_by = callback_bound(n, n, 3, got, leaves, extra)
         log(f"[dbscan] walk {name} N=Q={n}: identical to twin (tolerance "
-            f"0); {ms:.3f} ms vs twin {plain:.1f} ms; {leaves} leaves "
-            f"needed; bound {b_ms:.4f} ms ({b_by})  [{card}]")
+            f"0); wrapper {ms:.3f} ms; the kernel alone {alone} "
+            f"(callback_kernel3<{ep}>: "
+            f"{_registers('bvh_callback', f'callback_kernel3<{ep}>')}, "
+            f"profiler device time); the wrapper's steps: {steps}; the node "
+            f"records {pack_ms:.3f} ms once per tree, kept as LBVH.records; twin "
+            f"{plain:.1f} ms; {stats['visits'] / n:.1f} node visits and "
+            f"{hits / n:.2f} leaf hits per query, leaf gathers "
+            f"{hits / n * LEAF_BYTES_BEFORE[name]:.1f} -> "
+            f"{hits / n * LEAF_BYTES_AFTER[name]:.1f} B per query; "
+            f"{leaves} leaves needed; bound {b_ms:.4f} ms ({b_by})  [{card}]")
         record = dict(source="src/repro_torch/csrc/bvh_callback.cu",
                       replaces="src/repro/kernels/bvh_callback.py:251",
                       max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
@@ -985,6 +1064,23 @@ RIM_C = 12 * 2.0 ** -24
 # per dimension, then clamp and compare), the quadratic and Moller-Trumbore
 RAY_LEAF_OPS = {"boxes": 8 * 3 + 3, "spheres": 3 * 9 + 12, "triangles": 50}
 RAY_VALUE_FLOATS = {"boxes": 6, "spheres": 4, "triangles": 9}
+
+
+# FP32 instructions one 3-D slab test issues in ray_box3_kernel, counted
+# from its source: per axis two subtractions, two products and the
+# entry / exit min and max, then the running max and min on axes 1 and
+# 2 (22); t = max(tmin, 0) (2), the hit and best compares (2) and the
+# two selects of the update (2)
+RAY_BOX_ISSUE = 28
+
+
+def _max_sm_clock_mhz():
+    """The card's maximum SM clock (nvidia-smi), MHz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi clocks: {out.stderr.strip()}")
+    return int(out.stdout.split()[0])
 
 
 def make_soup(dev):
@@ -1324,16 +1420,31 @@ def phase_rays(dev, box_lo, box_hi, policy, card):
     check(ties_ok, "ray_box_nearest index differs from cast_nearest(k=1) "
           "where the minimum is unique")
     ms = time_ms(lambda: KR.ray_box_nearest(o, d, tlo, thi), reps=3)
+    decode = kernel_ms(lambda: KR.ray_box_nearest(o, d, tlo, thi),
+                       ("ray_box_decode",), reps=1)
+    decode = "not measured" if decode is None else f"{decode:.4f} ms"
     # 8 operations per dimension and 4 per box (clamp, compare, compare
     # with the best, select), for every (ray, box) pair: no early exit
     b_ms, b_by = bound(R_RAYS * 3 * 8 + N * 3 * 8 + R_RAYS * 8,
                        R_RAYS * N * (8 * 3 + 4))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits, chunk = KR.plan(R_RAYS, N, sms)
+    clock = _max_sm_clock_mhz()
+    issue_ms = R_RAYS * N * RAY_BOX_ISSUE / (128 * sms * clock * 1e6) * 1e3
+    rb3 = f"ray_box3_kernel<T {KR.RAYS_PER_THREAD}>"
     log(f"[ray_box] ray_box_nearest R={R_RAYS} B={N}: all {R_RAYS} rays "
         f"identical to twin (tolerance 0; max abs {box_err}, {idx_off} "
         f"indices differ); t identical to cast_nearest(k=1) over BVH(Boxes) "
         f"on all rays, indices equal on all but {int(rows.numel())}, each "
         f"with two boxes at its minimum; {ms:.3f} ms vs twin {plain:.1f} ms; "
-        f"bound {b_ms:.4f} ms ({b_by})  [{card}]; phase "
+        f"{rb3} ({_registers('ray_box', rb3)}): {KR.RAYS_PER_THREAD} rays "
+        f"per thread, {KR.STAGES} stages of {KR.TILE} boxes, {splits} "
+        f"splits of {chunk} boxes, {-(-R_RAYS // (KR.THREADS * KR.RAYS_PER_THREAD)) * splits} "
+        f"blocks on {sms} SMs; then ray_box_decode "
+        f"({_registers('ray_box', 'ray_box_decode')}) {decode} of that, "
+        f"profiler device time; bound {b_ms:.4f} ms ({b_by}); instruction "
+        f"issue {issue_ms:.2f} ms ({RAY_BOX_ISSUE} per pair, 128 lanes x "
+        f"{sms} SMs at {clock} MHz)  [{card}]; phase "
         f"{time.perf_counter() - t0:.1f} s")
     box_record = dict(source="src/repro_torch/csrc/ray_box.cu",
                       replaces="src/repro/kernels/ray_box.py:97",

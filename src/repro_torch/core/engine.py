@@ -182,11 +182,15 @@ class QueryEngine:
         return T.traverse(bvh.tree, bvh.values, predicates, callback, state0)
 
     def kernel_callback(self, bvh, predicates, callback, state0):
-        """Per-query final states through the fused callback kernel."""
+        """Per-query final states through the fused callback kernel; a
+        spatial batch on the card reads the tree's kept node records."""
         t = bvh.tree
+        records = (t.records if t.node_lo.is_cuda
+                   and isinstance(predicates, P.Intersects) else None)
         return bvh_traverse_callback(
             t.node_lo, t.node_hi, t.rope, t.left_child, t.range_last,
-            t.leaf_perm, bvh.values, predicates, callback, state0)
+            t.leaf_perm, bvh.values, predicates, callback, state0,
+            records=records)
 
     def kernel_knn(self, bvh, predicates):
         """(dists, idxs) (Q, k) through the kNN kernel, from the query

@@ -16,6 +16,7 @@ reference's node for node.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -54,6 +55,18 @@ class LBVH:
 
     def to(self, device) -> "LBVH":
         return LBVH(*(getattr(self, f).to(device) for f in FIELDS))
+
+    @functools.cached_property
+    def records(self):
+        """The (2N-1, 8) int32 node records of a 3-D tree that the
+        callback kernel's 3-D instance reads
+        (``kernels.bvh_callback.pack_nodes``), made at first use and kept
+        with the tree; None in other dims."""
+        from ..kernels.bvh_callback import pack_nodes
+        if self.dim != 3:
+            return None
+        return pack_nodes(self.node_lo, self.node_hi, self.rope,
+                          self.left_child, self.leaf_perm)
 
 
 FIELDS = tuple(f.name for f in dataclasses.fields(LBVH))

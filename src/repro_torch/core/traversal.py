@@ -69,15 +69,17 @@ def tree_select(mask, new, old):
 
 
 def walk(node_lo, node_hi, rope, left_child, range_last, leaf_perm, values,
-         predicates, callback, state0, *, min_pos=None):
+         predicates, callback, state0, *, min_pos=None,
+         stats: dict | None = None):
     """Batched spatial walk over an LBVH's arrays; returns the per-query
-    final states (fresh tensors, the structure of `state0`)."""
+    final states (fresh tensors, the structure of `state0`). `stats`,
+    when given, receives ``visits``: the node visits of all queries
+    together."""
     q = len(predicates)
     n = leaf_perm.shape[0]
     dev = node_lo.device
     state = _map(torch.clone, state0)
-    if q == 0:
-        return state
+    visits = 0
     mp = (torch.full((q,), -1, dtype=torch.int64, device=dev)
           if min_pos is None else min_pos.to(torch.int64))
     rope = rope.to(torch.int64)
@@ -90,6 +92,7 @@ def walk(node_lo, node_hi, rope, left_child, range_last, leaf_perm, values,
         act = torch.nonzero((node != -1) & ~done).squeeze(1)
         if act.numel() == 0:
             break
+        visits += act.numel()
         nd = node[act]
         m = mp[act]
         pred = P.take(predicates, act)
@@ -109,6 +112,8 @@ def walk(node_lo, node_hi, rope, left_child, range_last, leaf_perm, values,
         descend = overlap & (rlast[nd] > m) & ~is_leaf
         node[act] = torch.where(descend, left[torch.clamp_max(nd, n - 2)],
                                 rope[nd])
+    if stats is not None:
+        stats["visits"] = visits
     return state
 
 

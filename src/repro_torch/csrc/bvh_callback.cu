@@ -15,25 +15,37 @@
 // Bound on this card: the same pointer chase as bvh_traverse.cu, a
 //   node box (2 * dim floats) and an int32 or two per visited node at a
 //   data-dependent address; a leaf adds the value's geometry and, for
-//   the min_where epilogue, one flag and one weight. Latency-bound.
-// Design: tree, values and the min_where arrays are read through __ldg
+//   the min_where epilogue, one weight. Latency-bound.
+// Design: tree, values and the min_where weights are read through __ldg
 //   from global memory, with no node cap; the query geometry and the
 //   scalar state live in registers; collect_* epilogues write their
 //   slots straight into the (Q, cap) state outputs, which the wrapper
-//   fills with the initial state. Spatial walk (callback_kernel): node
-//   test the predicate geometry's own test against the node box (point
-//   in box, box overlap, or the squared sphere-box distance); leaf test
-//   predicates.leaf_match_test of the (predicate, value) pair. Squared
-//   sums are g0*g0 then one __fmaf_rn per further dimension under
+//   fills with the initial state. Thread i walks query order[i] where
+//   the wrapper gives an order (the tree's leaf order, i.e. the Morton
+//   order, when the queries are centred on the indexed points, so a warp
+//   walks 32 neighbouring queries through the same nodes), else query i,
+//   and reads and writes only that query's row. min_where takes one int32 per value, the
+//   wrapper's where(flags, weights, big). Spatial walk (callback_kernel):
+//   node test the predicate geometry's own test against the node box
+//   (point in box, box overlap, or the squared sphere-box distance);
+//   leaf test predicates.leaf_match_test of the (predicate, value) pair.
+//   Squared sums are g0*g0 then one __fmaf_rn per further dimension under
 //   --fmad=false, sqrtf is IEEE: the order of geometry.sum_sq_fused.
-//   Ray walk (ray_kernel, its own instances, so the spatial ones keep
-//   their registers): the origin and 1/d sit in registers with a bit per
-//   zero direction component; node test the slab test of geometry.ray_box,
-//   leaf test predicates.leaf_ray_hit in the "walk" order (sphere: d.d and
-//   (o-c).d fused, |o-c|^2 unfused, c = fma(-r, r, |o-c|^2), disc =
-//   fma(b, b, -(d.d c)); triangle: jnp.cross's fma(x_i, y_j, -(x_j y_i))
-//   and fused dots), IEEE division and sqrtf; the hit's t goes to the
-//   epilogue. States equal the twin's bit for bit.
+//   The dim = 3 instance (callback_kernel3) reads each node as two
+//   16-byte records, (lo, rope) and (hi, left child or leaf_perm), one
+//   vector load each; range_last only where the box overlaps and a
+//   min_pos filter is set. Over Points and Boxes values the leaf box is
+//   the value's own box, so the node test already computed the leaf test
+//   (a point over a point: p <= q <= p is p == q; a sphere over a point:
+//   max(max(p - q, q - p), 0)^2 is (q - p)^2 bit for bit, so sqrt(d2) <= r
+//   needs no gather). Ray walk (ray_kernel, its own instances, so the
+//   spatial ones keep their registers): the origin and 1/d sit in
+//   registers with a bit per zero direction component; node test the slab
+//   test of geometry.ray_box, leaf test predicates.leaf_ray_hit in the
+//   "walk" order (sphere: d.d and (o-c).d fused, |o-c|^2 unfused, c =
+//   fma(-r, r, |o-c|^2), disc = fma(b, b, -(d.d c)); triangle: jnp.cross's
+//   fma(x_i, y_j, -(x_j y_i)) and fused dots), IEEE division and sqrtf;
+//   the hit's t goes to the epilogue. States equal the twin's bit for bit.
 #include <cmath>
 
 #include "common.cuh"
@@ -120,16 +132,15 @@ struct Collect {
   __device__ void store(int qi) { count[qi] = c; }
 };
 
+// min(state, w[orig]) with w = where(flags, weights, big) from the
+// wrapper: one gather
 struct MinWhere {
   int* s;
-  const unsigned char* __restrict__ flags;   // (n,) bool
-  const int* __restrict__ weights;           // (n,)
-  int big;
+  const int* __restrict__ weights;   // (n,)
   int m;
   __device__ void load(int qi) { m = s[qi]; }
   __device__ bool hit(int, int orig, float) {
-    const int w = __ldg(flags + orig) ? __ldg(weights + orig) : big;
-    m = min(m, w);
+    m = min(m, __ldg(weights + orig));
     return false;
   }
   __device__ void store(int qi) { s[qi] = m; }
@@ -139,12 +150,20 @@ struct MinWhere {
 // the walk
 // ---------------------------------------------------------------------------
 
+// the query thread i walks: order[i], or i without an order
+__device__ __forceinline__ int query_of(const int* __restrict__ order,
+                                        int i) {
+  return order == nullptr ? i : __ldg(order + i);
+}
+
 template <class Ep>
 __global__ void callback_kernel(Tree t, Geom pg, Geom vg,
+                                const int* __restrict__ order,
                                 const int* __restrict__ min_pos, int q,
                                 const Ep ep0) {
-  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (qi >= q) return;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= q) return;
+  const int qi = query_of(order, i);
   const int dim = t.dim;
   float qa[kMaxDim], qb[kMaxDim];
 #pragma unroll
@@ -248,6 +267,119 @@ __global__ void callback_kernel(Tree t, Geom pg, Geom vg,
       if (fine) done = ep.hit(qi, orig, 0.0f);
     }
     node = __ldg(t.rope + node);
+  }
+  ep.store(qi);
+}
+
+// ---------------------------------------------------------------------------
+// the spatial walk in 3-D over packed node records
+// ---------------------------------------------------------------------------
+
+// node k is records[2k] = (lo.xyz, rope) and records[2k + 1] = (hi.xyz,
+// left child of an internal node or leaf_perm of a leaf), ints bit-cast
+template <class Ep>
+__global__ void __launch_bounds__(kThreads)
+    callback_kernel3(const int4* __restrict__ records,
+                     const int* __restrict__ range_last, int n, Geom pg,
+                     Geom vg, const int* __restrict__ order,
+                     const int* __restrict__ min_pos, int q, const Ep ep0) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= q) return;
+  const int qi = query_of(order, i);
+  const long long qo = static_cast<long long>(qi) * 3;
+  float qa[3], qb[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    qa[c] = __ldg(pg.a + qo + c);
+    qb[c] = pg.kind == kBoxes ? __ldg(pg.b + qo + c) : qa[c];
+  }
+  const float qr = pg.kind == kSpheres ? __ldg(pg.r + qi) : 0.0f;
+  const float qr2 = qr * qr;
+  const int mp = __ldg(min_pos + qi);
+  // the leaf box is the value's own box: Points and Boxes values
+  const bool reuse = vg.kind != kSpheres;
+  Ep ep = ep0;
+  ep.load(qi);
+
+  int node = 0;
+  bool done = false;
+  while (node != -1 && !done) {
+    const int4 ra = __ldg(records + 2 * static_cast<long long>(node));
+    const int4 rb = __ldg(records + 2 * static_cast<long long>(node) + 1);
+    const float lo[3] = {__int_as_float(ra.x), __int_as_float(ra.y),
+                         __int_as_float(ra.z)};
+    const float hi[3] = {__int_as_float(rb.x), __int_as_float(rb.y),
+                         __int_as_float(rb.z)};
+    bool overlap = true;
+    float d2 = 0.0f;
+    if (pg.kind == kSpheres) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float g = max_nan(max_nan(lo[c] - qa[c], qa[c] - hi[c]), 0.0f);
+        d2 = c == 0 ? g * g : __fmaf_rn(g, g, d2);
+      }
+      overlap = d2 <= qr2;
+    } else {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        overlap = overlap && lo[c] <= qb[c] && qa[c] <= hi[c];
+      }
+    }
+    if (node < n - 1) {
+      node = overlap && (mp < 0 || __ldg(range_last + node) > mp) ? rb.w
+                                                                  : ra.w;
+      continue;
+    }
+    const int pos = node - (n - 1);
+    if (overlap && pos > mp) {
+      const int orig = rb.w;
+      const long long vo = static_cast<long long>(orig) * 3;
+      bool fine = true;
+      if (reuse) {
+        // box tests are the node test; a sphere over a point compares
+        // the same d2 in sqrt form
+        if (pg.kind == kSpheres && vg.kind == kPoints) fine = sqrtf(d2) <= qr;
+      } else if (pg.kind == kBoxes ||
+                 (pg.kind == kPoints && vg.kind != kSpheres)) {
+        const float vr = vg.kind == kSpheres ? __ldg(vg.r + orig) : 0.0f;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float a = __ldg(vg.a + vo + c);
+          float vlo = a, vhi = a;
+          if (vg.kind == kBoxes) vhi = __ldg(vg.b + vo + c);
+          if (vg.kind == kSpheres) { vlo = a - vr; vhi = a + vr; }
+          if (pg.kind == kPoints && vg.kind == kPoints) {
+            fine = fine && a == qa[c];
+          } else {
+            fine = fine && qa[c] <= vhi && vlo <= qb[c];
+          }
+        }
+      } else if (vg.kind == kBoxes) {
+        float e2 = 0.0f;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float g = max_nan(max_nan(__ldg(vg.a + vo + c) - qa[c],
+                                          qa[c] - __ldg(vg.b + vo + c)),
+                                  0.0f);
+          e2 = c == 0 ? g * g : __fmaf_rn(g, g, e2);
+        }
+        fine = e2 <= qr2;
+      } else {
+        float e2 = 0.0f;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float g = qa[c] - __ldg(vg.a + vo + c);
+          e2 = c == 0 ? g * g : __fmaf_rn(g, g, e2);
+        }
+        float lim = qr;
+        if (vg.kind == kSpheres) {
+          lim = pg.kind == kPoints ? __ldg(vg.r + orig) : qr + __ldg(vg.r + orig);
+        }
+        fine = sqrtf(e2) <= lim;
+      }
+      if (fine) done = ep.hit(qi, orig, 0.0f);
+    }
+    node = ra.w;
   }
   ep.store(qi);
 }
@@ -367,14 +499,31 @@ __global__ void ray_kernel(Tree t, Geom pg, Geom vg,
   ep.store(qi);
 }
 
+// everything of one call but the epilogue
+struct Call {
+  Tree t;
+  Geom pg, vg;
+  const int4* records;   // packed 3-D node records, or nullptr
+  const int* order;      // walk order of the queries, or nullptr
+  const int* mp;
+  int q;
+  cudaStream_t stream;
+};
+
 template <class Ep>
-void launch(const Tree& t, const Geom& pg, const Geom& vg, const int* mp,
-            int q, const Ep& ep, cudaStream_t stream) {
-  const int blocks = (q + kThreads - 1) / kThreads;
-  if (pg.kind == kRays) {
-    ray_kernel<Ep><<<blocks, kThreads, 0, stream>>>(t, pg, vg, mp, q, ep);
+void launch(const Call& c, const Ep& ep) {
+  if (c.pg.kind == kRays) {
+    const int blocks = (c.q + kThreads - 1) / kThreads;
+    ray_kernel<Ep><<<blocks, kThreads, 0, c.stream>>>(c.t, c.pg, c.vg, c.mp,
+                                                      c.q, ep);
+  } else if (c.records != nullptr) {
+    const int blocks = (c.q + kThreads - 1) / kThreads;
+    callback_kernel3<Ep><<<blocks, kThreads, 0, c.stream>>>(
+        c.records, c.t.range_last, c.t.n, c.pg, c.vg, c.order, c.mp, c.q, ep);
   } else {
-    callback_kernel<Ep><<<blocks, kThreads, 0, stream>>>(t, pg, vg, mp, q, ep);
+    const int blocks = (c.q + kThreads - 1) / kThreads;
+    callback_kernel<Ep><<<blocks, kThreads, 0, c.stream>>>(
+        c.t, c.pg, c.vg, c.order, c.mp, c.q, ep);
   }
 }
 
@@ -393,66 +542,66 @@ enum Epilogue {
 // initial state): int32 counts or float32 minima (Q,), then for collect_*
 // int32 indices and float32 t (Q, param). param: the limit, k or capacity.
 // pred_kind: Points, Boxes or Spheres (Intersects) or Rays; val_kind:
-// Points, Boxes or Spheres, or Triangles (3-D) under Rays.
+// Points, Boxes or Spheres, or Triangles (3-D) under Rays. records: the
+// (2n-1, 8) int32 node records of a 3-D tree for the spatial walk (the
+// dim = 3 instance), or null (the generic one, from node_lo ... perm).
+// order: (q,) int32, the query each thread walks, or null. weights:
+// min_where's (n,) int32 where(flags, weights, big).
 REPRO_EXPORT int bvh_callback_launch(
     const void* node_lo, const void* node_hi, const void* rope,
     const void* left, const void* range_last, const void* perm,
-    const void* pred_a, const void* pred_b, const void* pred_r,
-    const void* val_a, const void* val_b, const void* val_c,
-    const void* val_r, const void* min_pos, int n, int q, int dim,
-    int pred_kind, int val_kind, int epilogue, int param, int early_exit,
-    int big, void* state0, void* state1, void* state2, const void* flags,
-    const void* weights, void* stream) {
+    const void* records, const void* order, const void* pred_a,
+    const void* pred_b, const void* pred_r, const void* val_a,
+    const void* val_b, const void* val_c, const void* val_r,
+    const void* min_pos, int n, int q, int dim, int pred_kind, int val_kind,
+    int epilogue, int param, int early_exit, void* state0, void* state1,
+    void* state2, const void* weights, void* stream) {
   const bool ray = pred_kind == kRays;
   if (dim < 1 || dim > kMaxDim || n < 2 || pred_kind < 0 ||
       (pred_kind > kSpheres && !ray) || val_kind < 0 ||
       val_kind > (ray ? kTriangles : kSpheres) ||
-      (val_kind == kTriangles && dim != 3)) {
+      (val_kind == kTriangles && dim != 3) ||
+      (records != nullptr && (dim != 3 || ray)) || (order != nullptr && ray)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Tree t{static_cast<const float*>(node_lo), static_cast<const float*>(node_hi),
-         static_cast<const int*>(rope), static_cast<const int*>(left),
-         static_cast<const int*>(range_last), static_cast<const int*>(perm),
-         n, dim};
-  Geom pg{static_cast<const float*>(pred_a), static_cast<const float*>(pred_b),
-          nullptr, static_cast<const float*>(pred_r), pred_kind};
-  Geom vg{static_cast<const float*>(val_a), static_cast<const float*>(val_b),
-          static_cast<const float*>(val_c), static_cast<const float*>(val_r),
-          val_kind};
-  auto mp = static_cast<const int*>(min_pos);
-  auto s = static_cast<cudaStream_t>(stream);
+  Call c{Tree{static_cast<const float*>(node_lo),
+              static_cast<const float*>(node_hi),
+              static_cast<const int*>(rope), static_cast<const int*>(left),
+              static_cast<const int*>(range_last),
+              static_cast<const int*>(perm), n, dim},
+         Geom{static_cast<const float*>(pred_a),
+              static_cast<const float*>(pred_b), nullptr,
+              static_cast<const float*>(pred_r), pred_kind},
+         Geom{static_cast<const float*>(val_a), static_cast<const float*>(val_b),
+              static_cast<const float*>(val_c), static_cast<const float*>(val_r),
+              val_kind},
+         static_cast<const int4*>(records), static_cast<const int*>(order),
+         static_cast<const int*>(min_pos), q, static_cast<cudaStream_t>(stream)};
   auto s0 = static_cast<int*>(state0);
   switch (epilogue) {
     case kCounting:
-      launch(t, pg, vg, mp, q, Counting{s0, 0}, s);
+      launch(c, Counting{s0, 0});
       break;
     case kCountWithLimit:
-      launch(t, pg, vg, mp, q, CountWithLimit{s0, param, 0}, s);
+      launch(c, CountWithLimit{s0, param, 0});
       break;
     case kMinDistance:
-      launch(t, pg, vg, mp, q, MinDistance{static_cast<float*>(state0), 0.0f},
-             s);
+      launch(c, MinDistance{static_cast<float*>(state0), 0.0f});
       break;
     case kCollectFirstK:
     case kCollectHits:
       if (param < 1) return static_cast<int>(cudaErrorInvalidValue);
       if (epilogue == kCollectFirstK) {
-        launch(t, pg, vg, mp, q,
-               Collect<true>{s0, static_cast<int*>(state1),
-                             static_cast<float*>(state2), param, early_exit, 0},
-               s);
+        launch(c, Collect<true>{s0, static_cast<int*>(state1),
+                                static_cast<float*>(state2), param, early_exit,
+                                0});
       } else {
-        launch(t, pg, vg, mp, q,
-               Collect<false>{s0, static_cast<int*>(state1),
-                              static_cast<float*>(state2), param, 0, 0},
-               s);
+        launch(c, Collect<false>{s0, static_cast<int*>(state1),
+                                 static_cast<float*>(state2), param, 0, 0});
       }
       break;
     case kMinWhere:
-      launch(t, pg, vg, mp, q,
-             MinWhere{s0, static_cast<const unsigned char*>(flags),
-                      static_cast<const int*>(weights), big, 0},
-             s);
+      launch(c, MinWhere{s0, static_cast<const int*>(weights), 0});
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

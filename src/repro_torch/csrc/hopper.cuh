@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX, for kernels that stage
 // tiles by TMA into shared memory and multiply them on the tensor cores
-// with wgmma: mbarriers, 3-D tensor-map copies, named barriers, register
-// rebalancing, the wgmma shared-memory descriptor and the warpgroup
-// products that the kernels use. No CUTLASS or CuTe headers, so a source
+// with wgmma: mbarriers, 3-D tensor-map and 1-D bulk copies, named
+// barriers, register rebalancing, the wgmma shared-memory descriptor and
+// the warpgroup products that the kernels use. No CUTLASS or CuTe headers, so a source
 // that includes this builds in seconds.
 //
 // Layout conventions (PTX ISA, "Matrix Descriptor Format"; CUTLASS's
@@ -66,6 +66,7 @@ __device__ __forceinline__ uint64_t global_ns() {
 
 // wait until the phase of parity `parity` has completed; a wait of more
 // than 4 s means a broken pipeline, and traps instead of hanging the card
+// (the launch then fails with "unspecified launch failure")
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint64_t start = 0;
   for (;;) {
@@ -97,6 +98,18 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` contiguous bytes of global memory into shared memory by one
+// 1-D bulk copy; completes on `bar`. dst, src and bytes are multiples
+// of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

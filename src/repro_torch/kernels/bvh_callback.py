@@ -21,6 +21,15 @@ thread per query, the state held in registers or written straight to the
 (Q, cap) outputs); any other device raises. The kernel's launch count is
 ``bvh_traverse_callback.launches``. Under ``REPRO_SANITIZE`` the final
 states are checked for NaN (``sanitize.check_state_tree``).
+
+Before a launch the wrapper takes, with plain tensor ops: a walk order
+for Intersects queries centred on the indexed points (DBSCAN's), the
+tree's leaf order, which is their Morton order (:func:`query_order`), so
+a warp walks 32 neighbouring queries through the same nodes; the packed
+node records of a 3-D tree (:func:`pack_nodes`, read by the ``dim = 3``
+instance; ``LBVH.records`` keeps them with the tree); and min_where's
+one weight per value (:func:`min_where_weights`). None of them changes
+a state: each query's node sequence and arithmetic stay the twin's.
 """
 from __future__ import annotations
 
@@ -36,7 +45,7 @@ from . import _build, sanitize
 from .bvh_traverse import MAX_DIM, _check_tree, _device_of, _stream
 
 __all__ = ["bvh_traverse_callback", "bvh_traverse_callback_ref",
-           "expressible"]
+           "expressible", "query_order", "pack_nodes", "min_where_weights"]
 
 _KIND = {G.Points: 0, G.Boxes: 1, G.Spheres: 2, G.Triangles: 3, G.Rays: 4}
 _SPATIAL = (G.Points, G.Boxes, G.Spheres)
@@ -102,11 +111,49 @@ def _check_call(what, n, values, predicates, callback, state0):
 
 def bvh_traverse_callback_ref(node_lo, node_hi, rope, left_child, range_last,
                               leaf_perm, values, predicates, callback, state0,
-                              *, min_pos=None):
-    """The kernel's plain twin: the batched walk with the epilogue's body."""
+                              *, min_pos=None, stats: dict | None = None):
+    """The kernel's plain twin: the batched walk with the epilogue's body.
+    `stats`, when given, receives ``visits``: the node visits of all
+    queries together."""
     return traversal.walk(node_lo, node_hi, rope, left_child, range_last,
                           leaf_perm, values, predicates, callback, state0,
-                          min_pos=min_pos)
+                          min_pos=min_pos, stats=stats)
+
+
+def _centred_on_values(predicates, values):
+    """Are the predicates' centres the indexed points themselves (the same
+    tensor as ``values.coords``)?"""
+    geom = P.geometry_of(predicates)
+    if not (isinstance(values, G.Points)
+            and isinstance(geom, (G.Points, G.Spheres))):
+        return False
+    c, v = G.centroid(geom), values.coords
+    return (c.data_ptr() == v.data_ptr() and c.shape == v.shape
+            and c.stride() == v.stride())
+
+
+def query_order(predicates, values, leaf_perm):
+    """(Q,) int32 walk order of Intersects predicates centred on the
+    indexed points (the same tensor as ``values.coords``, as in DBSCAN):
+    the tree's `leaf_perm`, which is the stable sort of their 64-bit
+    Morton codes in the tree's root box; None for other predicates, which
+    are walked in the caller's order."""
+    return leaf_perm if _centred_on_values(predicates, values) else None
+
+
+def pack_nodes(node_lo, node_hi, rope, left_child, leaf_perm):
+    """(2N-1, 8) int32 node records of a 3-D tree: node k is (lo.xyz,
+    rope) then (hi.xyz, left child for an internal node, leaf_perm of the
+    leaf's position for a leaf), the floats bit-cast to int32."""
+    link = torch.cat([left_child, leaf_perm])
+    return torch.cat([node_lo.view(torch.int32), rope[:, None],
+                      node_hi.view(torch.int32), link[:, None]], 1)
+
+
+def min_where_weights(callback):
+    """min_where's one int32 per value: where(flags, weights, big)."""
+    return torch.where(callback.flags, callback.weights,
+                       callback.big).to(torch.int32)
 
 
 def _geom_ptrs(g, dev, what):
@@ -133,17 +180,20 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-_ARGS = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 9
-         + [ctypes.c_void_p] * 6)
+_ARGS = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 8
+         + [ctypes.c_void_p] * 5)
 
 
 def bvh_traverse_callback(node_lo, node_hi, rope, left_child, range_last,
                           leaf_perm, values, predicates, callback, state0, *,
-                          min_pos=None):
+                          min_pos=None, records=None):
     """Per-query final states (the structure of `state0`, batched (Q, ...))
     of an epilogue callback over the matches of `predicates` in the tree.
-    Raises when :func:`expressible` does not hold, on a geometry that is
-    not float32, or on a state that is not the epilogue's layout."""
+    `records`: the tree's :func:`pack_nodes` records where the caller
+    keeps them (``LBVH.records``); a 3-D spatial call on the card makes
+    them otherwise. Raises when :func:`expressible` does not hold, on a
+    geometry that is not float32, or on a state that is not the
+    epilogue's layout."""
     what = "bvh_traverse_callback"
     _check_call(what, leaf_perm.shape[0], values, predicates, callback, state0)
     if _device_of(node_lo, what) == "cpu":
@@ -153,14 +203,14 @@ def bvh_traverse_callback(node_lo, node_hi, rope, left_child, range_last,
     else:
         final = _callback_launch(what, node_lo, node_hi, rope, left_child,
                                  range_last, leaf_perm, values, predicates,
-                                 callback, state0, min_pos)
+                                 callback, state0, min_pos, records)
     sanitize.check_state_tree(final, kernel=what)
     return final
 
 
 def _callback_launch(what, node_lo, node_hi, rope, left_child, range_last,
                      leaf_perm, values, predicates, callback, state0,
-                     min_pos):
+                     min_pos, records):
     dev = node_lo.device
     q = len(predicates)
     n = leaf_perm.shape[0]
@@ -188,8 +238,8 @@ def _callback_launch(what, node_lo, node_hi, rope, left_child, range_last,
             raise ValueError(f"{what}: state is on {a.device}, not {dev}")
     out = [torch.empty_like(a, memory_format=torch.contiguous_format).copy_(a)
            for a in leaves]
-    flags = weights = None
-    param, early_exit, big = 0, 0, 0
+    weights = None
+    param, early_exit = 0, 0
     kind = callback.kind
     if kind == "count_with_limit":
         param = callback.limit
@@ -198,19 +248,29 @@ def _callback_launch(what, node_lo, node_hi, rope, left_child, range_last,
     elif kind == "collect_hits":
         param = callback.capacity
     elif kind == "min_where":
-        flags, weights, big = callback.flags, callback.weights, callback.big
-        if flags.device != dev or weights.device != dev:
+        if callback.flags.device != dev or callback.weights.device != dev:
             raise ValueError(f"{what}: min_where arrays must be on {dev}")
-        flags, weights = flags.contiguous(), weights.contiguous()
+        weights = min_where_weights(callback)
+    spatial = isinstance(predicates, P.Intersects)
+    order = query_order(predicates, values, tree[5]) if spatial else None
+    if not (spatial and dim == 3):
+        records = None
+    elif records is None:
+        records = pack_nodes(tree[0], tree[1], tree[2], tree[3], tree[5])
+    elif (records.shape != (2 * n - 1, 8) or records.dtype != torch.int32
+          or records.device != dev or not records.is_contiguous()):
+        raise ValueError(f"{what}: records must be the tree's contiguous "
+                         f"({2 * n - 1}, 8) int32 pack_nodes records on {dev}")
     if q:
         fn = _build.function("bvh_callback", "bvh_callback_launch", _ARGS)
         with torch.cuda.device(dev):
-            err = fn(*(t.data_ptr() for t in tree), _ptr(pa), _ptr(pb),
-                     _ptr(pr), _ptr(va), _ptr(vb), _ptr(vc), _ptr(vr),
-                     mp.data_ptr(), n, q, dim, _KIND[type(pgeom)],
-                     _KIND[type(values)], _EPILOGUE[kind], param, early_exit,
-                     big, *(_ptr(a) for a in (out + [None, None])[:3]),
-                     _ptr(flags), _ptr(weights), _stream(dev))
+            err = fn(*(t.data_ptr() for t in tree), _ptr(records),
+                     _ptr(order), _ptr(pa), _ptr(pb), _ptr(pr), _ptr(va),
+                     _ptr(vb), _ptr(vc), _ptr(vr), mp.data_ptr(), n, q, dim,
+                     _KIND[type(pgeom)], _KIND[type(values)], _EPILOGUE[kind],
+                     param, early_exit,
+                     *(_ptr(a) for a in (out + [None, None])[:3]),
+                     _ptr(weights), _stream(dev))
         _build.check("bvh_callback", err, what)
         bvh_traverse_callback.launches += 1
     return type(state0)(out) if isinstance(state0, (tuple, list)) else out[0]

@@ -265,13 +265,13 @@ def test_kernels_match_twins_on_the_card(cuda_device, n):
         assert all(torch.equal(u, v.cpu()) for u, v in zip(a, b))
 
 
-def _callback_case(vkind, qkind, name, dev, n=3000, q=400, seed=0):
+def _callback_case(vkind, qkind, name, dev, n=3000, q=400, seed=0, dim=3):
     g = torch.Generator().manual_seed(seed)
-    c = torch.rand((n, 3), generator=g)
+    c = torch.rand((n, dim), generator=g)
     values = {"points": TG.Points(c),
-              "boxes": TG.Boxes(c, c + 0.03 * torch.rand((n, 3), generator=g)),
+              "boxes": TG.Boxes(c, c + 0.03 * torch.rand((n, dim), generator=g)),
               "spheres": TG.Spheres(c, 0.03 * torch.rand((n,), generator=g))}[vkind]
-    qc = torch.rand((q, 3), generator=g)
+    qc = torch.rand((q, dim), generator=g)
     qc[::3] = c[:q:3]                                  # exact point hits
     geom = {"points": TG.Points(qc), "boxes": TG.Boxes(qc, qc + 0.08),
             "spheres": TG.Spheres(qc, torch.full((q,), 0.06))}[qkind]
@@ -310,6 +310,65 @@ def test_callback_kernel_matches_twin_on_the_card(cuda_device, name, vkind,
     want = want if isinstance(want, tuple) else (want,)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _states_equal(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [2, 3, 5])
+@pytest.mark.parametrize("qkind,vkind", [("spheres", "points"),
+                                         ("boxes", "boxes"),
+                                         ("points", "spheres")])
+@pytest.mark.parametrize("name", ["counting", "count_with_limit",
+                                  "min_distance", "collect_first_k",
+                                  "collect_hits", "min_where"])
+def test_callback_kernel_instances_with_min_pos_on_the_card(
+        cuda_device, name, qkind, vkind, dim):
+    """The dim = 3 instance (packed records, leaf tests from node tests)
+    and the generic one (dims 2 and 5), each under a min_pos filter (the
+    range_last read), against the twin bit for bit."""
+    args = _callback_case(vkind, qkind, name, cuda_device, dim=dim)
+    q = len(args[2])
+    mp = torch.randint(-1, 3000, (q,), generator=torch.Generator()
+                       .manual_seed(dim)).to(torch.int32).to(cuda_device)
+    for min_pos in (None, mp):
+        got = TC.bvh_traverse_callback(*args[0], *args[1:], min_pos=min_pos)
+        want = TC.bvh_traverse_callback_ref(*args[0], *args[1:],
+                                            min_pos=min_pos)
+        assert _states_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["count_with_limit", "min_where"])
+def test_callback_kernel_on_a_clustered_cloud_on_the_card(cuda_device, name):
+    """DBSCAN's two walks at Q = N = 2^14 on a clustered 3-D cloud,
+    queries centred on the indexed points (the leaf order walks them):
+    identical to the twin."""
+    g = torch.Generator().manual_seed(14)
+    centres = 0.1 + 0.8 * torch.rand((16, 3), generator=g)
+    c = (centres[:, None] + 0.01 * torch.randn((16, 1 << 10, 3), generator=g))
+    c = c.reshape(-1, 3).to(cuda_device)
+    n = c.shape[0]
+    index = BVH(TG.Points(c), policy=ExecutionPolicy(device=cuda_device))
+    t = index.tree
+    preds = TP.intersects(TG.Spheres(c, torch.full((n,), 0.003,
+                                                   device=cuda_device)))
+    flags = torch.rand((n,), generator=g).to(cuda_device) < 0.7
+    labels = torch.randint(0, n, (n,), generator=g, dtype=torch.int32)
+    cb, s0 = (CB.count_with_limit(3) if name == "count_with_limit" else
+              CB._min_where(flags, labels.to(cuda_device), 2**31 - 1))
+    s0 = _bcast_state(s0, n, cuda_device)
+    args = ([getattr(t, f) for f in CALLBACK_TREE], index.values, preds, cb, s0)
+    got = TC.bvh_traverse_callback(*args[0], *args[1:])
+    want = TC.bvh_traverse_callback_ref(*args[0], *args[1:])
+    assert _states_equal(got, want)
+    assert int(got.max() if name == "count_with_limit" else
+               (got < 2**31 - 1).sum()) > 0
 
 
 def _ray_case(vkind, name, dev, n=3000, q=500, seed=0):
@@ -367,11 +426,15 @@ def test_ray_callback_kernel_matches_twin_on_the_card(cuda_device, name,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("r,b", [(1, 1), (129, 257), (1000, 3001)])
+@pytest.mark.parametrize("r,b", [(1, 1), (129, 257), (1000, 3001), (1, 0),
+                                 (3, 3), (1000, 255), (1025, 257),
+                                 (1029, 4097), (2049, 1)])
 def test_ray_box_nearest_matches_twin_on_the_card(cuda_device, r, b):
     """ray_box_nearest against its twin: t and index bit-identical, with
-    duplicated boxes (ties), misses, zero direction components and R, B
-    that are not multiples of the block or the tile."""
+    duplicated boxes (ties), misses, zero direction components, origins
+    inside a box (t = 0) and R, B that are not multiples of the block,
+    the rays of a block or the tile (B = 0, a ragged tile alone, one box
+    past whole tiles, the box axis split across blocks)."""
     g = torch.Generator().manual_seed(r + b)
     lo = torch.rand((b, 3), generator=g)
     hi = lo + 0.05 * torch.rand((b, 3), generator=g)
@@ -379,6 +442,9 @@ def test_ray_box_nearest_matches_twin_on_the_card(cuda_device, r, b):
     o = torch.rand((r, 3), generator=g)
     d = torch.randn((r, 3), generator=g)
     d[::5, 1] = 0.0
+    if b:
+        inside = torch.arange(2, max(r, 2), 6)          # t = 0
+        o[inside] = 0.5 * (lo + hi)[inside % b]
     o[::7] = o[::7] + 5.0                               # misses
     args = [a.to(cuda_device) for a in (o, d, lo, hi)]
     before = TR.ray_box_nearest.launches

@@ -114,7 +114,10 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("r,b,dim", [(37, 1001, 3), (300, 700, 2)])
+@pytest.mark.parametrize("r,b,dim", [(37, 1001, 3), (300, 700, 2),
+                                     (2049, 1, 3), (3, 3, 3), (100, 255, 3),
+                                     (1025, 257, 3), (1029, 4097, 3),
+                                     (64, 513, 5)])
 def test_kernel_matches_twin_on_the_card(cuda_device, r, b, dim):
     args = [torch.from_numpy(a) for a in case(r, b, dim, seed=r)]
     before = TR.ray_box_nearest.launches
@@ -123,3 +126,22 @@ def test_kernel_matches_twin_on_the_card(cuda_device, r, b, dim):
     assert TR.ray_box_nearest.launches == before + 1
     wt, wi = TR.ray_box_nearest_ref(*args)
     assert torch.equal(t.cpu(), wt) and torch.equal(i.cpu(), wi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,b,splits", [(1500, 200, 1), (1500, 700, 3),
+                                        (1500, 3000, 12), (1 << 17, 6912, 9)])
+def test_kernel_splits_match_twin_on_the_card(cuda_device, r, b, splits):
+    """The 3-D kernel with the box axis whole, cut in three, cut into
+    single tiles, and cut into ranges of three tiles (each block refills
+    its two-stage ring): identical to the twin, run on the card here."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    got_splits, chunk = TR.plan(r, b, sms)
+    if sms == 132:
+        assert got_splits == splits
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in case(r, b, 3, seed=11)]
+    t, i = TR.ray_box_nearest(*args)
+    wt, wi = TR.ray_box_nearest_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(t, wt) and torch.equal(i, wi)

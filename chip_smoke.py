@@ -14,16 +14,22 @@ Phases (one line or more each, then the two closing lines):
      cube, ArborX bvh_driver's "filled box"; Q = 2^17 queries):
      karras_ranges integer-identical; bvh_traverse_spatial identical counts
      and buffers for Points values (fine_sqrt) and Boxes values;
-     bvh_traverse_knn (k = 10) identical indices and distances.
+     bvh_traverse_knn (k = 10, the tree's node records) identical indices
+     and distances, with no tie exception; the self-kNN case (the 2^20
+     points as queries, walked in the leaf order) identical to the same
+     kernel in the caller's order on every row and to the twin on the
+     first 2^14, both orders timed.
   4. main path: ``BVH(Points)`` and ``BVH(Boxes)`` at N = 2^20 on the card,
      each answering ``query(intersects(Spheres(c, r)))`` (r = 0.0132, about
      10 neighbours, bvh_driver's convention) and ``query(nearest(Points,
      k=10))`` for Q = 2^17; checked on 2048 queries against BruteForce
      (CSR offsets and index sets equal) and against an exact float64
-     oracle (kNN distances within 1e-6 relative). The launch counters are
-     zeroed before this phase and read after it: one karras_ranges launch
-     per build, two spatial launches per CSR query, one kNN launch per
-     kNN query.
+     oracle (kNN distances within 1e-6 relative); the Points index also
+     answers the self-kNN query (``nearest(Points(points), k=10)``, every
+     row at distance 0 first). The launch counters are zeroed before this
+     phase and read after it: one karras_ranges launch per build, two
+     spatial launches per CSR query, one kNN launch per kNN query, each
+     handed the tree's node records, and the self-kNN one the leaf order.
   5. timings: CUDA events around repeated launches after a warm-up, for
      each kernel and its twin, and end-to-end build / query times.
   6. profile: one build + CSR query + kNN query of the Points index under
@@ -90,7 +96,8 @@ Phases (one line or more each, then the two closing lines):
      2^16 points in dims 1, 2, 4, 6 and 10 (the bits rule, the hi lane);
      timed beside its bytes bound and the twin.
  13. bruteforce: the kernel bit-identical to its twin on every row at
-     Q = 2^13, N = 2^20, k = 10 (2^33 pairs), its distances against
+     Q = 2^13, N = 2^20, k = 10 (2^33 pairs; the point axis in the S
+     chunks of ``kernels.bruteforce_knn.plan``), its distances against
      ``BVH.query(nearest)`` within the expansion's error, timed beside its
      operations bound, the twin and ``torch.topk(torch.cdist(q, p))`` (the
      yardstick, two calls); at ``bench_bruteforce.py``'s crossover sizes
@@ -148,6 +155,7 @@ K = 10
 RADIUS = 0.0132
 BOX_SIDE = 0.01
 N_CHECK = 2048
+N_SELF_TWIN = 1 << 14    # self-kNN rows held against the twin
 SEED = 0
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, and float32
@@ -263,8 +271,9 @@ def _ptxas_summary(text):
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"(karras_kernel|spatial_kernelILb[01]E|knn_kernelILi\d+E)",
-                          m.group(1))
+            k = re.search(r"(karras_kernel|spatial_kernelILb[01]E)", m.group(1))
+            kn = re.search(r"knn_kernelINS_\d+(Records3|Flat)EN3knn\d+"
+                           r"(KeyList|KeyHeap)ILi(\d+)E", m.group(1))
             cb = re.search(r"(callback_kernel3|callback_kernel|ray_kernel).*?"
                            r"(CountWithLimit|Counting|MinDistance|"
                            r"CollectILb[01]E|MinWhere)", m.group(1))
@@ -273,14 +282,19 @@ def _ptxas_summary(text):
                            m.group(1))
             fa = re.search(r"flash_kernel_(tc|f32)I(6__half|13__nv_bfloat16)?"
                            r"Li(\d+)E", m.group(1))
-            bf = re.search(r"bruteforce_knn_kernelILi(n?\d+)ELi(\d+)ELb([01])E",
+            bf = re.search(r"scan_kernelILi(n?\d+)EN3knn\d+(KeyList|KeyHeap)"
+                           r"ILi(\d+)E", m.group(1))
+            bm = re.search(r"merge_kernelIN3knn\d+(KeyList|KeyHeap)ILi(\d+)E",
                            m.group(1))
             fn = ((f"flash_kernel_tc<{fa.group(2).lstrip('0123456789')}, "
                    f"DH {fa.group(3)}>" if fa.group(1) == "tc"
                    else f"flash_kernel_f32<D {fa.group(3)}>") if fa
                   else f"{cb.group(1)}<{cb.group(2)}>" if cb
-                  else f"bruteforce_knn_kernel<dim {bf.group(1).replace('n', '-')}, K "
-                       f"{bf.group(2)}, regs {bf.group(3)}>" if bf
+                  else f"scan_kernel<dim {bf.group(1).replace('n', '-')}, "
+                       f"{bf.group(2)} {bf.group(3)}>" if bf
+                  else f"merge_kernel<{bm.group(1)} {bm.group(2)}>" if bm
+                  else f"knn_kernel<{kn.group(1)}, {kn.group(2)} {kn.group(3)}>"
+                  if kn
                   else f"ray_box3_kernel<T {rb3.group(1)}>"
                   if rb3
                   else k.group(1) if k else rb.group(0) if rb
@@ -388,20 +402,18 @@ def phase_kernels(dev, pts, box_lo, box_hi, qc):
     t = tree_points
     args = (t.node_lo, t.node_hi, t.rope, t.left_child, t.leaf_perm, qc)
     stats = {}
-    gd, gi = T.bvh_traverse_knn(*args, k=K)
+    gd, gi = T.bvh_traverse_knn(*args, k=K, records=t.records)
     wd, wi = T.bvh_traverse_knn_ref(*args, k=K, stats=stats)
     torch.cuda.synchronize()
     err = float((gd - wd).abs().max())
-    same_i = gi == wi
-    # ties excepted: a differing index must sit at a distance equal to
-    # its neighbour's in the list
-    tie = torch.zeros_like(same_i)
-    tie[:, 1:] |= wd[:, 1:] == wd[:, :-1]
-    tie[:, :-1] |= wd[:, :-1] == wd[:, 1:]
-    check(err == 0.0 and bool((same_i | tie).all()),
+    swapped = int((gi != wi).sum())
+    # no tie exception: the walk keeps the twin's leaves at the k-th
+    # distance and its order among equal distances
+    check(torch.equal(gd, wd) and swapped == 0,
           f"bvh_traverse_knn differs from its twin (max |d| {err}, "
-          f"{int((~same_i).sum())} indices)")
-    ms = time_ms(lambda: T.bvh_traverse_knn(*args, k=K), reps=10)
+          f"{swapped} indices)")
+    ms = time_ms(lambda: T.bvh_traverse_knn(*args, k=K, records=t.records),
+                 reps=10)
     plain = time_ms(lambda: T.bvh_traverse_knn_ref(*args, k=K), reps=1,
                     warmup=0)
     # the bound does not depend on the walk either: queries and the tree
@@ -420,10 +432,33 @@ def phase_kernels(dev, pts, box_lo, box_hi, qc):
         replaces="src/repro/kernels/bvh_traverse.py:301",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
     log(f"[kernels] bvh_traverse_knn N={N} Q={Q} k={K}: identical to twin "
-        f"(tolerance 0; {int((~same_i).sum())} tied indices swapped); "
-        f"{ms:.3f} ms vs twin {plain:.1f} ms; {stats['visits']} node visits; "
-        f"{leaves} leaves within the k-th distance; bound {b_ms:.4f} ms "
-        f"({b_by})")
+        f"(tolerance 0; {swapped} tied indices swapped); {ms:.3f} ms vs twin "
+        f"{plain:.1f} ms; the twin's rope walk {stats['visits']} node visits "
+        f"({stats['visits'] / Q:.0f} per query); {leaves} leaves within the "
+        f"k-th distance; bound {b_ms:.4f} ms ({b_by})")
+
+    # -- the self-kNN case: the points themselves, in the leaf order -------
+    sargs = args[:5] + (pts,)
+    order = T.knn_order(pts, pts, t.leaf_perm)
+    check(order is t.leaf_perm, "knn_order: the points are not their own "
+          "queries")
+    sd, si = T.bvh_traverse_knn(*sargs, k=K, records=t.records, order=order)
+    cd, ci = T.bvh_traverse_knn(*sargs, k=K, records=t.records)
+    wd, wi = T.bvh_traverse_knn_ref(*args[:5], pts[:N_SELF_TWIN], k=K)
+    torch.cuda.synchronize()
+    check(torch.equal(sd, cd) and torch.equal(si, ci),
+          "bvh_traverse_knn: the leaf order changed a self-kNN result")
+    check(torch.equal(sd[:N_SELF_TWIN], wd) and torch.equal(
+        si[:N_SELF_TWIN], wi), "bvh_traverse_knn self-kNN differs from its "
+          "twin")
+    s_ms = time_ms(lambda: T.bvh_traverse_knn(*sargs, k=K, records=t.records,
+                                              order=order), reps=5)
+    c_ms = time_ms(lambda: T.bvh_traverse_knn(*sargs, k=K, records=t.records),
+                   reps=5)
+    log(f"[kernels] bvh_traverse_knn self-kNN N=Q={N} k={K}: the leaf order "
+        f"{s_ms:.3f} ms, the caller's order {c_ms:.3f} ms; identical to "
+        f"each other on every row and to the twin on the first "
+        f"{N_SELF_TWIN} rows")
     return rec, spatial
 
 
@@ -488,6 +523,7 @@ def phase_main_path(dev, pts, box_lo, box_hi, qc):
     """The port's entry points end to end, with launch counts."""
     import torch
     import repro_torch as rt
+    from repro_torch.core import engine as E
     from repro_torch.core import geometry as G
     from repro_torch.kernels import bvh_traverse as T
     from repro_torch.kernels import lbvh_build as KB
@@ -499,6 +535,14 @@ def phase_main_path(dev, pts, box_lo, box_hi, qc):
     def counts():
         return {k: f.launches for k, f in counters.items()}
 
+    # what the engine hands the kNN kernel: the tree's records, the order
+    knn_calls = []
+    real_knn = E.bvh_traverse_knn
+
+    def knn_spy(*a, **kw):
+        knn_calls.append((kw.get("records"), kw.get("order")))
+        return real_knn(*a, **kw)
+
     spheres = rt.intersects(G.Spheres(qc, torch.full((Q,), RADIUS, device=dev)))
     knn = rt.nearest(G.Points(qc), k=K)
     sub_spheres = rt.intersects(G.Spheres(qc[:N_CHECK],
@@ -508,6 +552,7 @@ def phase_main_path(dev, pts, box_lo, box_hi, qc):
     policy = rt.ExecutionPolicy()          # device=None: the card
     results = {}
 
+    E.bvh_traverse_knn = knn_spy
     for f in counters.values():
         f.launches = 0
     for label, values in (("points", G.Points(pts)),
@@ -527,7 +572,26 @@ def phase_main_path(dev, pts, box_lo, box_hi, qc):
               f"{label}: CSR query did not launch the spatial kernel twice")
         check(c3["bvh_traverse_knn"] - c2["bvh_traverse_knn"] == 1,
               f"{label}: kNN query did not launch the kNN kernel once")
+        check(knn_calls[-1][0] is index.tree.records
+              and knn_calls[-1][1] is None,
+              f"{label}: the kNN kernel did not get the tree's records")
+        if label == "points":
+            # the self-kNN query: the points themselves, in the leaf order
+            self_nn = index.query(rt.nearest(values, k=K))
+            torch.cuda.synchronize()
+            check(counts()["bvh_traverse_knn"] - c3["bvh_traverse_knn"] == 1,
+                  "points: the self-kNN query did not launch the kNN kernel "
+                  "once")
+            check(knn_calls[-1][0] is index.tree.records
+                  and knn_calls[-1][1] is index.tree.leaf_perm,
+                  "points: the self-kNN query did not walk in the leaf order")
+            check(bool((self_nn.distances[:, 0] == 0).all()),
+                  "points: a self-kNN row does not start at distance 0")
+            log(f"[main] points: self-kNN N=Q={N} k={K} through "
+                "BVH.query(nearest): one kNN launch with the tree's records "
+                "and its leaf order; every row starts at distance 0")
         results[label] = (index, values, csr, nn)
+    E.bvh_traverse_knn = real_knn
     launches = counts()
     torch.cuda.synchronize()
 
@@ -1598,8 +1662,12 @@ def phase_bruteforce(dev, pts, qc, knn, policy, card):
     torch.cuda.empty_cache()
     lib = time_ms(lambda: _library_knn(qb, pts, K), reps=2)
     b_ms, b_by = bf_bound(Q_BF, N, 3, K)
-    log(f"[bruteforce] Q={Q_BF} N={N} k={K} dim 3: all rows identical to "
-        f"twin (tolerance 0); {ms:.3f} ms vs twin {plain:.1f} ms; cdist + "
+    tail = KB.tail_from(N)
+    chunk = KB.plan(Q_BF, N, K, tail, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    log(f"[bruteforce] Q={Q_BF} N={N} k={K} dim 3 (S = "
+        f"{KB.splits(N, tail, chunk)} chunks of {chunk} points): all rows "
+        f"identical to twin (tolerance 0); {ms:.3f} ms vs twin {plain:.1f} ms; cdist + "
         f"topk ({LIB_CHUNK}-query calls) {lib:.3f} ms; bound {b_ms:.4f} ms "
         f"({b_by}); vs BVH.query(nearest): max |d2 diff| {gap:.3g} (tol "
         f"{d2_tol:.3g}), {int((~same).sum())} indices differ, all within "

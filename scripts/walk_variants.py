@@ -187,21 +187,23 @@ def ray_box_sources(src):
     }
 
 
-def build(sources):
-    """{name: ctypes library}, every nvcc started at once; prints each
-    3-D instance's registers and spills."""
+def build(sources, show=("callback_kernel3<MinWhere", "ray_box3_kernel"),
+          out=OUT):
+    """{name: ctypes library}, every nvcc started at once into `out`;
+    prints the registers and spills of the kernels whose names start with
+    one of `show`."""
     from repro_torch.kernels import _build
     import chip_smoke as smoke
-    os.makedirs(OUT, exist_ok=True)
+    os.makedirs(out, exist_ok=True)
     for header in os.listdir(_build.CSRC):
         if header.endswith(".cuh"):
-            shutil.copy(os.path.join(_build.CSRC, header), OUT)
+            shutil.copy(os.path.join(_build.CSRC, header), out)
     jobs = {}
     for name, text in sources.items():
-        cu = os.path.join(OUT, f"{name}.cu")
+        cu = os.path.join(out, f"{name}.cu")
         with open(cu, "w") as f:
             f.write(text)
-        so = os.path.join(OUT, f"{name}.so")
+        so = os.path.join(out, f"{name}.so")
         jobs[name] = (so, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -212,7 +214,7 @@ def build(sources):
             raise SystemExit(f"walk_variants: {name} failed to build\n{text}")
         libs[name] = ctypes.CDLL(so)
         for fn, regs, spill in smoke._ptxas_summary(text):
-            if fn.startswith(("callback_kernel3<MinWhere", "ray_box3_kernel")):
+            if fn.startswith(show):
                 print(f"[variants] {name} {fn}: {regs} registers, {spill} B "
                       "spill stores", flush=True)
     return libs

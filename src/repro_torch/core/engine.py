@@ -27,7 +27,7 @@ import torch
 
 from ..kernels.bvh_callback import bvh_traverse_callback, expressible
 from ..kernels.bvh_traverse import (KNN_MAX_K, MAX_DIM, bvh_traverse_knn,
-                                    bvh_traverse_spatial)
+                                    bvh_traverse_spatial, knn_order)
 from . import geometry as G
 from . import predicates as P
 from . import route_table as RT
@@ -194,11 +194,20 @@ class QueryEngine:
 
     def kernel_knn(self, bvh, predicates):
         """(dists, idxs) (Q, k) through the kNN kernel, from the query
-        centroids (what ``predicates.leaf_distance`` measures from)."""
+        centroids (what ``predicates.leaf_distance`` measures from); on
+        the card a 3-D tree's kept node records, and the leaf order when
+        the queries are the indexed points."""
         t = bvh.tree
+        queries = G.centroid(predicates.geom).to(torch.float32)
+        records = order = None
+        if t.node_lo.is_cuda:
+            records = t.records
+            coords = (bvh.values.coords if isinstance(bvh.values, G.Points)
+                      else None)
+            order = knn_order(queries, coords, t.leaf_perm)
         return bvh_traverse_knn(
-            t.node_lo, t.node_hi, t.rope, t.left_child, t.leaf_perm,
-            G.centroid(predicates.geom).to(torch.float32), k=predicates.k)
+            t.node_lo, t.node_hi, t.rope, t.left_child, t.leaf_perm, queries,
+            k=predicates.k, records=records, order=order)
 
 
 _DEFAULT = QueryEngine()

@@ -58,11 +58,11 @@ class LBVH:
 
     @functools.cached_property
     def records(self):
-        """The (2N-1, 8) int32 node records of a 3-D tree that the
-        callback kernel's 3-D instance reads
-        (``kernels.bvh_callback.pack_nodes``), made at first use and kept
+        """The (2N-1, 8) int32 node records of a 3-D tree that the 3-D
+        instances of the callback and kNN kernels read
+        (``kernels.bvh_traverse.pack_nodes``), made at first use and kept
         with the tree; None in other dims."""
-        from ..kernels.bvh_callback import pack_nodes
+        from ..kernels.bvh_traverse import pack_nodes
         if self.dim != 3:
             return None
         return pack_nodes(self.node_lo, self.node_hi, self.rope,

@@ -1,34 +1,87 @@
-// Stackless rope-walk BVH traversal: spatial count + fill, and k-nearest.
+// BVH traversal: the stackless rope walk of the spatial queries (count +
+// fill), and a nearest-first walk with a stack for k-nearest.
 //
 // Replaces: src/repro/kernels/bvh_traverse.py::bvh_traverse_spatial (body
-//   _spatial_kernel) and ::bvh_traverse_knn (body _knn_kernel). Each
-//   query walks the flat tree from the root: at a node it tests the
-//   query against the node box, then moves to left_child (descend) or
-//   rope (skip); rope -1 ends the walk. The TPU kernels advanced a block
-//   of cursors in lockstep until all were -1; every cursor's walk is
-//   independent, so one thread per query running its own loop visits the
-//   same node sequence.
-// Bound on this card: per visited node a thread reads one node box
-//   (2 * dim floats) and two or three int32s at a data-dependent address
-//   and does about 6 * dim float operations: a latency-bound pointer
-//   chase. The tree (about 75 MB at 2^20 leaves) is larger than the
-//   50 MB L2, so the first touch of a node goes to HBM; neighbouring
-//   queries (consecutive in the caller's order) share the upper levels.
-// Design: the tree is read straight from global memory through the
-//   read-only path (__ldg), with no shared-memory staging and no node
-//   cap, so any tree that fits device memory works; query coordinates
-//   and the kNN candidate list live in registers (the list spills to
-//   local memory for the large k buckets). The squared distance is
-//   g0*g0, then one explicit fmaf per further dimension (the order
-//   XLA:CPU gives the reference kernels, and geometry.sum_sq_fused's); the library is
-//   built with --fmad=false so no other product is contracted: the leaf
-//   tests equal the reference's bit for bit.
+//   _spatial_kernel) and ::bvh_traverse_knn (body _knn_kernel). The TPU
+//   kernels advanced a block of rope-walk cursors in lockstep until all
+//   were -1 (at a node: test the query against the node box, then move to
+//   left_child (descend) or rope (skip); rope -1 ends the walk).
+// Spatial: every cursor's walk is independent, so one thread per query
+//   running its own loop visits the same node sequence as the twin.
+//   Bound on this card: per visited node one node box (2 * dim floats)
+//   and two or three int32s at a data-dependent address and about 6 * dim
+//   float operations: a latency-bound pointer chase over a tree (about
+//   75 MB at 2^20 leaves) larger than the 50 MB L2.
+// k-nearest: the rope walk descends left first with the running k-th best
+//   (tau) at +inf, so its first k leaves are the tree's leftmost, far from
+//   most queries, and tau stays loose until the walk reaches the query's
+//   own region: 8,842 node visits per query at N = 2^20, k = 10 (125 for
+//   a spatial walk of ~10 neighbours). The bound is the same pointer
+//   chase, paid per visit, so the design cuts visits:
+//   * nearest first (ArborX's own kNN traversal): at an internal node both
+//     children's boxes are tested; the walk goes on to the nearer
+//     promising one and pushes the farther promising one with its d2; a
+//     popped node is tested again against the tightened tau. A leaf child
+//     is offered to the list at once.
+//   * the twin's list, exactly: the rope walk reaches leaves in ascending
+//     sorted-leaf position, admits a leaf only when d2 < tau (strict) and
+//     places it before the equal entries. So its list is every leaf with
+//     d2 below D, the k-th smallest d2, ordered by (d2 ascending, position
+//     descending), then, of the leaves at D, the m = k - #{d2 < D} with
+//     the highest positions among the first k leaves with d2 <= D in
+//     position order (it takes the leaves at D that come before its list
+//     holds k entries <= D, and each later nearer leaf evicts the lowest
+//     of them): not a fixed order on (d2, position), since which leaves
+//     at D stay depends on where the nearer ones lie. The new walk admits
+//     and prunes as strictly as the twin (d2 < tau), which in any visit
+//     order keeps every leaf below D and finds D itself, and places each
+//     insert by the key (d2, position descending) (knn_list.cuh,
+//     kLaterFirst). It notes the smallest d2 of all it leaves out (a
+//     rejected or evicted leaf, a pruned node): when that is not D, no
+//     leaf at D was left out and the list is the twin's. When it is D (an
+//     exact tie at the k-th distance, or a pruned box exactly at it), a
+//     tie pass, a rope walk over the nodes with d2 <= D in position
+//     order, takes the first k leaves with d2 <= D and fills the slots
+//     from #{d2 < D} on with the last m of them at D, highest position
+//     first. A node's d2 never exceeds that of a leaf below it
+//     (subtraction, max and FMA on non-negative values are monotone under
+//     rounding), so the pruning is exact; a NaN d2 prunes its subtree in
+//     both walks.
+//   * the stack needs no overflow path: the tree splits on the 96-bit key
+//     (hi | lo | sorted index) of karras.cu, whose keys are distinct, and
+//     each internal node's common prefix is strictly longer than its
+//     parent's (the split is where the prefix's next bit turns from 0 to
+//     1), so an internal node at depth d has a prefix of at least d bits,
+//     and a prefix of distinct 96-bit keys is at most 95 bits: internal
+//     nodes lie at depths 0..95. The stack holds internal nodes only, at
+//     strictly increasing depths 1..95 from bottom to top (a push is one
+//     level below the current node; a pop returns to that level), so 95
+//     entries; kStack = 96.
+//   * in 3-D (knn_kernel<Records3, ...>) each node is two 16-byte records
+//     of LBVH.records, (lo.xyz, rope) and (hi.xyz, left child | leaf_perm),
+//     one vector load each; a node's right child is its left child's rope
+//     (a left child's escape pointer is its right sibling), so both
+//     children come from the left child's link and two record reads each.
+//     Other dims (1..16) read node_lo / node_hi / rope / left_child.
+//   * thread i walks query order[i] where the wrapper gives an order (the
+//     tree's leaf order when the queries are the indexed points), so a
+//     warp walks neighbouring queries through the same nodes.
+//   The list is KeyList<K> in registers for k <= 32, KeyHeap<256> in
+//   local memory for 33..256; the stack (8 bytes an entry) is in local
+//   memory.
+// Both walks compute a box's squared distance as g0*g0, then one explicit
+//   fmaf per further dimension (the order XLA:CPU gives the reference
+//   kernels, and geometry.sum_sq_fused's); the library is built with
+//   --fmad=false so no other product is contracted: the leaf tests equal
+//   the twins' bit for bit.
 #include "common.cuh"
+#include "knn_list.cuh"
 
 namespace {
 
 constexpr int kMaxDim = 16;
 constexpr int kThreads = 256;   // queries per block
+constexpr int kMaxK = 256;      // the largest k (KNN_MAX_K)
 
 struct Tree {
   const float* __restrict__ lo;     // (2n-1, dim)
@@ -98,36 +151,50 @@ __global__ void spatial_kernel(Tree t, const int* __restrict__ range_last,
 }
 
 // ---------------------------------------------------------------------------
-// k-nearest: sorted (d2, index) list of the bucket size K >= k
+// k-nearest: nearest first, a stack, the list ordered by (d2, position)
 // ---------------------------------------------------------------------------
 
-template <int K>
-__global__ void knn_kernel(Tree t, const float* __restrict__ queries, int q,
-                           int k, float* __restrict__ dists,
-                           int* __restrict__ idxs) {
-  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (qi >= q) return;
-  const int dim = t.dim;
-  float qc[kMaxDim];
-#pragma unroll
-  for (int c = 0; c < kMaxDim; ++c) {
-    if (c < dim) qc[c] = queries[static_cast<long long>(qi) * dim + c];
-  }
-  float best_d[K];
-  int best_i[K];
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    best_d[j] = __int_as_float(0x7f800000);  // +inf
-    best_i[j] = -1;
-  }
-  // entries past k stay >= the k-th, so the k-th is the prune bound and
-  // counting over all K slots gives the same insertion point
-  float tau2 = best_d[0];
+// internal nodes lie at depths 0..95 and the stack holds at most one per
+// depth 1..95 (the note at the top)
+constexpr int kStack = 96;
 
-  int node = 0;
-  while (node != -1) {
-    const float* lo = t.lo + static_cast<long long>(node) * dim;
-    const float* hi = t.hi + static_cast<long long>(node) * dim;
+// 3-D node records: node m is rec[2m] = (lo.xyz, rope) and rec[2m + 1] =
+// (hi.xyz, left child of an internal node | leaf_perm of a leaf)
+struct Records3 {
+  static constexpr int kDims = 3;
+  const int4* __restrict__ rec;
+
+  // the query's squared distance to node m's box; its link (left child)
+  // and rope
+  __device__ __forceinline__ float test(const float (&qc)[3], int m, int dim,
+                                        int& link, int& rope) const {
+    const int4 a = __ldg(rec + 2 * static_cast<long long>(m));
+    const int4 b = __ldg(rec + 2 * static_cast<long long>(m) + 1);
+    const float lo[3] = {__int_as_float(a.x), __int_as_float(a.y),
+                         __int_as_float(a.z)};
+    const float hi[3] = {__int_as_float(b.x), __int_as_float(b.y),
+                         __int_as_float(b.z)};
+    float d2 = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float g = max_nan(max_nan(lo[c] - qc[c], qc[c] - hi[c]), 0.0f);
+      d2 = c == 0 ? g * g : __fmaf_rn(g, g, d2);
+    }
+    link = b.w;
+    rope = a.w;
+    return d2;
+  }
+};
+
+// any dim up to kMaxDim: the flat arrays
+struct Flat {
+  static constexpr int kDims = kMaxDim;
+  Tree t;
+
+  __device__ __forceinline__ float test(const float (&qc)[kMaxDim], int m,
+                                        int dim, int& link, int& rope) const {
+    const float* lo = t.lo + static_cast<long long>(m) * dim;
+    const float* hi = t.hi + static_cast<long long>(m) * dim;
     float d2 = 0.0f;
 #pragma unroll
     for (int c = 0; c < kMaxDim; ++c) {
@@ -137,51 +204,187 @@ __global__ void knn_kernel(Tree t, const float* __restrict__ queries, int q,
         d2 = c == 0 ? g * g : __fmaf_rn(g, g, d2);
       }
     }
-    const bool promising = d2 < tau2;   // strict, as the reference
-    const bool is_leaf = node >= t.n - 1;
-    if (is_leaf) {
-      if (promising) {
-        const int orig = __ldg(t.perm + (node - (t.n - 1)));
-        int pos = 0;
+    link = m < t.n - 1 ? __ldg(t.left + m) : -1;
+    rope = __ldg(t.rope + m);
+    return d2;
+  }
+};
+
+// a leaf at sorted position `pos`: into the list when d2 < tau, else its
+// d2 into `lost`; an insert into a full list evicts the k-th entry,
+// whose d2 goes to `lost` (fminf drops inf and NaN)
+template <class List>
+__device__ __forceinline__ void offer(List& best, float d2, int pos, int k,
+                                      float& lost) {
+  if (best.admits_strict(d2)) {
+    lost = fminf(lost, best.bound());
+    best.insert(d2, pos, k);
+  } else {
+    lost = fminf(lost, d2);
+  }
+}
+
+// output slot j: the list's entry below `below`, else the kept leaves at
+// dk, highest position first (the last of the ring first)
+template <class List, int R>
+__device__ __forceinline__ void put(const List& best, int j, int below,
+                                    float dk, const int (&ring)[R], int ties,
+                                    int k, const int* __restrict__ perm,
+                                    float* od, int* oi) {
+  int p;
+  float d2;
+  if (j < below) {
+    p = best.pos(j);
+    d2 = best.dist(j);
+  } else {
+    p = ring[(ties - 1 - (j - below)) % (k - below)];
+    d2 = dk;
+  }
+  od[j] = sqrtf(d2);
+  oi[j] = p < 0 ? -1 : __ldg(perm + p);
+}
+
+template <class Nodes, class List>
+__global__ void __launch_bounds__(kThreads)
+    knn_kernel(Nodes nodes, const int* __restrict__ perm, int n, int dim,
+               const float* __restrict__ queries,
+               const int* __restrict__ order, int q, int k,
+               float* __restrict__ dists, int* __restrict__ idxs) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= q) return;
+  const int qi = order == nullptr ? i : __ldg(order + i);
+  float qc[Nodes::kDims];
 #pragma unroll
-        for (int j = 0; j < K; ++j) pos += best_d[j] < d2 ? 1 : 0;
-#pragma unroll
-        for (int j = K - 1; j > 0; --j) {
-          if (j > pos) {
-            best_d[j] = best_d[j - 1];
-            best_i[j] = best_i[j - 1];
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < K; ++j) {
-          if (j == pos) {
-            best_d[j] = d2;
-            best_i[j] = orig;
-          }
-          if (j == k - 1) tau2 = best_d[j];
-        }
-      }
-      node = __ldg(t.rope + node);
+  for (int c = 0; c < Nodes::kDims; ++c) {
+    if (c < dim) qc[c] = __ldg(queries + static_cast<long long>(qi) * dim + c);
+  }
+  List best;
+  best.init(k);
+  float lost = INFINITY;   // the smallest d2 left out (leaf or node)
+  float st_d[kStack];      // pending internal nodes: their d2, left child
+  int st_link[kStack];
+  int top = 0;
+  const int leaf0 = n - 1;   // node id of sorted-leaf position 0
+
+  int link, rope;
+  const float d_root = nodes.test(qc, 0, dim, link, rope);
+  bool go = best.admits_strict(d_root);
+  while (go) {
+    // `link` is the left child of an internal node the walk enters
+    int link_l, link_r, rope_r;
+    const int l = link;
+    const float dl = nodes.test(qc, l, dim, link_l, rope);
+    const int r = rope;   // a left child's rope: its right sibling
+    const float dr = nodes.test(qc, r, dim, link_r, rope_r);
+    // leaf children into the list (one rolled copy of the insert)
+#pragma unroll 1
+    for (int side = 0; side < 2; ++side) {
+      const int c = side == 0 ? l : r;
+      if (c >= leaf0) offer(best, side == 0 ? dl : dr, c - leaf0, k, lost);
+    }
+    bool go_l = false, go_r = false;
+    if (l < leaf0) {
+      go_l = best.admits_strict(dl);
+      if (!go_l) lost = fminf(lost, dl);
+    }
+    if (r < leaf0) {
+      go_r = best.admits_strict(dr);
+      if (!go_r) lost = fminf(lost, dr);
+    }
+    if (go_l && go_r) {
+      const bool left_nearer = dl <= dr;
+      st_d[top] = left_nearer ? dr : dl;
+      st_link[top] = left_nearer ? link_r : link_l;
+      ++top;
+      link = left_nearer ? link_l : link_r;
+    } else if (go_l || go_r) {
+      link = go_l ? link_l : link_r;
     } else {
-      node = promising ? __ldg(t.left + node) : __ldg(t.rope + node);
+      go = false;
+      while (top > 0) {
+        --top;
+        // tau has tightened since the push
+        if (best.admits_strict(st_d[top])) {
+          link = st_link[top];
+          go = true;
+          break;
+        }
+        lost = fminf(lost, st_d[top]);
+      }
+    }
+  }
+  best.finish(k);
+
+  // the tie pass: a leaf at the k-th distance was left out
+  const float dk = best.bound();
+  int below = k;      // entries with d2 < dk: the twin keeps them all
+  int ties = 0;       // leaves at dk among the first k with d2 <= dk
+  int ring[List::kSlots];   // the last k - below of them, in a ring
+  if (lost == dk && dk != INFINITY) {
+    below = 0;
+    if constexpr (List::kInRegisters) {
+#pragma unroll
+      for (int j = 0; j < List::kSlots; ++j) {
+        below += j < k && best.dist(j) < dk ? 1 : 0;
+      }
+    } else {
+      for (int j = 0; j < k; ++j) below += best.dist(j) < dk ? 1 : 0;
+    }
+    const int m = k - below;   // >= 1: the k-th entry is at dk
+    int seen = 0;
+    int node = 0;
+    while (node != -1 && seen < k) {
+      int lk, rp;
+      const float d2 = nodes.test(qc, node, dim, lk, rp);
+      if (!(d2 <= dk)) {
+        node = rp;
+      } else if (node < leaf0) {
+        node = lk;
+      } else {
+        ++seen;
+        if (d2 == dk) ring[ties++ % m] = node - leaf0;
+        node = rp;
+      }
     }
   }
   float* od = dists + static_cast<long long>(qi) * k;
   int* oi = idxs + static_cast<long long>(qi) * k;
+  if constexpr (List::kInRegisters) {
 #pragma unroll
-  for (int j = 0; j < K; ++j) {
-    if (j < k) {
-      od[j] = sqrtf(best_d[j]);
-      oi[j] = best_i[j];
+    for (int j = 0; j < List::kSlots; ++j) {
+      if (j < k) put(best, j, below, dk, ring, ties, k, perm, od, oi);
+    }
+  } else {
+    for (int j = 0; j < k; ++j) {
+      put(best, j, below, dk, ring, ties, k, perm, od, oi);
     }
   }
 }
 
-template <int K>
-void launch_knn(const Tree& t, const float* queries, int q, int k,
+template <class Nodes, class List>
+void launch_knn(const Nodes& nodes, const int* perm, int n, int dim,
+                const float* queries, const int* order, int q, int k,
                 float* dists, int* idxs, cudaStream_t stream) {
   const int blocks = (q + kThreads - 1) / kThreads;
-  knn_kernel<K><<<blocks, kThreads, 0, stream>>>(t, queries, q, k, dists, idxs);
+  knn_kernel<Nodes, List><<<blocks, kThreads, 0, stream>>>(
+      nodes, perm, n, dim, queries, order, q, k, dists, idxs);
+}
+
+template <class Nodes>
+cudaError_t launch_knn_k(const Nodes& nodes, const int* perm, int n, int dim,
+                         const float* queries, const int* order, int q, int k,
+                         float* d, int* ix, cudaStream_t s) {
+  using knn::KeyHeap;
+  using knn::KeyList;
+  if (k <= 1) launch_knn<Nodes, KeyList<1, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, s);
+  else if (k <= 2) launch_knn<Nodes, KeyList<2, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, s);
+  else if (k <= 4) launch_knn<Nodes, KeyList<4, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, s);
+  else if (k <= 8) launch_knn<Nodes, KeyList<8, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, s);
+  else if (k <= 16) launch_knn<Nodes, KeyList<16, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, s);
+  else if (k <= 32) launch_knn<Nodes, KeyList<32, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, s);
+  else if (k <= kMaxK) launch_knn<Nodes, KeyHeap<kMaxK, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, s);
+  else return cudaErrorInvalidValue;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -217,30 +420,32 @@ REPRO_EXPORT int bvh_spatial_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
+// records: the tree's LBVH.records in 3-D (the Records3 instance), or
+// null (the flat arrays); order: the query each thread walks, or null
 REPRO_EXPORT int bvh_knn_launch(const void* node_lo, const void* node_hi,
                                 const void* rope, const void* left,
-                                const void* perm, const void* queries, int n,
+                                const void* perm, const void* records,
+                                const void* order, const void* queries, int n,
                                 int q, int dim, int k, void* dists,
                                 void* idxs, void* stream) {
-  if (dim < 1 || dim > kMaxDim || k < 1) {
+  if (dim < 1 || dim > kMaxDim || k < 1 || k > kMaxK || n < 2 ||
+      (records != nullptr && dim != 3)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Tree t{static_cast<const float*>(node_lo), static_cast<const float*>(node_hi),
-         static_cast<const int*>(rope), static_cast<const int*>(left),
-         static_cast<const int*>(perm), n, dim};
+  auto pm = static_cast<const int*>(perm);
   auto qp = static_cast<const float*>(queries);
+  auto od = static_cast<const int*>(order);
   auto d = static_cast<float*>(dists);
   auto ix = static_cast<int*>(idxs);
   auto s = static_cast<cudaStream_t>(stream);
-  if (k <= 1) launch_knn<1>(t, qp, q, k, d, ix, s);
-  else if (k <= 2) launch_knn<2>(t, qp, q, k, d, ix, s);
-  else if (k <= 4) launch_knn<4>(t, qp, q, k, d, ix, s);
-  else if (k <= 8) launch_knn<8>(t, qp, q, k, d, ix, s);
-  else if (k <= 16) launch_knn<16>(t, qp, q, k, d, ix, s);
-  else if (k <= 32) launch_knn<32>(t, qp, q, k, d, ix, s);
-  else if (k <= 64) launch_knn<64>(t, qp, q, k, d, ix, s);
-  else if (k <= 128) launch_knn<128>(t, qp, q, k, d, ix, s);
-  else if (k <= 256) launch_knn<256>(t, qp, q, k, d, ix, s);
-  else return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (records != nullptr) {
+    return static_cast<int>(launch_knn_k(
+        Records3{static_cast<const int4*>(records)}, pm, n, dim, qp, od, q, k,
+        d, ix, s));
+  }
+  Tree t{static_cast<const float*>(node_lo), static_cast<const float*>(node_hi),
+         static_cast<const int*>(rope), static_cast<const int*>(left), pm, n,
+         dim};
+  return static_cast<int>(launch_knn_k(Flat{t}, pm, n, dim, qp, od, q, k, d,
+                                       ix, s));
 }

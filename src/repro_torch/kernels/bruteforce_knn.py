@@ -24,9 +24,13 @@ A CPU tensor takes the twin, which streams the points in chunks, forms
 d2 in the same order (``geometry.fma`` for the exact float32 FMA,
 ``geometry.sqrt`` for the correctly rounded root) and merges each chunk
 into the running best with a stable sort. A CUDA tensor launches
-``csrc/bruteforce_knn.cu`` (one thread per query, points streamed through
-shared memory); any other device raises. The kernel's launch count is
-``bruteforce_knn.launches``.
+``csrc/bruteforce_knn.cu``; any other device raises. The kernel cuts the
+point axis into chunks (:func:`plan`, one boundary at ``tail_from``), one
+block row each, writes each chunk's k best per query to scratch and
+merges them in chunk order by the key (d2, index), which is the twin's
+answer bit for bit; when one chunk covers every point it writes the
+result directly. A call counts once in ``bruteforce_knn.launches``,
+though a split call runs two kernels (the scan, then the merge).
 """
 from __future__ import annotations
 
@@ -38,8 +42,8 @@ from ..core import geometry as G
 from . import _build
 from .bvh_traverse import _device_of, _stream
 
-__all__ = ["bruteforce_knn", "bruteforce_knn_ref", "tail_from", "MAX_K",
-           "MAX_DIM"]
+__all__ = ["bruteforce_knn", "bruteforce_knn_ref", "tail_from", "plan",
+           "splits", "queries_per_block", "MAX_K", "MAX_DIM"]
 
 #: largest k the kernel takes (the reference's REPROLINT_MAX_K)
 MAX_K = 256
@@ -47,6 +51,23 @@ MAX_K = 256
 MAX_DIM = 8192
 #: query x point x dim elements of one chunk of the twin
 _CHUNK_ELEMENTS = 1 << 24
+#: threads of a scan block (kThreads of csrc/bruteforce_knn.cu)
+THREADS = 128
+#: 3-D points per shared-memory stage (kTile3): chunks are multiples of it
+TILE = 512
+#: blocks the scan's grid aims at per SM: fewer, longer chunks, since
+#: each chunk's list starts empty and fills by inserts (on an H100 at
+#: Q = 2^13, N = 2^20, k = 10, scripts/knn_variants.py: 576 blocks
+#: beat 1,152 by 3.5 %, and 320 blocks took 1.24 times as long)
+BLOCKS_PER_SM = 4
+#: a chunk holds at least this many points per list entry, so that each
+#: chunk's list settles before its end (k = 256 at N = 2^16 on an H100:
+#: chunks of 8,192 points beat 4,096 by 13 %)
+MIN_POINTS_PER_ENTRY = 32
+#: the most the (S, k, Q) scratch lists may take
+SCRATCH_BYTES = 256 << 20
+#: the most block rows a grid may have (gridDim.y)
+_MAX_SPLITS = 65535
 
 
 def tail_from(n: int, bn: int = 512) -> int:
@@ -54,6 +75,36 @@ def tail_from(n: int, bn: int = 512) -> int:
     panels of ``min(bn, round_up(n, 8))``: 0 for one panel."""
     bn_eff = min(bn, (n + 7) // 8 * 8)
     return (-(-n // bn_eff) - 1) * bn_eff
+
+
+def splits(n: int, tail: int, chunk: int) -> int:
+    """Block rows of a scan of n points in chunks of `chunk`, one boundary
+    at `tail` (= ``tail_from``): 1 when one chunk covers every point."""
+    if chunk >= n:
+        return 1
+    return -(-tail // chunk) + -(-(n - tail) // chunk)
+
+
+def queries_per_block(k: int) -> int:
+    """Queries of a scan block: THREADS times kQueriesPerThread of the
+    kernel (two for lists of up to 32 entries, one above)."""
+    return THREADS * (2 if k <= 32 else 1)
+
+
+def plan(q: int, n: int, k: int, tail: int, sms: int) -> int:
+    """Points per chunk of the scan: enough chunks that the grid gives
+    about BLOCKS_PER_SM blocks per SM, each chunk a multiple of TILE and
+    at least MIN_POINTS_PER_ENTRY * k points, the scratch within
+    SCRATCH_BYTES and the rows within the grid's limit."""
+    q_blocks = -(-q // queries_per_block(k))
+    want = max(1, -(-BLOCKS_PER_SM * sms // q_blocks))
+    least = -(-MIN_POINTS_PER_ENTRY * k // TILE) * TILE
+    chunk = max(least, -(-(-(-n // want)) // TILE) * TILE)
+    while True:
+        s = splits(n, tail, chunk)
+        if s == 1 or (s <= _MAX_SPLITS and q * s * k * 8 <= SCRATCH_BYTES):
+            return chunk
+        chunk *= 2
 
 
 def _check(what, queries, points, k, bn):
@@ -117,7 +168,8 @@ def bruteforce_knn_ref(queries, points, k: int, *, bn: int = 512):
     return G.sqrt(best_d), best_i
 
 
-_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+         + [ctypes.c_void_p] * 5)
 
 
 def bruteforce_knn(queries, points, k: int, *, bn: int = 512):
@@ -130,19 +182,37 @@ def bruteforce_knn(queries, points, k: int, *, bn: int = 512):
     if _device_of(queries, what) == "cpu":
         return bruteforce_knn_ref(queries, points, k, bn=bn)
     dev = queries.device
-    q, dim = queries.shape
-    n = points.shape[0]
+    q, n = queries.shape[0], points.shape[0]
     if q == 0 or n == 0:
         return _empty(q, k, dev)
+    tail = tail_from(n, bn)
+    chunk = plan(q, n, k, tail, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    return _launch(queries, points, k, tail, chunk)
+
+
+def _launch(queries, points, k, tail, chunk):
+    """The kernel on (Q, dim) queries and (N, dim) points of one card,
+    Q, N >= 1, with the point axis in chunks of `chunk` (one boundary at
+    `tail`): (dists, idxs)."""
+    dev = queries.device
+    q, dim = queries.shape
+    n = points.shape[0]
+    s = splits(n, tail, chunk)
     dists = torch.empty((q, k), dtype=torch.float32, device=dev)
     idxs = torch.empty((q, k), dtype=torch.int32, device=dev)
+    part_d = part_i = None
+    if s > 1:
+        part_d = torch.empty((s, k, q), dtype=torch.float32, device=dev)
+        part_i = torch.empty((s, k, q), dtype=torch.int32, device=dev)
     a = [t.contiguous() for t in (queries, points)]
     fn = _build.function("bruteforce_knn", "bruteforce_knn_launch", _ARGS)
     with torch.cuda.device(dev):
-        err = fn(a[0].data_ptr(), a[1].data_ptr(), q, n, dim, k,
-                 tail_from(n, bn), dists.data_ptr(), idxs.data_ptr(),
-                 _stream(dev))
-    _build.check("bruteforce_knn", err, what)
+        err = fn(a[0].data_ptr(), a[1].data_ptr(), q, n, dim, k, tail, chunk,
+                 dists.data_ptr(), idxs.data_ptr(),
+                 None if part_d is None else part_d.data_ptr(),
+                 None if part_i is None else part_i.data_ptr(), _stream(dev))
+    _build.check("bruteforce_knn", err, "bruteforce_knn")
     bruteforce_knn.launches += 1
     return dists, idxs
 

@@ -42,7 +42,8 @@ from ..core import geometry as G
 from ..core import predicates as P
 from ..core import traversal
 from . import _build, sanitize
-from .bvh_traverse import MAX_DIM, _check_tree, _device_of, _stream
+from .bvh_traverse import (MAX_DIM, _check_tree, _device_of, _stream,
+                           pack_nodes)
 
 __all__ = ["bvh_traverse_callback", "bvh_traverse_callback_ref",
            "expressible", "query_order", "pack_nodes", "min_where_weights"]
@@ -139,15 +140,6 @@ def query_order(predicates, values, leaf_perm):
     Morton codes in the tree's root box; None for other predicates, which
     are walked in the caller's order."""
     return leaf_perm if _centred_on_values(predicates, values) else None
-
-
-def pack_nodes(node_lo, node_hi, rope, left_child, leaf_perm):
-    """(2N-1, 8) int32 node records of a 3-D tree: node k is (lo.xyz,
-    rope) then (hi.xyz, left child for an internal node, leaf_perm of the
-    leaf's position for a leaf), the floats bit-cast to int32."""
-    link = torch.cat([left_child, leaf_perm])
-    return torch.cat([node_lo.view(torch.int32), rope[:, None],
-                      node_hi.view(torch.int32), link[:, None]], 1)
 
 
 def min_where_weights(callback):

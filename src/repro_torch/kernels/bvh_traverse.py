@@ -1,4 +1,4 @@
-"""Stackless rope-walk BVH traversal: spatial count + fill, and k-nearest.
+"""BVH traversal kernels: spatial count + fill, and k-nearest.
 
 Two kernels, each with its plain PyTorch twin beside it:
 
@@ -12,11 +12,21 @@ Two kernels, each with its plain PyTorch twin beside it:
   * ``bvh_traverse_knn``: k nearest leaves by squared point-to-box
     distance, pruned strictly against the running k-th best, with a
     sorted insert that places ties after equal entries; sqrt at the end.
+    Since the rope walk reaches leaves in ascending sorted-leaf position,
+    its list is the k smallest leaves by the key (d2, position), padded
+    with (inf, -1): that key is the contract, whatever the visit order.
 
 A CPU tensor takes the twin (``*_ref``), which walks every query's cursor
-step by step until all are -1, the node sequence of the kernels. A CUDA
-tensor launches ``csrc/bvh_traverse.cu`` (one thread per query); any
-other device raises. The twins and the kernels sum the per-dimension
+step by step until all are -1, the node sequence of the rope walk. A CUDA
+tensor launches ``csrc/bvh_traverse.cu``; any other device raises. The
+spatial kernel runs the rope walk, one thread per query. The kNN kernel
+walks nearest first with a stack and orders its list by (d2, position)
+(``csrc/knn_list.cuh``), which gives the twin's lists bit for bit in
+another visit order; in 3-D it reads the tree's packed node records
+(:func:`pack_nodes`, kept as ``LBVH.records``), and a caller may give the
+order in which its threads take the queries (:func:`knn_order`: the
+tree's leaf order when the queries are the indexed points); outputs stay
+in the caller's rows. The twins and the kernels sum the per-dimension
 squares in the same fixed order (``geometry.sum_sq_fused``: the first
 square, then one fused multiply-add per further dimension, as XLA:CPU
 runs the reference kernels) and the kernels allow no other contraction,
@@ -34,13 +44,17 @@ from ..core.geometry import sqrt, sum_sq_fused
 from . import _build, sanitize
 
 __all__ = ["bvh_traverse_spatial", "bvh_traverse_knn",
-           "bvh_traverse_spatial_ref", "bvh_traverse_knn_ref",
-           "KNN_MAX_K", "MAX_DIM"]
+           "bvh_traverse_spatial_ref", "bvh_traverse_knn_ref", "pack_nodes",
+           "knn_order", "KNN_MAX_K", "MAX_DIM", "STACK_DEPTH"]
 
 #: largest k the kNN kernel takes (its largest template bucket)
 KNN_MAX_K = 256
 #: largest dimension the kernels take (query coordinates live in registers)
 MAX_DIM = 16
+#: entries of the kNN walk's stack (kStack of csrc/bvh_traverse.cu): the
+#: walk stacks internal nodes only, at most one per depth 1..95, and the
+#: tree's internal nodes lie at depths 0..95 (the note there)
+STACK_DEPTH = 96
 
 
 # ---------------------------------------------------------------------------
@@ -143,6 +157,33 @@ def bvh_traverse_knn_ref(node_lo, node_hi, rope, left_child, leaf_perm,
 
 
 # ---------------------------------------------------------------------------
+# what the kNN kernel reads besides the tree
+# ---------------------------------------------------------------------------
+
+def pack_nodes(node_lo, node_hi, rope, left_child, leaf_perm):
+    """(2N-1, 8) int32 node records of a 3-D tree: node k is (lo.xyz,
+    rope) then (hi.xyz, left child for an internal node, leaf_perm of the
+    leaf's position for a leaf), the floats bit-cast to int32."""
+    link = torch.cat([left_child, leaf_perm])
+    return torch.cat([node_lo.view(torch.int32), rope[:, None],
+                      node_hi.view(torch.int32), link[:, None]], 1)
+
+
+def knn_order(queries, values_coords, leaf_perm):
+    """(Q,) int32 order in which the kNN kernel's threads take the queries:
+    the tree's `leaf_perm` (the stable sort of the points' 64-bit Morton
+    codes in the tree's root box) when the queries are the indexed points
+    themselves (the same tensor as `values_coords`), else None (the
+    caller's order). Outputs stay in the caller's rows either way."""
+    if values_coords is None:
+        return None
+    same = (queries.data_ptr() == values_coords.data_ptr()
+            and queries.shape == values_coords.shape
+            and queries.stride() == values_coords.stride())
+    return leaf_perm if same else None
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -185,7 +226,7 @@ def _stream(dev):
 
 _SPATIAL_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                  + [ctypes.c_void_p] * 3)
-_KNN_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+_KNN_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
 
 
 def bvh_traverse_spatial(node_lo, node_hi, rope, left_child, range_last,
@@ -244,9 +285,13 @@ def _spatial_launch(what, node_lo, node_hi, rope, left_child, range_last,
 
 
 def bvh_traverse_knn(node_lo, node_hi, rope, left_child, leaf_perm, queries,
-                     *, k: int):
+                     *, k: int, records=None, order=None):
     """(dists, idxs) (Q, k) float32/int32, ascending, (inf, -1) padded,
-    for Q query points."""
+    for Q query points. `records`: the tree's :func:`pack_nodes` records
+    where the caller keeps them (``LBVH.records``); a 3-D call on the card
+    makes them otherwise. `order`: a (Q,) permutation of the queries in
+    which the kernel's threads take them (:func:`knn_order`), or None.
+    Neither changes a result."""
     what = "bvh_traverse_knn"
     if k < 1:
         raise ValueError(f"{what}: k must be >= 1, got {k}")
@@ -255,13 +300,13 @@ def bvh_traverse_knn(node_lo, node_hi, rope, left_child, leaf_perm, queries,
                                            left_child, leaf_perm, queries, k=k)
     else:
         dists, idxs = _knn_launch(what, node_lo, node_hi, rope, left_child,
-                                  leaf_perm, queries, k)
+                                  leaf_perm, queries, k, records, order)
     sanitize.check_knn(dists, idxs, n=leaf_perm.shape[0], kernel=what)
     return dists, idxs
 
 
 def _knn_launch(what, node_lo, node_hi, rope, left_child, leaf_perm, queries,
-                k):
+                k, records, order):
     if k > KNN_MAX_K:
         raise ValueError(f"{what}: k={k} above the kernel's cap {KNN_MAX_K}")
     dev = queries.device
@@ -271,6 +316,22 @@ def _knn_launch(what, node_lo, node_hi, rope, left_child, leaf_perm, queries,
               left_child=left_child, leaf_perm=leaf_perm, queries=queries)
     _check_tree(what, n, dim, a["node_lo"], a["node_hi"], a["rope"],
                 a["left_child"], a["leaf_perm"])
+    if dim != 3:
+        records = None
+    elif records is None:
+        records = pack_nodes(a["node_lo"], a["node_hi"], a["rope"],
+                             a["left_child"], a["leaf_perm"])
+    elif (records.shape != (2 * n - 1, 8) or records.dtype != torch.int32
+          or records.device != dev or not records.is_contiguous()
+          or records.data_ptr() % 16):
+        raise ValueError(f"{what}: records must be the tree's contiguous, "
+                         f"16-byte aligned ({2 * n - 1}, 8) int32 pack_nodes "
+                         f"records on {dev}")
+    if order is not None and (order.shape != (q,) or order.dtype != torch.int32
+                              or order.device != dev
+                              or not order.is_contiguous()):
+        raise ValueError(f"{what}: order must be a contiguous ({q},) int32 "
+                         f"permutation on {dev}")
     dists = torch.empty((q, k), dtype=torch.float32, device=dev)
     idxs = torch.empty((q, k), dtype=torch.int32, device=dev)
     if q == 0:
@@ -278,10 +339,11 @@ def _knn_launch(what, node_lo, node_hi, rope, left_child, leaf_perm, queries,
     fn = _build.function("bvh_traverse", "bvh_knn_launch", _KNN_ARGS)
     with torch.cuda.device(dev):
         err = fn(*(a[k_].data_ptr() for k_ in (
-                     "node_lo", "node_hi", "rope", "left_child", "leaf_perm",
-                     "queries")),
-                 n, q, dim, k, dists.data_ptr(), idxs.data_ptr(),
-                 _stream(dev))
+                     "node_lo", "node_hi", "rope", "left_child", "leaf_perm")),
+                 None if records is None else records.data_ptr(),
+                 None if order is None else order.data_ptr(),
+                 a["queries"].data_ptr(), n, q, dim, k, dists.data_ptr(),
+                 idxs.data_ptr(), _stream(dev))
     _build.check("bvh_traverse", err, what)
     bvh_traverse_knn.launches += 1
     return dists, idxs

@@ -758,3 +758,125 @@ def test_lm_forward_on_the_card_launches_flash_per_layer(cuda_device,
     assert bool(torch.isfinite(logits).all())
     with pytest.raises(ValueError, match="forward-only"):
         model(tok)                                   # grad mode on
+
+
+# ---------------------------------------------------------------------------
+# slice 8: the nearest-first kNN walk and the split brute force
+# ---------------------------------------------------------------------------
+
+#: k values that reach every list bucket of the walk (1, 2, 4, 8, 16, 32
+#: in registers, the heap above)
+KNN_BUCKETS = (1, 2, 3, 8, 10, 32, 33, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3, 17, 5000])
+@pytest.mark.parametrize("dim", [1, 2, 3, 5, 16])
+def test_knn_walk_matches_twin_on_the_card(cuda_device, n, dim):
+    """The nearest-first walk against the rope-walk twin, torch.equal on
+    distances and indices: the 3-D records instance (records kept with
+    the tree, and packed by the wrapper) and the any-dim instance (dims 1,
+    2, 5, 16), every k bucket, duplicate points (ties at the k-th
+    distance, the tie pass), inf and NaN queries, queries in the caller's
+    order and in a computed order, and the points themselves in the leaf
+    order."""
+    g = torch.Generator().manual_seed(n + dim)
+    x = torch.rand((n, dim), generator=g)
+    x[::4] = x[0].clone()                            # duplicate codes
+    tree = TL.build(TG.Boxes(x, x))
+    q = torch.cat([x[torch.randint(0, n, (100,), generator=g)],
+                   torch.rand((100, dim), generator=g)])
+    q[0, 0], q[1, -1] = float("inf"), float("nan")
+    gt = tree.to(cuda_device)
+    gq, gx = q.to(cuda_device), x.to(cuda_device)
+    args = (gt.node_lo, gt.node_hi, gt.rope, gt.left_child, gt.leaf_perm)
+    twin_args = (tree.node_lo, tree.node_hi, tree.rope, tree.left_child,
+                 tree.leaf_perm)
+    shuffled = torch.randperm(len(q), generator=g).to(torch.int32)
+    self_order = TT.knn_order(gx, gx, gt.leaf_perm)
+    assert self_order is gt.leaf_perm
+    ks = KNN_BUCKETS if n < 5000 or dim == 3 else (1, 10, 33, 256)
+    for k in ks:
+        want = TT.bvh_traverse_knn_ref(*twin_args, q, k=k)
+        runs = [{}, {"order": shuffled.to(cuda_device)}]
+        if dim == 3:
+            runs.append({"records": gt.records})
+        for kw in runs:
+            before = TT.bvh_traverse_knn.launches
+            got = TT.bvh_traverse_knn(*args, gq, k=k, **kw)
+            torch.cuda.synchronize()
+            assert TT.bvh_traverse_knn.launches == before + 1
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want)), \
+                (k, sorted(kw))
+        if k in (1, 10, 33):
+            want = TT.bvh_traverse_knn_ref(*twin_args, x, k=k)
+            got = TT.bvh_traverse_knn(*args, gx, k=k, order=self_order)
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want)), k
+
+
+@pytest.mark.cuda
+def test_bvh_nearest_on_the_card_passes_records_and_the_leaf_order(
+        cuda_device, monkeypatch):
+    """BVH.query(nearest) hands the kNN kernel the tree's kept records and,
+    for the indexed points themselves, the leaf order; results equal the
+    CPU index's."""
+    from repro_torch.core import engine as TE
+    seen = []
+    real = TE.bvh_traverse_knn
+
+    def spy(*a, **kw):
+        seen.append((kw.get("records"), kw.get("order")))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(TE, "bvh_traverse_knn", spy)
+    x = torch.rand((3000, 3), generator=torch.Generator().manual_seed(8))
+    x[::4] = x[0].clone()
+    gx = x.to(cuda_device)
+    engine = TE.QueryEngine(TE.EngineConfig(force="kernel"))
+    index = BVH(TG.Points(gx), policy=ExecutionPolicy(device=cuda_device),
+                engine=engine)
+    host = BVH(TG.Points(x), policy=ExecutionPolicy(device="cpu"),
+               engine=engine)
+    t = index.tree
+    for pts, self_query in ((gx, True), (gx[:500].clone(), False)):
+        got = index.query(TP.nearest(TG.Points(pts), k=7))
+        records, order = seen[-1]
+        want = host.query(TP.nearest(TG.Points(pts.cpu()), k=7))
+        assert records is t.records
+        assert (order is t.leaf_perm) == self_query
+        assert self_query or order is None
+        assert torch.equal(got.indices.cpu(), want.indices)
+        assert torch.equal(got.distances.cpu(), want.distances)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,n,dim,k,bn,chunk", [
+    (1, 5000, 3, 10, 512, 512),        # Q = 1: one query tile, 10 rows
+    (8192, 3000, 3, 10, 512, 512),     # the Q = 2^13 grid: 64 query tiles
+    (100, 3001, 3, 8, 512, 700),       # N no multiple of the chunk
+    (100, 3072, 3, 8, 512, 512),       # tail_from (2560) at a chunk edge
+    (100, 3000, 3, 8, 512, 1000),      # tail_from inside the chunk run
+    (50, 300, 3, 256, 128, 64),        # k > N over three panels, split
+    (50, 300, 3, 200, 64, 100),        # k > N over five panels, split
+    (64, 5000, 3, 256, 512, 1024),     # k = 256 (the heap) with S > 1
+    (64, 5000, 5, 33, 512, 512),       # registers dims, the heap
+    (64, 4000, 17, 16, 512, 512),      # wide rows (read through the cache)
+    (64, 2000, 2, 32, 512, 256),
+    (64, 5000, 3, 10, 512, 5000),      # one chunk: the scan writes it
+])
+def test_split_bruteforce_matches_twin_on_the_card(cuda_device, q, n, dim, k,
+                                                   bn, chunk):
+    """The split scan and its merge, called with a chunk of points per
+    block row: bit-identical to the twin, the k > N tail included."""
+    g = torch.Generator().manual_seed(q + n + k)
+    p = torch.rand((n, dim), generator=g)
+    p[1::3] = p[::3][:p[1::3].shape[0]].clone()
+    qs = torch.cat([p[:q // 2], torch.rand((q - q // 2, dim), generator=g)])
+    tail = TB.tail_from(n, bn)
+    assert (TB.splits(n, tail, chunk) > 1) == (chunk < n)
+    before = TB.bruteforce_knn.launches
+    got = TB._launch(qs.to(cuda_device), p.to(cuda_device), k, tail, chunk)
+    torch.cuda.synchronize()
+    assert TB.bruteforce_knn.launches == before + 1
+    want = TB.bruteforce_knn_ref(qs, p, k, bn=bn)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))

@@ -68,13 +68,19 @@ Phases (one line or more each, then the two closing lines):
      standard-normal directions). With the counters zeroed just before:
      ``BVH(Triangles)``, ``cast_intersect`` and ``cast_ordered`` (two
      callback-kernel launches each, no loop-route batch),
-     ``cast_nearest`` k = 1 and 4 (the loop walk, as in the reference)
-     and ``ray_box_nearest`` over the soup's bounding boxes; counters
-     read just after. Then, on all R rays: cast_ordered ascending in t
-     with cast_intersect's sets, cast_nearest's t equal to cast_ordered's
-     first k and its indices in cast_intersect's sets; every epilogue's
-     ray instance over the soup, the Boxes index and the Spheres index,
-     timed beside its bound and held against its twin (tolerance 0); on
+     ``cast_nearest`` k = 1 and 4 (the kernel route: one ray kNN kernel
+     launch each) and ``ray_box_nearest`` over the soup's bounding boxes;
+     counters read just after. Then, on all R rays: cast_ordered
+     ascending in t with cast_intersect's sets, cast_nearest's t equal to
+     cast_ordered's first k and its indices in cast_intersect's sets;
+     cast_nearest k = 4 identical to its twin (the reference's k-nearest
+     walk, a host loop on the card) over the soup, the Boxes and the
+     Spheres indexes, the kernel timed at k = 1, 4 and 10 beside its bound
+     with the twin's node visits per ray and the cost of packing the
+     records; every epilogue's ray instance over the soup, the Boxes
+     index and the Spheres index, with the index's kept node and value
+     records as the engine passes them, timed beside its bound and held
+     against its twin (tolerance 0); on
      2048 rays the hit sets against BruteForce (boxes equal; triangles
      and spheres may differ only at pairs a float64 evaluation puts
      within the float32 error bound of the boundary, counted) and, for
@@ -130,7 +136,7 @@ Phases (one line or more each, then the two closing lines):
      time (ms, tokens/s) and one profiled forward, with the flash
      kernel's share of device time.
 
-The line before the last is ``{"kernels": [...]}`` (9 entries: name,
+The line before the last is ``{"kernels": [...]}`` (10 entries: name,
 route, source, replaced TPU kernel, launches, max_abs_err, ms, plain_ms,
 bound_ms, bound_by, library_ms); the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -274,9 +280,16 @@ def _ptxas_summary(text):
             k = re.search(r"(karras_kernel|spatial_kernelILb[01]E)", m.group(1))
             kn = re.search(r"knn_kernelINS_\d+(Records3|Flat)EN3knn\d+"
                            r"(KeyList|KeyHeap)ILi(\d+)E", m.group(1))
-            cb = re.search(r"(callback_kernel3|callback_kernel|ray_kernel).*?"
+            cb = re.search(r"(callback_kernel3|callback_kernel|ray_kernel3|"
+                           r"ray_kernel).*?"
                            r"(CountWithLimit|Counting|MinDistance|"
                            r"CollectILb[01]E|MinWhere)", m.group(1))
+            rn = re.search(r"ray_knn_nf_kernelIN3knn\d+(KeyList|KeyHeap)"
+                           r"ILi(\d+)E", m.group(1))
+            rk = re.search(r"(ray_knn_kernel|nf_kernel)I.*?(Records3|Flat|"
+                           r"LeafBox|LeafSphere3|LeafTriangle3|LeafFlat)E.*?"
+                           r"(LeafBox|LeafSphere3|LeafTriangle3|LeafFlat)?E?"
+                           r"N3knn\d+(KeyList|KeyHeap)ILi(\d+)E", m.group(1))
             rb3 = re.search(r"ray_box3_kernelILi(\d+)EE", m.group(1))
             rb = re.search(r"ray_box_kernel|ray_box_decode|morton_kernel",
                            m.group(1))
@@ -286,7 +299,11 @@ def _ptxas_summary(text):
                            r"ILi(\d+)E", m.group(1))
             bm = re.search(r"merge_kernelIN3knn\d+(KeyList|KeyHeap)ILi(\d+)E",
                            m.group(1))
-            fn = ((f"flash_kernel_tc<{fa.group(2).lstrip('0123456789')}, "
+            fn = (f"ray_knn_nf_kernel<{rn.group(1)} {rn.group(2)}>" if rn
+                  else f"{rk.group(1)}<"
+                  f"{', '.join(g for g in rk.group(2, 3) if g)}, "
+                  f"{rk.group(4)} {rk.group(5)}>" if rk
+                  else (f"flash_kernel_tc<{fa.group(2).lstrip('0123456789')}, "
                    f"DH {fa.group(3)}>" if fa.group(1) == "tc"
                    else f"flash_kernel_f32<D {fa.group(3)}>") if fa
                   else f"{cb.group(1)}<{cb.group(2)}>" if cb
@@ -1289,6 +1306,7 @@ def phase_rays(dev, box_lo, box_hi, policy, card):
     counters = {"karras_ranges": KB.karras_ranges,
                 "bvh_traverse_spatial": T.bvh_traverse_spatial,
                 "bvh_traverse_knn": T.bvh_traverse_knn,
+                "bvh_traverse_ray_knn": T.bvh_traverse_ray_knn,
                 "bvh_traverse_callback": KC.bvh_traverse_callback,
                 "ray_box_nearest": KR.ray_box_nearest}
 
@@ -1324,11 +1342,13 @@ def phase_rays(dev, box_lo, box_hi, policy, card):
           f"the ray epilogue batches took the loop route: {batches}")
     check(engine.callback_batches == batches
           and launches["bvh_traverse_knn"] == 0
-          and launches["bvh_traverse_callback"] == 4,
-          "cast_nearest did not take the loop walk")
+          and launches["bvh_traverse_callback"] == 4
+          and launches["bvh_traverse_ray_knn"] == 2,
+          "cast_nearest k = 1 and 4 did not launch the ray kNN kernel once "
+          f"each: {json.dumps(launches)}")
     check(launches["ray_box_nearest"] == 1, "ray_box_nearest did not launch")
     route = engine.route_knn(index, P.RayNearest(rays, 1))
-    check(route == "loop", f"cast_nearest routed to {route}")
+    check(route == "kernel", f"cast_nearest routed to {route}")
     counts = hit_off.diff().to(torch.int64)
     log(f"[rays] soup N={N} (b, c = a + U(-{TRI_HALF}, {TRI_HALF})^3), "
         f"R={R_RAYS}: hits per ray mean {float(counts.double().mean()):.3f}, "
@@ -1339,8 +1359,8 @@ def phase_rays(dev, box_lo, box_hi, policy, card):
         f"{ord_ms:.2f} ms (CUDA events, one call each, two callback-kernel "
         f"launches each)  [{card}]")
     for k, ((tk, ik), ms) in nearest.items():
-        log(f"[rays] cast_nearest k={k} R={R_RAYS} (route {route}, the "
-            f"host-loop walk): {ms:.1f} ms  [{card}]")
+        log(f"[rays] cast_nearest k={k} R={R_RAYS} (route {route}, one ray "
+            f"kNN kernel launch): {ms:.3f} ms  [{card}]")
     log(f"[rays] ray_box_nearest R={R_RAYS} B={N}: {box_ms:.2f} ms, "
         f"{int((box_i >= 0).sum())} rays hit a box  [{card}]")
 
@@ -1369,6 +1389,48 @@ def phase_rays(dev, box_lo, box_hi, policy, card):
         check(bool((keys[at] == kk).all()),
               f"cast_nearest k={k}: an index outside cast_intersect's set")
 
+    # -- the ray kNN kernel against its twin on all R rays, k = 4, and its
+    #    records' cost ---------------------------------------------------------
+    t_ = index.tree
+    knn_tree = (t_.node_lo, t_.node_hi, t_.rope, t_.left_child, t_.leaf_perm)
+    stats = {}
+    (want_t, want_i), knn_plain = timed_once(
+        lambda: T.bvh_traverse_ray_knn_ref(*knn_tree, soup, rays, k=4,
+                                           stats=stats))
+    tk, ik = nearest[4][0]
+    check(torch.equal(tk, want_t) and torch.equal(ik, want_i),
+          f"cast_nearest k=4 differs from the twin on "
+          f"{int((~((tk == want_t) & (ik == want_i)).all(1)).sum())} rays")
+    visits = stats["visits"] / R_RAYS
+    del want_t, want_i
+    rec, vrec = t_.records, index.value_records
+    _, pack_ms = timed_once(lambda: T.pack_values(soup, t_.leaf_perm))
+    _, node_pack_ms = timed_once(lambda: T.pack_nodes(*knn_tree))
+    knn_ms = {k: time_ms(lambda: T.bvh_traverse_ray_knn(
+        *knn_tree, soup, rays, k=k, records=rec, value_records=vrec), reps=5)
+        for k in (1, 4, 10)}
+    hits4 = int(torch.isfinite(tk).sum())
+    # bytes: the rays, the tree and the values once, the (R, k) outputs;
+    # operations: one triangle test per hit returned
+    kb_ms, kb_by = bound(R_RAYS * 6 * 4 + tree_bytes(N, 3, True)
+                         + N * RAY_VALUE_FLOATS["triangles"] * 4
+                         + R_RAYS * 4 * 8, hits4 * RAY_LEAF_OPS["triangles"])
+    regs = _registers("ray_knn",
+                      "ray_knn_kernel<Records3, LeafTriangle3, KeyList 4>")
+    log(f"[rays] ray kNN kernel (cast_nearest) N={N} R={R_RAYS}: k=4 all "
+        f"{R_RAYS} rays identical to the twin (tolerance 0; twin "
+        f"{knn_plain:.1f} ms, {visits:.1f} node visits per ray, the "
+        f"kernel's own node sequence); {', '.join(f'k={k} {ms:.3f} ms' for k, ms in knn_ms.items())} "
+        f"(CUDA events, records kept); bound at k=4 {kb_ms:.4f} ms "
+        f"({kb_by}; {hits4} hits); ray_knn_kernel<Records3, LeafTriangle3, "
+        f"KeyList 4> {regs}; packs: value records {pack_ms:.3f} ms "
+        f"({N * 48} bytes), node records {node_pack_ms:.3f} ms  [{card}]")
+    knn_record = dict(source="src/repro_torch/csrc/ray_knn.cu",
+                      replaces="src/repro/core/engine.py:590",
+                      max_abs_err=0.0, ms=knn_ms[4], plain_ms=knn_plain,
+                      bound_ms=kb_ms, bound_by=kb_by)
+    del t_, knn_tree
+
     # -- every ray instance of the callback kernel against its twin, on all
     #    R rays, and ray_box_nearest's cast_nearest(k=1) check -------------
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -1385,10 +1447,27 @@ def phase_rays(dev, box_lo, box_hi, policy, card):
         t_ = idx.tree
         tree = (t_.node_lo, t_.node_hi, t_.rope, t_.left_child,
                 t_.range_last, t_.leaf_perm)
+        # the committed design's inputs, as the engine passes them
+        kept = dict(records=t_.records, value_records=idx.value_records)
+        if vkind != "triangles":
+            stats = {}
+            (want_t, want_i), plain = timed_once(
+                lambda: T.bvh_traverse_ray_knn_ref(
+                    t_.node_lo, t_.node_hi, t_.rope, t_.left_child,
+                    t_.leaf_perm, idx.values, rays, k=4, stats=stats))
+            (got_t, got_i), ms = timed_once(
+                lambda: rt.raytracing.cast_nearest(idx, rays, k=4))
+            check(torch.equal(got_t, want_t) and torch.equal(got_i, want_i),
+                  f"cast_nearest over {vkind} differs from the twin")
+            log(f"[rays] cast_nearest {vkind} k=4 R={R_RAYS}: {ms:.3f} ms, "
+                f"all rays identical to the twin (twin {plain:.1f} ms, "
+                f"{stats['visits'] / R_RAYS:.1f} node visits per ray in its "
+                f"rope walk)  [{card}]")
+            del want_t, want_i, got_t, got_i
         epilogues = _epilogues(N, dev)
         cb, s0 = epilogues["counting"]
         hits = KC.bvh_traverse_callback(*tree, idx.values, preds, cb,
-                                        _bcast_state(s0, R_RAYS, dev)
+                                        _bcast_state(s0, R_RAYS, dev), **kept
                                         ).to(torch.int64)
         if vkind == "triangles":
             check(torch.equal(hits, counts), "the counting walk differs "
@@ -1396,14 +1475,15 @@ def phase_rays(dev, box_lo, box_hi, policy, card):
         for name in EPILOGUE_NAMES:
             cb, s0 = epilogues[name]
             s0q = _bcast_state(s0, R_RAYS, dev)
-            full = KC.bvh_traverse_callback(*tree, idx.values, preds, cb, s0q)
+            full = KC.bvh_traverse_callback(*tree, idx.values, preds, cb, s0q,
+                                            **kept)
             want, plain = timed_once(lambda: KC.bvh_traverse_callback_ref(
                 *tree, idx.values, preds, cb, s0q))
             max_err = max(max_err, check_state(
                 full, want, f"bvh_traverse_callback rays/{vkind}/{name}"))
             del want
             ms = time_ms(lambda: KC.bvh_traverse_callback(
-                *tree, idx.values, preds, cb, s0q), reps=5)
+                *tree, idx.values, preds, cb, s0q, **kept), reps=5)
             cap = {"count_with_limit": 5, "collect_first_k": 8}.get(name)
             leaves = int((hits.clamp_max(cap) if cap else hits).sum())
             b_ms, b_by = ray_bound(R_RAYS, N, vkind, full, leaves)
@@ -1413,6 +1493,8 @@ def phase_rays(dev, box_lo, box_hi, policy, card):
                 f"({b_by})  [{card}]; {time.perf_counter() - t0:.1f} s into "
                 f"the phase")
             if vkind == "triangles" and name == "counting":
+                log(f"[rays] ray_kernel3<Counting> "
+                    f"({_registers('bvh_callback', 'ray_kernel3<Counting>')})")
                 record = dict(source="src/repro_torch/csrc/bvh_callback.cu",
                               replaces="src/repro/kernels/bvh_callback.py:251",
                               ms=ms, plain_ms=plain, bound_ms=b_ms,
@@ -1514,7 +1596,7 @@ def phase_rays(dev, box_lo, box_hi, policy, card):
                       replaces="src/repro/kernels/ray_box.py:97",
                       max_abs_err=box_err, ms=ms, plain_ms=plain,
                       bound_ms=b_ms, bound_by=b_by)
-    return launches, record, box_record
+    return launches, record, box_record, knn_record
 
 
 # ---------------------------------------------------------------------------
@@ -2061,8 +2143,10 @@ def main():
     records["bvh_traverse_callback"] = record
     launches["bvh_traverse_callback"] = db_launches["bvh_traverse_callback"]
     phase_loop_route(dev, pts, qc, policy)
-    ray_launches, ray_record, box_record = phase_rays(dev, box_lo, box_hi,
-                                                      policy, card)
+    ray_launches, ray_record, box_record, knn_record = phase_rays(
+        dev, box_lo, box_hi, policy, card)
+    records["bvh_traverse_ray_knn"] = knn_record
+    launches["bvh_traverse_ray_knn"] = ray_launches["bvh_traverse_ray_knn"]
     records["bvh_traverse_callback_rays"] = ray_record
     launches["bvh_traverse_callback_rays"] = \
         ray_launches["bvh_traverse_callback"]
@@ -2079,7 +2163,8 @@ def main():
     launches.update(phase_lm(dev, card))
     kernels = []
     for kname in ("karras_ranges", "bvh_traverse_spatial", "bvh_traverse_knn",
-                  "bvh_traverse_callback", "bvh_traverse_callback_rays",
+                  "bvh_traverse_ray_knn", "bvh_traverse_callback",
+                  "bvh_traverse_callback_rays",
                   "ray_box_nearest", "morton64", "bruteforce_knn",
                   "flash_attention"):
         r = records[kname]

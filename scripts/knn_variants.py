@@ -191,24 +191,25 @@ def walk_sources(src):
     import walk_variants as WV
     counted = WV._edit(src, '#include "knn_list.cuh"\n',
                        '#include "knn_list.cuh"\n' + _COUNTERS)
-    counted = WV._edit(counted, "  float lost = INFINITY;",
-                       "  unsigned long long tests = 1, tie_tests = 0;\n"
-                       "  float lost = INFINITY;")
-    counted = WV._edit(counted, "    const int r = rope;   // a left child's "
-                       "rope: its right sibling\n",
-                       "    const int r = rope;   // a left child's "
-                       "rope: its right sibling\n    tests += 2;\n")
-    counted = WV._edit(counted, "      const float d2 = nodes.test(qc, node, "
-                       "dim, lk, rp);\n",
-                       "      const float d2 = nodes.test(qc, node, dim, lk, "
-                       "rp);\n      ++tie_tests;\n")
-    counted = WV._edit(counted, "  float* od = dists + static_cast<long long>"
-                       "(qi) * k;\n",
-                       "  atomicAdd(g_knn_counts, tests);\n"
-                       "  atomicAdd(g_knn_counts + 1, tie_tests > 0 ? 1ull "
-                       ": 0ull);\n"
-                       "  atomicAdd(g_knn_counts + 2, tie_tests);\n"
-                       "  float* od = dists + static_cast<long long>(qi) * k;"
+    # every key the walk takes (knn_walk.cuh) is one node test; those
+    # after the walk proper are the tie pass's
+    counted = WV._edit(counted, "  int dim;\n  __device__ __forceinline__ "
+                       "float key(int m, int& link, int& rope) const {\n",
+                       "  int dim;\n  mutable unsigned long long tests = 0;\n"
+                       "  __device__ __forceinline__ float key(int m, int& "
+                       "link, int& rope) const {\n    ++tests;\n")
+    counted = WV._edit(counted, "  knn::nearest_first(keys, n, k, best, "
+                       "lost);\n",
+                       "  knn::nearest_first(keys, n, k, best, lost);\n"
+                       "  const unsigned long long walk_tests = keys.tests;\n")
+    counted = WV._edit(counted, "    od[j] = sqrtf(d2);\n    oi[j] = p < 0 ? "
+                       "-1 : __ldg(perm + p);\n  });\n",
+                       "    od[j] = sqrtf(d2);\n    oi[j] = p < 0 ? -1 : "
+                       "__ldg(perm + p);\n  });\n"
+                       "  atomicAdd(g_knn_counts, walk_tests);\n"
+                       "  atomicAdd(g_knn_counts + 1, keys.tests > walk_tests "
+                       "? 1ull : 0ull);\n"
+                       "  atomicAdd(g_knn_counts + 2, keys.tests - walk_tests);"
                        "\n")
     return {"rope_walk": src + ROPE_WALK, "counted": counted + _COUNTERS_ENTRY}
 

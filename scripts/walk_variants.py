@@ -391,7 +391,7 @@ def callback_phase(card, libs, main_cb):
                 out.copy_(s0)
                 err = fn(*(a.data_ptr() for a in tree),
                          None if records is None else records.data_ptr(),
-                         None if order is None else order.data_ptr(),
+                         None, None if order is None else order.data_ptr(),
                          centres.data_ptr(), None, radii.data_ptr(),
                          coords.data_ptr(), None, None, None, mp.data_ptr(),
                          n, q, 3, 2, 0, epilogue, param, 0, out.data_ptr(),

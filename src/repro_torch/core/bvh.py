@@ -8,9 +8,15 @@ traversal kernels or the general walk, plus the N < 2 linear-scan paths.
 On the loop route, count and fill run the ``counting`` and
 ``collect_hits`` callbacks, which the callback kernel serves where it
 can (Spheres values, and every ray predicate, for two). ``RayNearest``
-takes the general k-nearest walk.
+takes the ray kNN kernel where the engine routes it there (Points,
+Boxes, Spheres or 3-D Triangles values, k <= ``KNN_MAX_K``), else the
+general k-nearest walk; both give the same (t, idx) bit for bit. The
+3-D ray walks on the card read the leaves' value records, made at first
+use and kept with the index (:attr:`BVH.value_records`).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -72,6 +78,17 @@ class BVH(Index):
             from .brute_force import BruteForce
             self._bf = BruteForce(self.values, self._getter, policy=self.policy)
         return self._bf
+
+    @functools.cached_property
+    def value_records(self):
+        """The 16-byte value records of Spheres or Triangles values in the
+        tree's sorted-leaf order that the 3-D ray walks read
+        (``kernels.bvh_traverse.pack_values``), made at first use and kept
+        with the index; None for other values, other dims and N < 2."""
+        from ..kernels.bvh_traverse import pack_values
+        if self.tree is None:
+            return None
+        return pack_values(self.values, self.tree.leaf_perm)
 
     # --- container interface -----------------------------------------------
     def size(self) -> int:
@@ -141,7 +158,6 @@ class BVH(Index):
             return self._brute()._knn_impl(predicates, pol)
         if route == E.ROUTE_KERNEL:
             return engine.kernel_knn(self, predicates)
-        # RayNearest always walks here, as in the reference
         return T.traverse_knn(self.tree, self.values, predicates,
                               predicates.k)
 

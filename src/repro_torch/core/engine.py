@@ -6,7 +6,9 @@ bruteforce, pallas and loop.
     and the cheaper route while N * Q is small. It never runs callbacks.
   * ``kernel``: the hand-written traversal kernels
     (``kernels.bvh_traverse``, ``kernels.bvh_callback``; their plain
-    twins on the CPU). This is the reference's ``pallas`` route.
+    twins on the CPU). This is the reference's ``pallas`` route, and for
+    ``RayNearest`` the ray kNN kernel, the counterpart of the compiled
+    walk the reference runs there.
   * ``loop``: the batched walks of ``core.traversal`` for what the
     kernels cannot express: callbacks that are not epilogues (any Python
     callable), other value geometries, custom indexable getters, more
@@ -26,7 +28,8 @@ import dataclasses
 import torch
 
 from ..kernels.bvh_callback import bvh_traverse_callback, expressible
-from ..kernels.bvh_traverse import (KNN_MAX_K, MAX_DIM, bvh_traverse_knn,
+from ..kernels.bvh_traverse import (KNN_MAX_K, MAX_DIM, RAY_TARGETS,
+                                    bvh_traverse_knn, bvh_traverse_ray_knn,
                                     bvh_traverse_spatial, knn_order)
 from . import geometry as G
 from . import predicates as P
@@ -113,14 +116,23 @@ class QueryEngine:
         return self._pick(bvh.size(), q, bf_ok, k_ok, rule)
 
     def route_knn(self, bvh, predicates, *, policy=None) -> str:
-        """Route a Nearest batch; RayNearest always takes the loop walk
-        (the kNN kernel ranks by point distance), as in the reference."""
+        """Route a Nearest or RayNearest batch. A RayNearest batch takes
+        the ray kNN kernel when the tree exists, Q > 0, k <= KNN_MAX_K,
+        dim <= MAX_DIM and the values are Points, Boxes, Spheres or 3-D
+        Triangles under the default getter, else the loop walk; never
+        brute force."""
         rule = self._rule("knn", bvh, policy)
         q = len(predicates)
         bf_ok = isinstance(predicates, P.Nearest)
-        k_ok = (bvh.tree is not None and bf_ok and q > 0
-                and bvh.kernel_values_ok and bvh.tree.dim <= MAX_DIM
-                and predicates.k <= KNN_MAX_K)
+        if bf_ok:
+            values_ok = bvh.kernel_values_ok
+        else:
+            values_ok = (bvh.kernel_callback_ok
+                         and type(bvh.values) in RAY_TARGETS
+                         and (type(bvh.values) is not G.Triangles
+                              or bvh.values.dim == 3))
+        k_ok = (bvh.tree is not None and q > 0 and values_ok
+                and bvh.tree.dim <= MAX_DIM and predicates.k <= KNN_MAX_K)
         return self._pick(bvh.size(), q, bf_ok, k_ok, rule)
 
     def route_callback(self, bvh, predicates, callback) -> str:
@@ -182,22 +194,35 @@ class QueryEngine:
         return T.traverse(bvh.tree, bvh.values, predicates, callback, state0)
 
     def kernel_callback(self, bvh, predicates, callback, state0):
-        """Per-query final states through the fused callback kernel; a
-        spatial batch on the card reads the tree's kept node records."""
+        """Per-query final states through the fused callback kernel; on
+        the card a 3-D tree's kept node records and, for ray batches, the
+        index's kept value records."""
         t = bvh.tree
-        records = (t.records if t.node_lo.is_cuda
-                   and isinstance(predicates, P.Intersects) else None)
+        records = value_records = None
+        if t.node_lo.is_cuda:
+            records = t.records
+            if not isinstance(predicates, P.Intersects):
+                value_records = bvh.value_records
         return bvh_traverse_callback(
             t.node_lo, t.node_hi, t.rope, t.left_child, t.range_last,
             t.leaf_perm, bvh.values, predicates, callback, state0,
-            records=records)
+            records=records, value_records=value_records)
 
     def kernel_knn(self, bvh, predicates):
         """(dists, idxs) (Q, k) through the kNN kernel, from the query
         centroids (what ``predicates.leaf_distance`` measures from); on
         the card a 3-D tree's kept node records, and the leaf order when
-        the queries are the indexed points."""
+        the queries are the indexed points. A RayNearest batch takes the
+        ray kNN kernel: (t, idxs), the first k hits."""
         t = bvh.tree
+        if isinstance(predicates, P.RayNearest):
+            records = value_records = None
+            if t.node_lo.is_cuda:
+                records, value_records = t.records, bvh.value_records
+            return bvh_traverse_ray_knn(
+                t.node_lo, t.node_hi, t.rope, t.left_child, t.leaf_perm,
+                bvh.values, predicates.rays, k=predicates.k, records=records,
+                value_records=value_records)
         queries = G.centroid(predicates.geom).to(torch.float32)
         records = order = None
         if t.node_lo.is_cuda:

@@ -10,8 +10,10 @@ tuples (``repro.core.raytracing``).
     each ray, ``query(RayOrderedIntersect(rays))``.
 
 On a BVH, ``cast_intersect`` and ``cast_ordered`` run the callback kernel
-twice (a counting pass, then a collect pass); ``cast_nearest`` takes the
-general k-nearest walk, as in the reference.
+twice (a counting pass, then a collect pass); ``cast_nearest`` runs the
+ray kNN kernel once (``kernels.bvh_traverse.bvh_traverse_ray_knn``),
+whose lists equal those of the general k-nearest walk the reference
+compiles, bit for bit.
 """
 from __future__ import annotations
 

@@ -44,7 +44,8 @@ import torch
 from . import predicates as P
 from .access import value_at
 
-__all__ = ["traverse", "traverse_knn", "tree_select", "walk", "value_at"]
+__all__ = ["traverse", "traverse_knn", "knn_walk", "tree_select", "walk",
+           "value_at"]
 
 
 def _map(fn, state):
@@ -128,39 +129,52 @@ def traverse(tree, values, predicates, callback, state0, *, min_pos=None):
 
 def traverse_knn(tree, values, predicates, k: int, *, exclude_labels=None,
                  leaf_labels=None):
-    """Batched k-nearest walk: (dists, idxs) (Q, k), ascending FINE
-    distances to the stored values (for ``RayNearest`` the hit parameter
-    t: the first k hits), (inf, -1) padded. A subtree is
+    """Batched k-nearest walk over `tree` (:func:`knn_walk` on its
+    arrays): (dists, idxs) (Q, k)."""
+    return knn_walk(tree.node_lo, tree.node_hi, tree.rope, tree.left_child,
+                    tree.leaf_perm, values, predicates, k,
+                    exclude_labels=exclude_labels, leaf_labels=leaf_labels)
+
+
+def knn_walk(node_lo, node_hi, rope, left_child, leaf_perm, values,
+             predicates, k: int, *, exclude_labels=None, leaf_labels=None,
+             stats: dict | None = None):
+    """Batched k-nearest walk over an LBVH's arrays: (dists, idxs) (Q, k),
+    ascending FINE distances to the stored values (for ``RayNearest`` the
+    hit parameter t: the first k hits), (inf, -1) padded. A subtree is
     entered while its box distance is strictly below the running k-th
-    best; a leaf joins the list when its fine distance is too.
+    best; a leaf joins the list when its fine distance is too, before the
+    equal entries. `stats`, when given, receives ``visits``: the node
+    visits of all queries together.
 
     exclude_labels (Q,) / leaf_labels (N,): a value is a candidate for
     query q only when ``leaf_labels[index] != exclude_labels[q]``
     (Borůvka's "nearest outside my component").
     """
     q = len(predicates)
-    n = tree.num_leaves
-    dev = tree.node_lo.device
+    n = leaf_perm.shape[0]
+    dev = node_lo.device
     dists = torch.full((q, k), float("inf"), dtype=torch.float32, device=dev)
     idxs = torch.full((q, k), -1, dtype=torch.int32, device=dev)
     ex = (torch.full((q,), -2, dtype=torch.int32, device=dev)
           if exclude_labels is None else exclude_labels)
-    rope = tree.rope.to(torch.int64)
-    left = tree.left_child.to(torch.int64)
-    perm = tree.leaf_perm.to(torch.int64)
+    rope = rope.to(torch.int64)
+    left = left_child.to(torch.int64)
+    perm = leaf_perm.to(torch.int64)
     node = torch.zeros((q,), dtype=torch.int64, device=dev)
     ar = torch.arange(k, device=dev)
+    visits = 0
     while q:
         act = torch.nonzero(node != -1).squeeze(1)
         if act.numel() == 0:
             break
+        visits += act.numel()
         nd = node[act]
         pred = P.take(predicates, act)
         tau = dists[act, k - 1]
         is_leaf = nd >= n - 1
         orig = perm[torch.clamp(nd - (n - 1), 0, n - 1)]
-        promising = P.node_min_distance(pred, tree.node_lo[nd],
-                                        tree.node_hi[nd]) < tau
+        promising = P.node_min_distance(pred, node_lo[nd], node_hi[nd]) < tau
         d = P.leaf_distance(pred, value_at(values, orig), fused=True)
         ok = is_leaf & promising & (d < tau)
         if leaf_labels is not None:
@@ -180,4 +194,6 @@ def traverse_knn(tree, values, predicates, k: int, *, exclude_labels=None,
         descend = promising & ~is_leaf
         node[act] = torch.where(descend, left[torch.clamp_max(nd, n - 2)],
                                 rope[nd])
+    if stats is not None:
+        stats["visits"] = visits
     return dists, idxs

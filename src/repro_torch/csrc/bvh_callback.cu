@@ -38,17 +38,26 @@
 //   the value's own box, so the node test already computed the leaf test
 //   (a point over a point: p <= q <= p is p == q; a sphere over a point:
 //   max(max(p - q, q - p), 0)^2 is (q - p)^2 bit for bit, so sqrt(d2) <= r
-//   needs no gather). Ray walk (ray_kernel, its own instances, so the
-//   spatial ones keep their registers): the origin and 1/d sit in
-//   registers with a bit per zero direction component; node test the slab
-//   test of geometry.ray_box, leaf test predicates.leaf_ray_hit in the
-//   "walk" order (sphere: d.d and (o-c).d fused, |o-c|^2 unfused, c =
-//   fma(-r, r, |o-c|^2), disc = fma(b, b, -(d.d c)); triangle: jnp.cross's
-//   fma(x_i, y_j, -(x_j y_i)) and fused dots), IEEE division and sqrtf;
-//   the hit's t goes to the epilogue. States equal the twin's bit for bit.
+//   needs no gather). Ray walks (ray_kernel3 in 3-D, ray_kernel in the
+//   other dims, where there are no triangles; their own instances, so the
+//   spatial ones keep their registers): thread i walks ray i; the origin
+//   and 1/d sit in registers with a bit per zero direction component (the
+//   3-D instance keeps the direction there too; the other reads it at a
+//   sphere leaf); node test the slab test of geometry.ray_box, leaf test
+//   predicates.leaf_ray_hit in the "walk" order (ray_tests.cuh, shared
+//   with the ray kNN walk of ray_knn.cu); the hit's t goes to the
+//   epilogue. The walk stays the rope walk: collect_* fill their slots in
+//   walk order, which the twin and cast_intersect's CSR order fix. The
+//   3-D instance reads the node records as callback_kernel3 does and, for
+//   Spheres and Triangles, the leaf's value records in sorted-leaf order
+//   (one or three 16-byte loads, no leaf_perm gather); a Points or Boxes
+//   leaf takes its hit and t from the node test at the leaf (the same
+//   slab over the same box); range_last only where a min_pos filter is
+//   set, which no ray call does. States equal the twin's bit for bit.
 #include <cmath>
 
 #include "common.cuh"
+#include "ray_tests.cuh"
 
 namespace {
 
@@ -388,68 +397,7 @@ __global__ void __launch_bounds__(kThreads)
 // the ray walk
 // ---------------------------------------------------------------------------
 
-// geometry.ray_sphere, "walk" order
-__device__ __forceinline__ bool ray_sphere(const float (&o)[kMaxDim],
-                                           const float* dir, const float* cen,
-                                           float r, int dim, float& t) {
-  float d2 = 0.0f, b = 0.0f, s = 0.0f;
-#pragma unroll
-  for (int c = 0; c < kMaxDim; ++c) {
-    if (c < dim) {
-      const float dc = __ldg(dir + c);
-      const float oc = o[c] - __ldg(cen + c);
-      d2 = __fmaf_rn(dc, dc, d2);
-      b = __fmaf_rn(oc, dc, b);
-      s = s + oc * oc;
-    }
-  }
-  const float cc = __fmaf_rn(-r, r, s);
-  const float disc = __fmaf_rn(b, b, -(d2 * cc));
-  const float sq = sqrtf(max_nan(disc, 0.0f));
-  const float den = max_nan(d2, 1e-30f);
-  const float t0 = (-b - sq) / den;
-  const float t1 = (-b + sq) / den;
-  t = t0 >= 0.0f ? t0 : t1;
-  return disc >= 0.0f && t >= 0.0f;
-}
-
-// geometry.ray_triangle (Moller-Trumbore, 3-D), fused order
-__device__ __forceinline__ bool ray_triangle(const float (&o)[kMaxDim],
-                                             const float* dir, const float* pa,
-                                             const float* pb, const float* pc,
-                                             float& t) {
-  float d[3], a[3], e1[3], e2[3], tv[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    d[c] = __ldg(dir + c);
-    a[c] = __ldg(pa + c);
-    e1[c] = __ldg(pb + c) - a[c];
-    e2[c] = __ldg(pc + c) - a[c];
-    tv[c] = o[c] - a[c];
-  }
-  // jnp.cross: component i = fma(x_j, y_k, -(x_k * y_j))
-  const float p[3] = {__fmaf_rn(d[1], e2[2], -(d[2] * e2[1])),
-                      __fmaf_rn(d[2], e2[0], -(d[0] * e2[2])),
-                      __fmaf_rn(d[0], e2[1], -(d[1] * e2[0]))};
-  const float qv[3] = {__fmaf_rn(tv[1], e1[2], -(tv[2] * e1[1])),
-                       __fmaf_rn(tv[2], e1[0], -(tv[0] * e1[2])),
-                       __fmaf_rn(tv[0], e1[1], -(tv[1] * e1[0]))};
-  // fused dots, the first product added to +0
-  const float det = __fmaf_rn(e1[2], p[2],
-                              __fmaf_rn(e1[1], p[1], __fmaf_rn(e1[0], p[0], 0.0f)));
-  const float tiny = det >= 0.0f ? 1e-12f : -1e-12f;
-  const float inv_det = 1.0f / (fabsf(det) < 1e-12f ? tiny : det);
-  const float u = __fmaf_rn(tv[2], p[2], __fmaf_rn(tv[1], p[1],
-                  __fmaf_rn(tv[0], p[0], 0.0f))) * inv_det;
-  const float v = __fmaf_rn(d[2], qv[2], __fmaf_rn(d[1], qv[1],
-                  __fmaf_rn(d[0], qv[0], 0.0f))) * inv_det;
-  t = __fmaf_rn(e2[2], qv[2], __fmaf_rn(e2[1], qv[1],
-      __fmaf_rn(e2[0], qv[0], 0.0f))) * inv_det;
-  constexpr float kOne = static_cast<float>(1.0 + 1e-7);
-  return fabsf(det) > 1e-12f && u >= -1e-7f && v >= -1e-7f && u + v <= kOne &&
-         t >= 0.0f;
-}
-
+// dims other than 3: Points, Boxes and Spheres values
 template <class Ep>
 __global__ void ray_kernel(Tree t, Geom pg, Geom vg,
                            const int* __restrict__ min_pos, int q,
@@ -458,9 +406,8 @@ __global__ void ray_kernel(Tree t, Geom pg, Geom vg,
   if (qi >= q) return;
   const int dim = t.dim;
   const long long qo = static_cast<long long>(qi) * dim;
-  float o[kMaxDim], inv[kMaxDim];
-  const unsigned zero = load_ray(pg.a + qo, pg.b + qo, dim, o, inv);
-  const float* dir = pg.b + qo;
+  RayReg<kMaxDim> ray;
+  ray.load(pg.a + qo, pg.b + qo, dim);
   const int mp = min_pos[qi];
   Ep ep = ep0;
   ep.load(qi);
@@ -469,9 +416,9 @@ __global__ void ray_kernel(Tree t, Geom pg, Geom vg,
   bool done = false;
   while (node != -1 && !done) {
     float tn;
-    const bool overlap =
-        ray_slab(o, inv, zero, t.lo + static_cast<long long>(node) * dim,
-                 t.hi + static_cast<long long>(node) * dim, dim, LoadLdg(), tn);
+    const bool overlap = ray_slab(
+        ray.o, ray.inv, ray.zero, t.lo + static_cast<long long>(node) * dim,
+        t.hi + static_cast<long long>(node) * dim, dim, LoadLdg(), tn);
     if (node < t.n - 1) {
       node = overlap && __ldg(t.range_last + node) > mp ? __ldg(t.left + node)
                                                         : __ldg(t.rope + node);
@@ -484,17 +431,77 @@ __global__ void ray_kernel(Tree t, Geom pg, Geom vg,
       float th;
       bool hit;
       if (vg.kind == kPoints) {
-        hit = ray_slab(o, inv, zero, vg.a + vo, vg.a + vo, dim, LoadLdg(), th);
+        hit = ray_slab(ray.o, ray.inv, ray.zero, vg.a + vo, vg.a + vo, dim,
+                       LoadLdg(), th);
       } else if (vg.kind == kBoxes) {
-        hit = ray_slab(o, inv, zero, vg.a + vo, vg.b + vo, dim, LoadLdg(), th);
-      } else if (vg.kind == kSpheres) {
-        hit = ray_sphere(o, dir, vg.a + vo, __ldg(vg.r + orig), dim, th);
+        hit = ray_slab(ray.o, ray.inv, ray.zero, vg.a + vo, vg.b + vo, dim,
+                       LoadLdg(), th);
       } else {
-        hit = ray_triangle(o, dir, vg.a + vo, vg.b + vo, vg.c + vo, th);
+        const float* cen = vg.a + vo;
+        hit = ray_sphere(
+            ray.o, [&](int c) { return __ldg(ray.dir + c); },
+            [&](int c) { return __ldg(cen + c); }, __ldg(vg.r + orig), dim,
+            th);
       }
       if (hit) done = ep.hit(qi, orig, th);
     }
     node = __ldg(t.rope + node);
+  }
+  ep.store(qi);
+}
+
+// ---------------------------------------------------------------------------
+// the ray walk in 3-D over packed node and value records
+// ---------------------------------------------------------------------------
+
+// records as callback_kernel3's; vrec the value records of Spheres or
+// Triangles values in sorted-leaf order (ray_tests.cuh), null for Points
+// and Boxes, whose leaf test is the node test at the leaf (the slab over
+// the same box gives the same t bit for bit). range_last is read only
+// where a min_pos filter is set (no ray call sets one).
+template <class Ep>
+__global__ void __launch_bounds__(kThreads)
+    ray_kernel3(const int4* __restrict__ records,
+                const int4* __restrict__ vrec,
+                const int* __restrict__ range_last, int n, Geom pg, Geom vg,
+                const int* __restrict__ min_pos, int q, const Ep ep0) {
+  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
+  if (qi >= q) return;
+  const long long qo = static_cast<long long>(qi) * 3;
+  Ray3 ray;
+  ray.load(pg.a + qo, pg.b + qo, 3);
+  const int mp = __ldg(min_pos + qi);
+  Ep ep = ep0;
+  ep.load(qi);
+
+  int node = 0;
+  bool done = false;
+  while (node != -1 && !done) {
+    const int4 ra = __ldg(records + 2 * static_cast<long long>(node));
+    const int4 rb = __ldg(records + 2 * static_cast<long long>(node) + 1);
+    float lo[3], hi[3];
+    xyz_of(ra, lo);
+    xyz_of(rb, hi);
+    float tn;
+    const bool overlap =
+        ray_slab(ray.o, ray.inv, ray.zero, lo, hi, 3, LoadPlain(), tn);
+    if (node < n - 1) {
+      node = overlap && (mp < 0 || __ldg(range_last + node) > mp) ? rb.w
+                                                                  : ra.w;
+      continue;
+    }
+    const int pos = node - (n - 1);
+    if (overlap && pos > mp) {
+      float th = tn;
+      bool hit = true;
+      if (vg.kind == kSpheres) {
+        hit = sphere_record_hit(ray, vrec, pos, th);
+      } else if (vg.kind == kTriangles) {
+        hit = triangle_record_hit(ray, vrec, pos, th);
+      }
+      if (hit) done = ep.hit(qi, rb.w, th);
+    }
+    node = ra.w;
   }
   ep.store(qi);
 }
@@ -504,7 +511,8 @@ struct Call {
   Tree t;
   Geom pg, vg;
   const int4* records;   // packed 3-D node records, or nullptr
-  const int* order;      // walk order of the queries, or nullptr
+  const int4* vrec;      // packed 3-D value records (rays), or nullptr
+  const int* order;      // walk order of the Intersects queries, or nullptr
   const int* mp;
   int q;
   cudaStream_t stream;
@@ -512,7 +520,11 @@ struct Call {
 
 template <class Ep>
 void launch(const Call& c, const Ep& ep) {
-  if (c.pg.kind == kRays) {
+  if (c.pg.kind == kRays && c.records != nullptr) {
+    const int blocks = (c.q + kThreads - 1) / kThreads;
+    ray_kernel3<Ep><<<blocks, kThreads, 0, c.stream>>>(
+        c.records, c.vrec, c.t.range_last, c.t.n, c.pg, c.vg, c.mp, c.q, ep);
+  } else if (c.pg.kind == kRays) {
     const int blocks = (c.q + kThreads - 1) / kThreads;
     ray_kernel<Ep><<<blocks, kThreads, 0, c.stream>>>(c.t, c.pg, c.vg, c.mp,
                                                       c.q, ep);
@@ -543,14 +555,17 @@ enum Epilogue {
 // int32 indices and float32 t (Q, param). param: the limit, k or capacity.
 // pred_kind: Points, Boxes or Spheres (Intersects) or Rays; val_kind:
 // Points, Boxes or Spheres, or Triangles (3-D) under Rays. records: the
-// (2n-1, 8) int32 node records of a 3-D tree for the spatial walk (the
-// dim = 3 instance), or null (the generic one, from node_lo ... perm).
-// order: (q,) int32, the query each thread walks, or null. weights:
+// (2n-1, 8) int32 node records of a 3-D tree (the dim = 3 instances; every
+// 3-D ray call gives them), or null (the generic ones, from node_lo ...
+// perm). vrec: with records under Rays, the value records of Spheres or
+// Triangles values (ray_tests.cuh), else null. order: (q,) int32, the
+// Intersects query each thread walks, or null (rays: null). weights:
 // min_where's (n,) int32 where(flags, weights, big).
 REPRO_EXPORT int bvh_callback_launch(
     const void* node_lo, const void* node_hi, const void* rope,
     const void* left, const void* range_last, const void* perm,
-    const void* records, const void* order, const void* pred_a,
+    const void* records, const void* vrec, const void* order,
+    const void* pred_a,
     const void* pred_b, const void* pred_r, const void* val_a,
     const void* val_b, const void* val_c, const void* val_r,
     const void* min_pos, int n, int q, int dim, int pred_kind, int val_kind,
@@ -561,7 +576,9 @@ REPRO_EXPORT int bvh_callback_launch(
       (pred_kind > kSpheres && !ray) || val_kind < 0 ||
       val_kind > (ray ? kTriangles : kSpheres) ||
       (val_kind == kTriangles && dim != 3) ||
-      (records != nullptr && (dim != 3 || ray)) || (order != nullptr && ray)) {
+      (records != nullptr && dim != 3) ||
+      (ray && ((dim == 3) != (records != nullptr) || order != nullptr)) ||
+      (ray && records != nullptr && val_kind >= kSpheres && vrec == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Call c{Tree{static_cast<const float*>(node_lo),
@@ -575,7 +592,8 @@ REPRO_EXPORT int bvh_callback_launch(
          Geom{static_cast<const float*>(val_a), static_cast<const float*>(val_b),
               static_cast<const float*>(val_c), static_cast<const float*>(val_r),
               val_kind},
-         static_cast<const int4*>(records), static_cast<const int*>(order),
+         static_cast<const int4*>(records), static_cast<const int4*>(vrec),
+         static_cast<const int*>(order),
          static_cast<const int*>(min_pos), q, static_cast<cudaStream_t>(stream)};
   auto s0 = static_cast<int*>(state0);
   switch (epilogue) {

@@ -56,7 +56,9 @@
 //     nodes lie at depths 0..95. The stack holds internal nodes only, at
 //     strictly increasing depths 1..95 from bottom to top (a push is one
 //     level below the current node; a pop returns to that level), so 95
-//     entries; kStack = 96.
+//     entries; kStack = 96 in knn_walk.cuh, which holds the walk and
+//     its tie pass for this kernel and for ray_knn.cu's walk over Points
+//     and Boxes.
 //   * in 3-D (knn_kernel<Records3, ...>) each node is two 16-byte records
 //     of LBVH.records, (lo.xyz, rope) and (hi.xyz, left child | leaf_perm),
 //     one vector load each; a node's right child is its left child's rope
@@ -76,6 +78,7 @@
 //   the twins' bit for bit.
 #include "common.cuh"
 #include "knn_list.cuh"
+#include "knn_walk.cuh"
 
 namespace {
 
@@ -154,10 +157,6 @@ __global__ void spatial_kernel(Tree t, const int* __restrict__ range_last,
 // k-nearest: nearest first, a stack, the list ordered by (d2, position)
 // ---------------------------------------------------------------------------
 
-// internal nodes lie at depths 0..95 and the stack holds at most one per
-// depth 1..95 (the note at the top)
-constexpr int kStack = 96;
-
 // 3-D node records: node m is rec[2m] = (lo.xyz, rope) and rec[2m + 1] =
 // (hi.xyz, left child of an internal node | leaf_perm of a leaf)
 struct Records3 {
@@ -210,39 +209,16 @@ struct Flat {
   }
 };
 
-// a leaf at sorted position `pos`: into the list when d2 < tau, else its
-// d2 into `lost`; an insert into a full list evicts the k-th entry,
-// whose d2 goes to `lost` (fminf drops inf and NaN)
-template <class List>
-__device__ __forceinline__ void offer(List& best, float d2, int pos, int k,
-                                      float& lost) {
-  if (best.admits_strict(d2)) {
-    lost = fminf(lost, best.bound());
-    best.insert(d2, pos, k);
-  } else {
-    lost = fminf(lost, d2);
+// the query's keys for the walk of knn_walk.cuh
+template <class Nodes>
+struct PointKeys {
+  const Nodes& nodes;
+  const float (&qc)[Nodes::kDims];
+  int dim;
+  __device__ __forceinline__ float key(int m, int& link, int& rope) const {
+    return nodes.test(qc, m, dim, link, rope);
   }
-}
-
-// output slot j: the list's entry below `below`, else the kept leaves at
-// dk, highest position first (the last of the ring first)
-template <class List, int R>
-__device__ __forceinline__ void put(const List& best, int j, int below,
-                                    float dk, const int (&ring)[R], int ties,
-                                    int k, const int* __restrict__ perm,
-                                    float* od, int* oi) {
-  int p;
-  float d2;
-  if (j < below) {
-    p = best.pos(j);
-    d2 = best.dist(j);
-  } else {
-    p = ring[(ties - 1 - (j - below)) % (k - below)];
-    d2 = dk;
-  }
-  od[j] = sqrtf(d2);
-  oi[j] = p < 0 ? -1 : __ldg(perm + p);
-}
+};
 
 template <class Nodes, class List>
 __global__ void __launch_bounds__(kThreads)
@@ -258,107 +234,16 @@ __global__ void __launch_bounds__(kThreads)
   for (int c = 0; c < Nodes::kDims; ++c) {
     if (c < dim) qc[c] = __ldg(queries + static_cast<long long>(qi) * dim + c);
   }
+  const PointKeys<Nodes> keys{nodes, qc, dim};
   List best;
-  best.init(k);
-  float lost = INFINITY;   // the smallest d2 left out (leaf or node)
-  float st_d[kStack];      // pending internal nodes: their d2, left child
-  int st_link[kStack];
-  int top = 0;
-  const int leaf0 = n - 1;   // node id of sorted-leaf position 0
-
-  int link, rope;
-  const float d_root = nodes.test(qc, 0, dim, link, rope);
-  bool go = best.admits_strict(d_root);
-  while (go) {
-    // `link` is the left child of an internal node the walk enters
-    int link_l, link_r, rope_r;
-    const int l = link;
-    const float dl = nodes.test(qc, l, dim, link_l, rope);
-    const int r = rope;   // a left child's rope: its right sibling
-    const float dr = nodes.test(qc, r, dim, link_r, rope_r);
-    // leaf children into the list (one rolled copy of the insert)
-#pragma unroll 1
-    for (int side = 0; side < 2; ++side) {
-      const int c = side == 0 ? l : r;
-      if (c >= leaf0) offer(best, side == 0 ? dl : dr, c - leaf0, k, lost);
-    }
-    bool go_l = false, go_r = false;
-    if (l < leaf0) {
-      go_l = best.admits_strict(dl);
-      if (!go_l) lost = fminf(lost, dl);
-    }
-    if (r < leaf0) {
-      go_r = best.admits_strict(dr);
-      if (!go_r) lost = fminf(lost, dr);
-    }
-    if (go_l && go_r) {
-      const bool left_nearer = dl <= dr;
-      st_d[top] = left_nearer ? dr : dl;
-      st_link[top] = left_nearer ? link_r : link_l;
-      ++top;
-      link = left_nearer ? link_l : link_r;
-    } else if (go_l || go_r) {
-      link = go_l ? link_l : link_r;
-    } else {
-      go = false;
-      while (top > 0) {
-        --top;
-        // tau has tightened since the push
-        if (best.admits_strict(st_d[top])) {
-          link = st_link[top];
-          go = true;
-          break;
-        }
-        lost = fminf(lost, st_d[top]);
-      }
-    }
-  }
-  best.finish(k);
-
-  // the tie pass: a leaf at the k-th distance was left out
-  const float dk = best.bound();
-  int below = k;      // entries with d2 < dk: the twin keeps them all
-  int ties = 0;       // leaves at dk among the first k with d2 <= dk
-  int ring[List::kSlots];   // the last k - below of them, in a ring
-  if (lost == dk && dk != INFINITY) {
-    below = 0;
-    if constexpr (List::kInRegisters) {
-#pragma unroll
-      for (int j = 0; j < List::kSlots; ++j) {
-        below += j < k && best.dist(j) < dk ? 1 : 0;
-      }
-    } else {
-      for (int j = 0; j < k; ++j) below += best.dist(j) < dk ? 1 : 0;
-    }
-    const int m = k - below;   // >= 1: the k-th entry is at dk
-    int seen = 0;
-    int node = 0;
-    while (node != -1 && seen < k) {
-      int lk, rp;
-      const float d2 = nodes.test(qc, node, dim, lk, rp);
-      if (!(d2 <= dk)) {
-        node = rp;
-      } else if (node < leaf0) {
-        node = lk;
-      } else {
-        ++seen;
-        if (d2 == dk) ring[ties++ % m] = node - leaf0;
-        node = rp;
-      }
-    }
-  }
+  float lost;   // the smallest d2 left out (leaf or node)
+  knn::nearest_first(keys, n, k, best, lost);
   float* od = dists + static_cast<long long>(qi) * k;
   int* oi = idxs + static_cast<long long>(qi) * k;
-  if constexpr (List::kInRegisters) {
-#pragma unroll
-    for (int j = 0; j < List::kSlots; ++j) {
-      if (j < k) put(best, j, below, dk, ring, ties, k, perm, od, oi);
-    }
-  } else {
-    for (int j = 0; j < k; ++j) {
-      put(best, j, below, dk, ring, ties, k, perm, od, oi);
-    }
-  }
+  knn::tie_pass_and_put(keys, n, k, best, lost, [&](int j, float d2, int p) {
+    od[j] = sqrtf(d2);
+    oi[j] = p < 0 ? -1 : __ldg(perm + p);
+  });
 }
 
 template <class Nodes, class List>

@@ -27,9 +27,12 @@ for Intersects queries centred on the indexed points (DBSCAN's), the
 tree's leaf order, which is their Morton order (:func:`query_order`), so
 a warp walks 32 neighbouring queries through the same nodes; the packed
 node records of a 3-D tree (:func:`pack_nodes`, read by the ``dim = 3``
-instance; ``LBVH.records`` keeps them with the tree); and min_where's
-one weight per value (:func:`min_where_weights`). None of them changes
-a state: each query's node sequence and arithmetic stay the twin's.
+instances, spatial and ray; ``LBVH.records`` keeps them with the tree);
+for a 3-D ray call over Spheres or Triangles, the leaves' value records
+in sorted-leaf order (``bvh_traverse.pack_values``; ``BVH.value_records``
+keeps them with the index); and min_where's one weight per value
+(:func:`min_where_weights`). None of them changes a state: each query's
+node sequence and arithmetic stay the twin's.
 """
 from __future__ import annotations
 
@@ -42,15 +45,14 @@ from ..core import geometry as G
 from ..core import predicates as P
 from ..core import traversal
 from . import _build, sanitize
-from .bvh_traverse import (MAX_DIM, _check_tree, _device_of, _stream,
-                           pack_nodes)
+from .bvh_traverse import (MAX_DIM, RAY_TARGETS, _check_tree, _device_of,
+                           _kept_records, _ptr, _stream, pack_nodes)
 
 __all__ = ["bvh_traverse_callback", "bvh_traverse_callback_ref",
            "expressible", "query_order", "pack_nodes", "min_where_weights"]
 
 _KIND = {G.Points: 0, G.Boxes: 1, G.Spheres: 2, G.Triangles: 3, G.Rays: 4}
 _SPATIAL = (G.Points, G.Boxes, G.Spheres)
-_RAY_TARGETS = (G.Points, G.Boxes, G.Spheres, G.Triangles)
 _EPILOGUE = {"counting": 0, "count_with_limit": 1, "min_distance": 2,
              "collect_first_k": 3, "collect_hits": 4, "min_where": 5}
 
@@ -72,7 +74,7 @@ def expressible(values, predicates, callback) -> bool:
                     and type(values) in _SPATIAL)
     elif isinstance(predicates, P.RAY_KINDS):
         kinds_ok = (type(predicates.rays) is G.Rays
-                    and type(values) in _RAY_TARGETS
+                    and type(values) in RAY_TARGETS
                     and (type(values) is not G.Triangles or values.dim == 3))
     else:
         return False
@@ -168,24 +170,22 @@ def _geom_ptrs(g, dev, what):
     return out
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-_ARGS = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 8
+_ARGS = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 8
          + [ctypes.c_void_p] * 5)
 
 
 def bvh_traverse_callback(node_lo, node_hi, rope, left_child, range_last,
                           leaf_perm, values, predicates, callback, state0, *,
-                          min_pos=None, records=None):
+                          min_pos=None, records=None, value_records=None):
     """Per-query final states (the structure of `state0`, batched (Q, ...))
     of an epilogue callback over the matches of `predicates` in the tree.
     `records`: the tree's :func:`pack_nodes` records where the caller
-    keeps them (``LBVH.records``); a 3-D spatial call on the card makes
-    them otherwise. Raises when :func:`expressible` does not hold, on a
-    geometry that is not float32, or on a state that is not the
-    epilogue's layout."""
+    keeps them (``LBVH.records``); `value_records`: a ray call's
+    :func:`~.bvh_traverse.pack_values` records of Spheres or Triangles
+    values (``BVH.value_records``); a 3-D call on the card makes them
+    otherwise; neither changes a state. Raises when :func:`expressible`
+    does not hold, on a geometry that is not float32, or on a state that
+    is not the epilogue's layout."""
     what = "bvh_traverse_callback"
     _check_call(what, leaf_perm.shape[0], values, predicates, callback, state0)
     if _device_of(node_lo, what) == "cpu":
@@ -195,14 +195,15 @@ def bvh_traverse_callback(node_lo, node_hi, rope, left_child, range_last,
     else:
         final = _callback_launch(what, node_lo, node_hi, rope, left_child,
                                  range_last, leaf_perm, values, predicates,
-                                 callback, state0, min_pos, records)
+                                 callback, state0, min_pos, records,
+                                 value_records)
     sanitize.check_state_tree(final, kernel=what)
     return final
 
 
 def _callback_launch(what, node_lo, node_hi, rope, left_child, range_last,
                      leaf_perm, values, predicates, callback, state0,
-                     min_pos, records):
+                     min_pos, records, value_records):
     dev = node_lo.device
     q = len(predicates)
     n = leaf_perm.shape[0]
@@ -245,20 +246,19 @@ def _callback_launch(what, node_lo, node_hi, rope, left_child, range_last,
         weights = min_where_weights(callback)
     spatial = isinstance(predicates, P.Intersects)
     order = query_order(predicates, values, tree[5]) if spatial else None
-    if not (spatial and dim == 3):
-        records = None
-    elif records is None:
-        records = pack_nodes(tree[0], tree[1], tree[2], tree[3], tree[5])
-    elif (records.shape != (2 * n - 1, 8) or records.dtype != torch.int32
-          or records.device != dev or not records.is_contiguous()):
-        raise ValueError(f"{what}: records must be the tree's contiguous "
-                         f"({2 * n - 1}, 8) int32 pack_nodes records on {dev}")
+    if dim == 3:
+        records, value_records = _kept_records(
+            what, tree[:4] + tree[5:], values, records, value_records, dev,
+            not spatial)
+    else:
+        records = value_records = None
     if q:
         fn = _build.function("bvh_callback", "bvh_callback_launch", _ARGS)
         with torch.cuda.device(dev):
             err = fn(*(t.data_ptr() for t in tree), _ptr(records),
-                     _ptr(order), _ptr(pa), _ptr(pb), _ptr(pr), _ptr(va),
-                     _ptr(vb), _ptr(vc), _ptr(vr), mp.data_ptr(), n, q, dim,
+                     _ptr(value_records), _ptr(order), _ptr(pa), _ptr(pb),
+                     _ptr(pr), _ptr(va), _ptr(vb), _ptr(vc), _ptr(vr),
+                     mp.data_ptr(), n, q, dim,
                      _KIND[type(pgeom)], _KIND[type(values)], _EPILOGUE[kind],
                      param, early_exit,
                      *(_ptr(a) for a in (out + [None, None])[:3]),

@@ -15,6 +15,13 @@ Two kernels, each with its plain PyTorch twin beside it:
     Since the rope walk reaches leaves in ascending sorted-leaf position,
     its list is the k smallest leaves by the key (d2, position), padded
     with (inf, -1): that key is the contract, whatever the visit order.
+  * ``bvh_traverse_ray_knn``: the first k hits along each ray
+    (``RayNearest``): the same rope walk with the ray parameter t as the
+    key, the slab-entry t of a node box (+inf on a miss) and the hit t of
+    a leaf (``predicates.leaf_distance`` with ``fused=True``), over Points,
+    Boxes, Spheres or 3-D Triangles values. Its twin is
+    ``core.traversal.knn_walk``, the reference's ``traverse_knn``, which
+    the reference compiles for ``RayNearest`` with no kernel of its own.
 
 A CPU tensor takes the twin (``*_ref``), which walks every query's cursor
 step by step until all are -1, the node sequence of the rope walk. A CUDA
@@ -26,11 +33,18 @@ another visit order; in 3-D it reads the tree's packed node records
 (:func:`pack_nodes`, kept as ``LBVH.records``), and a caller may give the
 order in which its threads take the queries (:func:`knn_order`: the
 tree's leaf order when the queries are the indexed points); outputs stay
-in the caller's rows. The twins and the kernels sum the per-dimension
+in the caller's rows. The ray kNN kernel (``csrc/ray_knn.cu``), one thread a
+ray, walks the twin's node sequence over Spheres and Triangles (and in
+other dims), so its lists are the twin's by construction, and over
+Points and Boxes in 3-D walks nearest first with the point kNN kernel's
+stack and tie pass; in 3-D it reads the node records and, for Spheres
+and Triangles, the leaves' value records (:func:`pack_values`, kept as
+``BVH.value_records``). The twins and the kernels sum the per-dimension
 squares in the same fixed order (``geometry.sum_sq_fused``: the first
 square, then one fused multiply-add per further dimension, as XLA:CPU
 runs the reference kernels) and the kernels allow no other contraction,
-so counts, buffers and distances agree bit for bit. Under
+so counts, buffers and distances agree bit for bit; ray t too, the leaf
+tests taking the "walk" float order (``csrc/ray_tests.cuh``). Under
 ``REPRO_SANITIZE`` each wrapper checks its output contract
 (``sanitize.check_spatial`` / ``check_knn``).
 """
@@ -40,21 +54,29 @@ import ctypes
 
 import torch
 
+from ..core import geometry as G
+from ..core import predicates as P
+from ..core import traversal
 from ..core.geometry import sqrt, sum_sq_fused
 from . import _build, sanitize
 
-__all__ = ["bvh_traverse_spatial", "bvh_traverse_knn",
-           "bvh_traverse_spatial_ref", "bvh_traverse_knn_ref", "pack_nodes",
-           "knn_order", "KNN_MAX_K", "MAX_DIM", "STACK_DEPTH"]
+__all__ = ["bvh_traverse_spatial", "bvh_traverse_knn", "bvh_traverse_ray_knn",
+           "bvh_traverse_spatial_ref", "bvh_traverse_knn_ref",
+           "bvh_traverse_ray_knn_ref", "pack_nodes", "pack_values",
+           "knn_order", "RAY_TARGETS", "KNN_MAX_K", "MAX_DIM", "STACK_DEPTH"]
 
 #: largest k the kNN kernel takes (its largest template bucket)
 KNN_MAX_K = 256
 #: largest dimension the kernels take (query coordinates live in registers)
 MAX_DIM = 16
-#: entries of the kNN walk's stack (kStack of csrc/bvh_traverse.cu): the
+#: entries of the kNN walks' stack (kStack of csrc/knn_walk.cuh): the
 #: walk stacks internal nodes only, at most one per depth 1..95, and the
-#: tree's internal nodes lie at depths 0..95 (the note there)
+#: tree's internal nodes lie at depths 0..95 (csrc/bvh_traverse.cu's note)
 STACK_DEPTH = 96
+#: value geometries the ray walks take (Triangles in 3-D only)
+RAY_TARGETS = (G.Points, G.Boxes, G.Spheres, G.Triangles)
+#: the tree arrays the kNN kernels take, in their C entries' order
+_TREE = ("node_lo", "node_hi", "rope", "left_child", "leaf_perm")
 
 
 # ---------------------------------------------------------------------------
@@ -156,8 +178,19 @@ def bvh_traverse_knn_ref(node_lo, node_hi, rope, left_child, leaf_perm,
     return sqrt(d2s), idxs
 
 
+def bvh_traverse_ray_knn_ref(node_lo, node_hi, rope, left_child, leaf_perm,
+                             values, rays, *, k: int,
+                             stats: dict | None = None):
+    """The ray kNN kernel's plain twin: the batched k-nearest walk of
+    ``RayNearest(rays, k)`` (``core.traversal.knn_walk``); (t, idxs)
+    (R, k) ascending, (inf, -1) padded. `stats`, when given, receives
+    ``visits``: the node visits of all rays together."""
+    return traversal.knn_walk(node_lo, node_hi, rope, left_child, leaf_perm,
+                              values, P.RayNearest(rays, k), k, stats=stats)
+
+
 # ---------------------------------------------------------------------------
-# what the kNN kernel reads besides the tree
+# what the kNN kernels read besides the tree
 # ---------------------------------------------------------------------------
 
 def pack_nodes(node_lo, node_hi, rope, left_child, leaf_perm):
@@ -167,6 +200,28 @@ def pack_nodes(node_lo, node_hi, rope, left_child, leaf_perm):
     link = torch.cat([left_child, leaf_perm])
     return torch.cat([node_lo.view(torch.int32), rope[:, None],
                       node_hi.view(torch.int32), link[:, None]], 1)
+
+
+def pack_values(values, leaf_perm):
+    """The 16-byte value records of a 3-D tree's leaves in sorted-leaf
+    order, which the 3-D ray walks read in place of a ``leaf_perm``
+    gather, as int32 (the floats bit-cast): Spheres (N, 4), (c.xyz, r)
+    per leaf; Triangles (N, 12), (a.xyz, original index), (b.xyz, 0),
+    (c.xyz, 0) per leaf. None for Points and Boxes, whose leaf test is the
+    node test at the leaf, and in other dims. One gather of the values
+    and one concatenation: 16 (spheres) or 48 (triangles) bytes a leaf."""
+    if values.dim != 3 or not isinstance(values, (G.Spheres, G.Triangles)):
+        return None
+    perm = leaf_perm.to(torch.int64)
+    if isinstance(values, G.Spheres):
+        return torch.cat([values.center[perm].view(torch.int32),
+                          values.radius[perm].view(torch.int32)[:, None]], 1)
+    zero = torch.zeros((perm.shape[0], 1), dtype=torch.int32,
+                       device=perm.device)
+    return torch.cat([values.a[perm].view(torch.int32),
+                      leaf_perm.to(torch.int32)[:, None],
+                      values.b[perm].view(torch.int32), zero,
+                      values.c[perm].view(torch.int32), zero], 1)
 
 
 def knn_order(queries, values_coords, leaf_perm):
@@ -222,6 +277,10 @@ def _check_tree(what, n, dim, node_lo, node_hi, rope, left_child, leaf_perm):
 
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 _SPATIAL_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
@@ -316,17 +375,8 @@ def _knn_launch(what, node_lo, node_hi, rope, left_child, leaf_perm, queries,
               left_child=left_child, leaf_perm=leaf_perm, queries=queries)
     _check_tree(what, n, dim, a["node_lo"], a["node_hi"], a["rope"],
                 a["left_child"], a["leaf_perm"])
-    if dim != 3:
-        records = None
-    elif records is None:
-        records = pack_nodes(a["node_lo"], a["node_hi"], a["rope"],
-                             a["left_child"], a["leaf_perm"])
-    elif (records.shape != (2 * n - 1, 8) or records.dtype != torch.int32
-          or records.device != dev or not records.is_contiguous()
-          or records.data_ptr() % 16):
-        raise ValueError(f"{what}: records must be the tree's contiguous, "
-                         f"16-byte aligned ({2 * n - 1}, 8) int32 pack_nodes "
-                         f"records on {dev}")
+    records = None if dim != 3 else _kept_records(
+        what, [a[f] for f in _TREE], None, records, None, dev, False)[0]
     if order is not None and (order.shape != (q,) or order.dtype != torch.int32
                               or order.device != dev
                               or not order.is_contiguous()):
@@ -338,16 +388,123 @@ def _knn_launch(what, node_lo, node_hi, rope, left_child, leaf_perm, queries,
         return dists, idxs
     fn = _build.function("bvh_traverse", "bvh_knn_launch", _KNN_ARGS)
     with torch.cuda.device(dev):
-        err = fn(*(a[k_].data_ptr() for k_ in (
-                     "node_lo", "node_hi", "rope", "left_child", "leaf_perm")),
-                 None if records is None else records.data_ptr(),
-                 None if order is None else order.data_ptr(),
-                 a["queries"].data_ptr(), n, q, dim, k, dists.data_ptr(),
-                 idxs.data_ptr(), _stream(dev))
+        err = fn(*(a[f].data_ptr() for f in _TREE), _ptr(records),
+                 _ptr(order), a["queries"].data_ptr(), n, q, dim, k,
+                 dists.data_ptr(), idxs.data_ptr(), _stream(dev))
     _build.check("bvh_traverse", err, what)
     bvh_traverse_knn.launches += 1
     return dists, idxs
 
 
+_RAY_KIND = {G.Points: 0, G.Boxes: 1, G.Spheres: 2, G.Triangles: 3}
+_RAY_KNN_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+                 + [ctypes.c_void_p] * 3)
+
+
+def bvh_traverse_ray_knn(node_lo, node_hi, rope, left_child, leaf_perm,
+                         values, rays, *, k: int, records=None,
+                         value_records=None):
+    """(t, idxs) (R, k) float32/int32: the first k hits of each of the
+    rays `rays` (a ``Rays`` array) among `values` (Points, Boxes, Spheres
+    or 3-D Triangles, the tree's leaves), ascending in t, (inf, -1)
+    padded. `records` (:func:`pack_nodes`, ``LBVH.records``) and
+    `value_records` (:func:`pack_values`, ``BVH.value_records``): kept
+    by the caller, else a 3-D call on the card makes them; neither
+    changes a result."""
+    what = "bvh_traverse_ray_knn"
+    if k < 1:
+        raise ValueError(f"{what}: k must be >= 1, got {k}")
+    if (type(values) not in RAY_TARGETS or type(rays) is not G.Rays
+            or (type(values) is G.Triangles and values.dim != 3)
+            or rays.dim != values.dim):
+        raise ValueError(f"{what}: rays against Points, Boxes, Spheres or "
+                         "3-D Triangles values of the rays' dimension")
+    if _device_of(rays.origin, what) == "cpu":
+        t, idxs = bvh_traverse_ray_knn_ref(node_lo, node_hi, rope,
+                                           left_child, leaf_perm, values,
+                                           rays, k=k)
+    else:
+        t, idxs = _ray_knn_launch(what, node_lo, node_hi, rope, left_child,
+                                  leaf_perm, values, rays, k, records,
+                                  value_records)
+    sanitize.check_knn(t, idxs, n=leaf_perm.shape[0], kernel=what)
+    return t, idxs
+
+
+def _check_records(what, rec, rows, cols, dev):
+    """Raise unless `rec` are contiguous, 16-byte aligned (rows, cols)
+    int32 records on `dev` (pack_nodes', pack_values')."""
+    if (rec.shape != (rows, cols) or rec.dtype != torch.int32
+            or rec.device != dev or not rec.is_contiguous()
+            or rec.data_ptr() % 16):
+        raise ValueError(f"{what}: records must be contiguous, 16-byte "
+                         f"aligned ({rows}, {cols}) int32 on {dev}")
+
+
+def _kept_records(what, tree, values, records, value_records, dev, rays):
+    """(records, value records) a 3-D launch reads: the caller's kept
+    ones, checked, else packed here. `tree` is (node_lo, node_hi, rope,
+    left_child, leaf_perm); value records only for a ray walk (`rays`)
+    over Spheres or Triangles, else None."""
+    n = tree[4].shape[0]
+    if records is None:
+        records = pack_nodes(*tree)
+    _check_records(what, records, 2 * n - 1, 8, dev)
+    if not (rays and isinstance(values, (G.Spheres, G.Triangles))):
+        return records, None
+    if value_records is None:
+        value_records = pack_values(values, tree[4])
+    _check_records(what, value_records, n,
+                   4 if isinstance(values, G.Spheres) else 12, dev)
+    return records, value_records
+
+
+def _ray_knn_launch(what, node_lo, node_hi, rope, left_child, leaf_perm,
+                    values, rays, k, records, value_records):
+    if k > KNN_MAX_K:
+        raise ValueError(f"{what}: k={k} above the kernel's cap {KNN_MAX_K}")
+    dev = rays.origin.device
+    q, dim = rays.origin.shape
+    n = leaf_perm.shape[0]
+    a = _args(dev, what, node_lo=node_lo, node_hi=node_hi, rope=rope,
+              left_child=left_child, leaf_perm=leaf_perm)
+    _check_tree(what, n, dim, a["node_lo"], a["node_hi"], a["rope"],
+                a["left_child"], a["leaf_perm"])
+    geo = {}
+    for name, g in (("values", values), ("rays", rays)):
+        for field, t in vars(g).items():
+            if t.device != dev or t.dtype != torch.float32:
+                raise ValueError(f"{what}: {name}.{field} must be float32 "
+                                 f"on {dev}")
+            geo[f"{name}.{field}"] = t.contiguous()
+    if len(values) != n or rays.direction.shape != (q, dim):
+        raise ValueError(f"{what}: {n} values and (R, {dim}) rays expected")
+    center = radius = None
+    if dim == 3:
+        records, value_records = _kept_records(
+            what, [a[f] for f in _TREE], values, records, value_records, dev,
+            True)
+    else:
+        records = value_records = None
+        if isinstance(values, G.Spheres):
+            center, radius = geo["values.center"], geo["values.radius"]
+    t = torch.empty((q, k), dtype=torch.float32, device=dev)
+    idxs = torch.empty((q, k), dtype=torch.int32, device=dev)
+    if q == 0:
+        return t, idxs
+    fn = _build.function("ray_knn", "ray_knn_launch", _RAY_KNN_ARGS)
+    with torch.cuda.device(dev):
+        err = fn(*(a[f].data_ptr() for f in _TREE),
+                 _ptr(records), _ptr(value_records), _ptr(center),
+                 _ptr(radius), geo["rays.origin"].data_ptr(),
+                 geo["rays.direction"].data_ptr(), n, q, dim,
+                 _RAY_KIND[type(values)], k, t.data_ptr(), idxs.data_ptr(),
+                 _stream(dev))
+    _build.check("ray_knn", err, what)
+    bvh_traverse_ray_knn.launches += 1
+    return t, idxs
+
+
 bvh_traverse_spatial.launches = 0
 bvh_traverse_knn.launches = 0
+bvh_traverse_ray_knn.launches = 0

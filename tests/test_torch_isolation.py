@@ -880,3 +880,128 @@ def test_split_bruteforce_matches_twin_on_the_card(cuda_device, q, n, dim, k,
     assert TB.bruteforce_knn.launches == before + 1
     want = TB.bruteforce_knn_ref(qs, p, k, bn=bn)
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+# ---------------------------------------------------------------------------
+# the ray kNN kernel and the callback kernel's 3-D ray walk
+# ---------------------------------------------------------------------------
+
+def test_ray_knn_wrapper_refuses_other_devices_and_counts_only_launches():
+    """bvh_traverse_ray_knn: a meta tensor raises, a CPU call takes the
+    twin and leaves the launch counter alone."""
+    t, x = _tree_args()
+    tree = [getattr(t, f) for f in ("node_lo", "node_hi", "rope",
+                                    "left_child", "leaf_perm")]
+    rays = TG.Rays(x[:4], x[4:8] - x[:4])
+    with pytest.raises(ValueError, match="no kernel"):
+        TT.bvh_traverse_ray_knn(*(a.to("meta") for a in tree),
+                                TG.Points(x.to("meta")), rays.to("meta"), k=2)
+    before = TT.bvh_traverse_ray_knn.launches
+    ti, ii = TT.bvh_traverse_ray_knn(*tree, TG.Points(x), rays, k=2)
+    assert TT.bvh_traverse_ray_knn.launches == before
+    # each ray starts on a point of the cloud: a hit at t = 0 first
+    assert bool((ti[:, 0] == 0).all()) and bool((ii[:, 0] >= 0).all())
+
+
+@pytest.mark.cuda
+def test_ray_knn_on_the_card_never_calls_the_twin(cuda_device, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("a twin ran for a CUDA tensor")
+
+    monkeypatch.setattr(TT, "bvh_traverse_ray_knn_ref", boom)
+    x = torch.rand((500, 3), device=cuda_device)
+    t = TL.build(TG.Boxes(x, x))
+    tree = [getattr(t, f) for f in ("node_lo", "node_hi", "rope",
+                                    "left_child", "leaf_perm")]
+    ti, ii = TT.bvh_traverse_ray_knn(*tree, TG.Points(x),
+                                     TG.Rays(x[:20], x[20:40] - x[:20]), k=3)
+    torch.cuda.synchronize()
+    assert bool((ti[:, 0] == 0).all()) and ii[:, 0].tolist() == list(range(20))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vkind", ["points", "boxes", "spheres", "triangles"])
+@pytest.mark.parametrize("name", ["counting", "count_with_limit",
+                                  "min_distance", "collect_first_k",
+                                  "collect_hits", "min_where"])
+def test_ray_callback_kernel_with_kept_records_on_the_card(cuda_device, name,
+                                                           vkind):
+    """The 3-D ray walk with the caller's kept node and value records:
+    final states equal the twin's bit for bit."""
+    args = _ray_case(vkind, name, cuda_device, seed=1)
+    tree, values = args[0], args[1]
+    records = TT.pack_nodes(tree[0], tree[1], tree[2], tree[3], tree[5])
+    got = TC.bvh_traverse_callback(
+        *tree, *args[1:], records=records,
+        value_records=TT.pack_values(values, tree[5]))
+    torch.cuda.synchronize()
+    want = TC.bvh_traverse_callback_ref(*tree, *args[1:])
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vkind", ["points", "boxes", "spheres"])
+@pytest.mark.parametrize("dim", [2, 5])
+def test_ray_callback_generic_instance_on_the_card(cuda_device, vkind, dim):
+    """Other dims: the any-dim ray walk, for counting and collect_hits."""
+    g = torch.Generator().manual_seed(dim)
+    n, q = 2000, 300
+    c = torch.rand((n, dim), generator=g)
+    values = {"points": TG.Points(c), "boxes": TG.Boxes(c, c + 0.05),
+              "spheres": TG.Spheres(c, torch.full((n,), 0.04))}[vkind]
+    o = torch.rand((q, dim), generator=g)
+    d = torch.randn((q, dim), generator=g)
+    d[::3] = c[:q:3] - o[::3]
+    d[1::7, 0] = 0.0
+    values = values.to(cuda_device)
+    rays = TG.Rays(o, d).to(cuda_device)
+    tree = TL.build(TG.to_boxes(values))
+    args = [getattr(tree, f) for f in CALLBACK_TREE]
+    for make in (CB.counting, lambda: CB.collect_hits(16)):
+        cb, s0 = make()
+        s0 = _bcast_state(s0, q, cuda_device)
+        want = TC.bvh_traverse_callback_ref(*args, values,
+                                            TP.RayIntersect(rays), cb, s0)
+        want = want if isinstance(want, tuple) else (want,)
+        got = TC.bvh_traverse_callback(*args, values, TP.RayIntersect(rays),
+                                       cb, s0)
+        got = got if isinstance(got, tuple) else (got,)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ray_callback_entry_refuses_3d_rays_without_records(cuda_device):
+    """bvh_callback_launch takes a 3-D ray call only with the tree's node
+    records (the 3-D instance), and no ray call with a walk order."""
+    from repro_torch.kernels import _build
+    tree, values, preds, cb, s0 = _ray_case("triangles", "counting",
+                                            cuda_device, seed=2)
+    rays = preds.rays
+    q, n = rays.origin.shape[0], tree[5].shape[0]
+    records = TT.pack_nodes(tree[0], tree[1], tree[2], tree[3], tree[5])
+    vrec = TT.pack_values(values, tree[5])
+    order = torch.arange(q, dtype=torch.int32, device=cuda_device)
+    mp = torch.full((q,), -1, dtype=torch.int32, device=cuda_device)
+    out = s0.contiguous().clone()
+    fn = _build.function("bvh_callback", "bvh_callback_launch", TC._ARGS)
+
+    def launch(rec, order_):
+        return fn(*(x.data_ptr() for x in tree),
+                  None if rec is None else rec.data_ptr(), vrec.data_ptr(),
+                  None if order_ is None else order_.data_ptr(),
+                  rays.origin.data_ptr(), rays.direction.data_ptr(), None,
+                  values.a.data_ptr(), values.b.data_ptr(),
+                  values.c.data_ptr(), None, mp.data_ptr(), n, q, 3, 4, 3, 0,
+                  0, 0, out.data_ptr(), None, None, None,
+                  torch.cuda.current_stream(cuda_device).cuda_stream)
+
+    assert launch(None, None) != 0
+    assert launch(records, order) != 0
+    assert launch(records, None) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, TC.bvh_traverse_callback_ref(*tree, values,
+                                                         preds, cb, s0))

@@ -430,23 +430,31 @@ def test_query_ray_kinds_against_pinned_reference(force):
 
 def test_ray_routes():
     """Ray count and fill run the callback kernel's route (its twin here),
-    RayNearest the loop walk; force="loop" pins the walk; brute force and
-    the spatial kernel never see a ray."""
+    RayNearest the ray kNN kernel's route (no callback batch);
+    force="loop" pins the walks, and both routes give identical
+    cast_nearest results; brute force and the spatial kernel never see a
+    ray."""
     _, _, (_, tv), (_, tr) = scene("boxes")
     engine = QueryEngine()
     tb = BVH(tv, policy=POLICY.override(engine=engine))
     preds = TP.RayIntersect(tr)
     assert engine.route_spatial(tb, preds) == "loop"
-    assert engine.route_knn(tb, TP.RayNearest(tr, 1)) == "loop"
+    assert engine.route_knn(tb, TP.RayNearest(tr, 1)) == "kernel"
     raytracing.cast_intersect(tb, tr)
     raytracing.cast_ordered(tb, tr)
     assert engine.callback_batches == {"kernel": 4, "loop": 0}
     raytracing.cast_nearest(tb, tr)
     assert engine.callback_batches == {"kernel": 4, "loop": 0}
     loop = QueryEngine(EngineConfig(force="loop"))
-    a = BVH(tv, policy=POLICY.override(engine=loop)).count(preds)
+    lb = BVH(tv, policy=POLICY.override(engine=loop))
+    assert loop.route_knn(lb, TP.RayNearest(tr, 1)) == "loop"
+    a = lb.count(preds)
     assert loop.callback_batches == {"kernel": 0, "loop": 1}
     assert torch.equal(a, tb.count(preds))
+    for k in (1, 4):
+        kt, ki = raytracing.cast_nearest(tb, tr, k)
+        lt, li = raytracing.cast_nearest(lb, tr, k)
+        assert torch.equal(kt, lt) and torch.equal(ki, li)
 
 
 def test_query_out_over_rays_gets_t_zero():

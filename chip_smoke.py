@@ -12,13 +12,19 @@ Phases (one line or more each, then the two closing lines):
   3. kernels: each kernel's wrapper against its plain PyTorch twin on the
      card, at the main path's widths (N = 2^20 uniform points in the unit
      cube, ArborX bvh_driver's "filled box"; Q = 2^17 queries):
-     karras_ranges integer-identical; bvh_traverse_spatial identical counts
-     and buffers for Points values (fine_sqrt) and Boxes values;
+     karras_ranges integer-identical, timed through its wrapper and alone
+     beside two bounds (the fixed search's probes, and the probes this
+     run's bounded searches made); bvh_traverse_spatial (the tree's node
+     records) identical counts and buffers for Points values (fine_sqrt)
+     and Boxes values, the fill and the count timed;
      bvh_traverse_knn (k = 10, the tree's node records) identical indices
      and distances, with no tie exception; the self-kNN case (the 2^20
      points as queries, walked in the leaf order) identical to the same
      kernel in the caller's order on every row and to the twin on the
-     first 2^14, both orders timed.
+     first 2^14, both orders timed; the self CSR query (the 2^20 points
+     as sphere centres, walked in the leaf order) identical, count and
+     buffer, to the same kernel in the caller's order and to the twin on
+     every row, both orders timed.
   4. main path: ``BVH(Points)`` and ``BVH(Boxes)`` at N = 2^20 on the card,
      each answering ``query(intersects(Spheres(c, r)))`` (r = 0.0132, about
      10 neighbours, bvh_driver's convention) and ``query(nearest(Points,
@@ -26,12 +32,16 @@ Phases (one line or more each, then the two closing lines):
      (CSR offsets and index sets equal) and against an exact float64
      oracle (kNN distances within 1e-6 relative); the Points index also
      answers the self-kNN query (``nearest(Points(points), k=10)``, every
-     row at distance 0 first). The launch counters are zeroed before this
-     phase and read after it: one karras_ranges launch per build, two
-     spatial launches per CSR query, one kNN launch per kNN query, each
-     handed the tree's node records, and the self-kNN one the leaf order.
+     row at distance 0 first) and the self CSR query (spheres centred on
+     the points, checked on 2048 rows against BruteForce). The launch
+     counters are zeroed before this phase and read after it: one
+     karras_ranges launch per build, two spatial launches per CSR query,
+     one kNN launch per kNN query, each handed the tree's node records,
+     and the self queries the leaf order.
   5. timings: CUDA events around repeated launches after a warm-up, for
-     each kernel and its twin, and end-to-end build / query times.
+     each kernel and its twin, and end-to-end build / query times (the
+     first spatial query of a fresh index once, with the node records'
+     pack it pays, and the pack alone).
   6. profile: one build + CSR query + kNN query of the Points index under
      torch.profiler: device-busy share of the window and the kernels that
      take the device time ("not measured" when the profiler sees no
@@ -277,7 +287,7 @@ def _ptxas_summary(text):
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"(karras_kernel|spatial_kernelILb[01]E)", m.group(1))
+            k = re.search(r"(karras_kernel|spatial_kernel3?ILb[01]E)", m.group(1))
             kn = re.search(r"knn_kernelINS_\d+(Records3|Flat)EN3knn\d+"
                            r"(KeyList|KeyHeap)ILi(\d+)E", m.group(1))
             cb = re.search(r"(callback_kernel3|callback_kernel|ray_kernel3|"
@@ -360,15 +370,37 @@ def phase_kernels(dev, pts, box_lo, box_hi, qc):
               for a, b in zip(got, want))
     check(err == 0, f"karras_ranges differs from its twin (max {err})")
     ms = time_ms(lambda: KB.karras_ranges(hi, lo, idx, N, ml2), reps=50)
+    # the kernel alone: its C entry on the same lanes and outputs
+    from repro_torch.kernels import _build
+    entry = _build.function("karras", "karras_ranges_launch", KB._LAUNCH_ARGS)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lanes = [t.contiguous() for t in (hi, lo, idx)]
+    k_ms = time_ms(lambda: entry(*(t.data_ptr() for t in lanes), N,
+                                 *(o.data_ptr() for o in got), stream), reps=50)
     plain = time_ms(lambda: KB.karras_ranges_fused(hi, lo, idx, N, ml2), reps=3)
+    # bound 1 (the row's, kept from the fixed search so the row stays
+    # comparable): 2 (max_log2 + 1) + 3 probes a node, 4-byte lanes
     probes = 2 * (ml2 + 1) + 3
     b_ms, b_by = bound(3 * N * 4 + 3 * (N - 1) * 4, (N - 1) * probes * 12)
+    # bound 2: the probes the bounded searches make in this run, 3 + 3
+    # (floor(log2 l) + 1) for a node of range length l, and the int64
+    # lanes the kernel reads
+    length = (got[1] - got[0]).to(torch.float64)
+    mean_probes = float((3 + 3 * (torch.floor(torch.log2(length)) + 1)).mean())
+    b2_ms, b2_by = bound(3 * N * 8 + 3 * (N - 1) * 4,
+                         (N - 1) * mean_probes * 12)
+    # the kernels line carries bound 2, the bound of the function as now
+    # computed; the log line keeps both
     rec["karras_ranges"] = dict(
         source="src/repro_torch/csrc/karras.cu",
         replaces="src/repro/kernels/lbvh_build.py:196",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b2_ms,
+        bound_by=b2_by)
     log(f"[kernels] karras_ranges N={N}: identical to twin (tolerance 0); "
-        f"{ms:.4f} ms vs twin {plain:.3f} ms; bound {b_ms:.4f} ms ({b_by})")
+        f"{ms:.4f} ms through the wrapper, the kernel alone {k_ms:.4f} ms, "
+        f"vs twin {plain:.3f} ms; bound {b_ms:.4f} ms ({b_by}; the fixed "
+        f"search's {probes} probes a node); bound {b2_ms:.4f} ms ({b2_by}; "
+        f"the bounded search's {mean_probes:.3f} probes a node on the mean)")
     del codes, codes_s, hi, lo, idx, got, want
 
     # -- bvh_traverse_spatial: Points values (fine_sqrt) and Boxes values --
@@ -379,10 +411,12 @@ def phase_kernels(dev, pts, box_lo, box_hi, qc):
         t = L.build(boxes)
         args = (t.node_lo, t.node_hi, t.rope, t.left_child, t.range_last,
                 t.leaf_perm, qc, qc, r)
-        cnt, _ = T.bvh_traverse_spatial(*args, capacity=1, fine_sqrt=fine)
+        # the tree's node records, as the engine hands them to the kernel
+        kept = dict(fine_sqrt=fine, records=t.records)
+        cnt, _ = T.bvh_traverse_spatial(*args, capacity=1, **kept)
         cap = max(int(cnt.max()), 1)
         stats = {}
-        got = T.bvh_traverse_spatial(*args, capacity=cap, fine_sqrt=fine)
+        got = T.bvh_traverse_spatial(*args, capacity=cap, **kept)
         want = T.bvh_traverse_spatial_ref(*args, capacity=cap, fine_sqrt=fine,
                                           stats=stats)
         torch.cuda.synchronize()
@@ -390,7 +424,9 @@ def phase_kernels(dev, pts, box_lo, box_hi, qc):
         check(err == 0 and torch.equal(got[1], want[1]),
               f"bvh_traverse_spatial ({label}) differs from its twin")
         ms = time_ms(lambda: T.bvh_traverse_spatial(*args, capacity=cap,
-                                                    fine_sqrt=fine), reps=20)
+                                                    **kept), reps=20)
+        c_ms = time_ms(lambda: T.bvh_traverse_spatial(*args, capacity=1,
+                                                      **kept), reps=20)
         plain = time_ms(lambda: T.bvh_traverse_spatial_ref(
             *args, capacity=cap, fine_sqrt=fine), reps=1, warmup=0)
         # the bound does not depend on the walk: queries (lo, hi, r) and
@@ -402,12 +438,14 @@ def phase_kernels(dev, pts, box_lo, box_hi, qc):
                             max_abs_err=err, ms=ms, plain_ms=plain,
                             bound_ms=b_ms, bound_by=b_by))
         log(f"[kernels] bvh_traverse_spatial {label} N={N} Q={Q} cap={cap}: "
-            f"identical to twin (tolerance 0); {ms:.3f} ms vs twin "
-            f"{plain:.1f} ms; {stats['visits']} node visits; bound "
+            f"identical to twin (tolerance 0); the fill {ms:.3f} ms, the "
+            f"count (cap 1) {c_ms:.3f} ms, through the wrapper with the "
+            f"tree's records, vs twin {plain:.1f} ms; {stats['visits']} node "
+            f"visits ({stats['visits'] / Q:.1f} per query); bound "
             f"{b_ms:.4f} ms ({b_by})")
         if label == "points":
             tree_points = t
-        del t, args, got, want
+        del t, args, got, want, kept
     p = spatial[0]
     rec["bvh_traverse_spatial"] = dict(
         source="src/repro_torch/csrc/bvh_traverse.cu",
@@ -440,7 +478,8 @@ def phase_kernels(dev, pts, box_lo, box_hi, qc):
     # kernel, held against its twin above, at r = the k-th distance.
     within, _ = T.bvh_traverse_spatial(
         t.node_lo, t.node_hi, t.rope, t.left_child, t.range_last, t.leaf_perm,
-        qc, qc, gd[:, K - 1].contiguous(), capacity=1, fine_sqrt=True)
+        qc, qc, gd[:, K - 1].contiguous(), capacity=1, fine_sqrt=True,
+        records=t.records)
     leaves = int(within.clamp_min(K).sum())
     nbytes = Q * 3 * 4 + tree_bytes(N, 3, False) + Q * K * 8
     b_ms, b_by = bound(nbytes, leaves * leaf_ops(3))
@@ -476,6 +515,47 @@ def phase_kernels(dev, pts, box_lo, box_hi, qc):
         f"{s_ms:.3f} ms, the caller's order {c_ms:.3f} ms; identical to "
         f"each other on every row and to the twin on the first "
         f"{N_SELF_TWIN} rows")
+
+    # -- the self CSR query: spheres centred on the points, walked in the
+    # leaf order as the engine walks them, held on every row against the
+    # same kernel in the caller's order and against the twin. The rows
+    # come from torch.empty, so the kernel must write each of them: a
+    # block of the buffer's size is poisoned and freed first, which the
+    # caching allocator hands to the next buffer of that size.
+    cargs = args[:4] + (t.range_last, t.leaf_perm, pts, pts,
+                        torch.full((N,), RADIUS, device=dev))
+    own = dict(fine_sqrt=True, records=t.records)
+    poison = torch.full((N,), -7, dtype=torch.int32, device=dev)
+    del poison
+    oc, _ = T.bvh_traverse_spatial(*cargs, capacity=1, order=t.leaf_perm,
+                                   **own)
+    cc, _ = T.bvh_traverse_spatial(*cargs, capacity=1, **own)
+    scap = max(int(oc.max()), 1)
+    poison = torch.full((N, scap), -7, dtype=torch.int32, device=dev)
+    del poison
+    of = T.bvh_traverse_spatial(*cargs, capacity=scap, order=t.leaf_perm,
+                                **own)
+    cf = T.bvh_traverse_spatial(*cargs, capacity=scap, **own)
+    wf = T.bvh_traverse_spatial_ref(*cargs, capacity=scap, fine_sqrt=True)
+    torch.cuda.synchronize()
+    check(torch.equal(oc, cc) and torch.equal(of[0], oc),
+          "bvh_traverse_spatial: the leaf order changed a self count")
+    check(torch.equal(of[0], cf[0]) and torch.equal(of[1], cf[1]),
+          "bvh_traverse_spatial: the leaf order changed a self fill")
+    check(torch.equal(of[0], wf[0]) and torch.equal(of[1], wf[1]),
+          "bvh_traverse_spatial self query differs from its twin")
+
+    def self_query(order):
+        T.bvh_traverse_spatial(*cargs, capacity=1, order=order, **own)
+        T.bvh_traverse_spatial(*cargs, capacity=scap, order=order, **own)
+    s_ms = time_ms(lambda: self_query(t.leaf_perm), reps=5)
+    c_ms = time_ms(lambda: self_query(None), reps=5)
+    log(f"[kernels] bvh_traverse_spatial self query N=Q={N} cap={scap}: "
+        f"count + fill in the leaf order {s_ms:.3f} ms, in the caller's "
+        f"order {c_ms:.3f} ms; counts and buffers identical to each other "
+        f"and to the twin on all {N} rows (tolerance 0), "
+        f"{int(of[0].sum())} matches")
+    del oc, cc, of, cf, wf
     return rec, spatial
 
 
@@ -552,13 +632,18 @@ def phase_main_path(dev, pts, box_lo, box_hi, qc):
     def counts():
         return {k: f.launches for k, f in counters.items()}
 
-    # what the engine hands the kNN kernel: the tree's records, the order
-    knn_calls = []
-    real_knn = E.bvh_traverse_knn
+    # what the engine hands the kNN and spatial kernels: the tree's
+    # records, the order
+    knn_calls, spatial_calls = [], []
+    real_knn, real_spatial = E.bvh_traverse_knn, E.bvh_traverse_spatial
 
     def knn_spy(*a, **kw):
         knn_calls.append((kw.get("records"), kw.get("order")))
         return real_knn(*a, **kw)
+
+    def spatial_spy(*a, **kw):
+        spatial_calls.append((kw.get("records"), kw.get("order")))
+        return real_spatial(*a, **kw)
 
     spheres = rt.intersects(G.Spheres(qc, torch.full((Q,), RADIUS, device=dev)))
     knn = rt.nearest(G.Points(qc), k=K)
@@ -570,6 +655,7 @@ def phase_main_path(dev, pts, box_lo, box_hi, qc):
     results = {}
 
     E.bvh_traverse_knn = knn_spy
+    E.bvh_traverse_spatial = spatial_spy
     for f in counters.values():
         f.launches = 0
     for label, values in (("points", G.Points(pts)),
@@ -592,6 +678,10 @@ def phase_main_path(dev, pts, box_lo, box_hi, qc):
         check(knn_calls[-1][0] is index.tree.records
               and knn_calls[-1][1] is None,
               f"{label}: the kNN kernel did not get the tree's records")
+        check(len(spatial_calls) >= 2 and all(
+            r is index.tree.records and o is None
+            for r, o in spatial_calls[-2:]),
+              f"{label}: the spatial kernel did not get the tree's records")
         if label == "points":
             # the self-kNN query: the points themselves, in the leaf order
             self_nn = index.query(rt.nearest(values, k=K))
@@ -607,8 +697,29 @@ def phase_main_path(dev, pts, box_lo, box_hi, qc):
             log(f"[main] points: self-kNN N=Q={N} k={K} through "
                 "BVH.query(nearest): one kNN launch with the tree's records "
                 "and its leaf order; every row starts at distance 0")
+            # the self CSR query: spheres centred on the points themselves
+            c4 = counts()
+            self_csr = index.query(rt.intersects(G.Spheres(
+                pts, torch.full((N,), RADIUS, device=dev))))
+            torch.cuda.synchronize()
+            check(counts()["bvh_traverse_spatial"]
+                  - c4["bvh_traverse_spatial"] == 2,
+                  "points: the self CSR query did not launch the spatial "
+                  "kernel twice")
+            check(all(r is index.tree.records and o is index.tree.leaf_perm
+                      for r, o in spatial_calls[-2:]),
+                  "points: the self CSR query did not walk in the leaf order")
+            check_csr(self_csr, rt.BruteForce(values, policy=policy).query(
+                rt.intersects(G.Spheres(pts[:N_CHECK], torch.full(
+                    (N_CHECK,), RADIUS, device=dev)))), N_CHECK, "points self")
+            log(f"[main] points: self CSR N=Q={N} through "
+                "BVH.query(intersects(Spheres)): two spatial launches with "
+                "the tree's records and its leaf order; "
+                f"{int(self_csr.offsets[-1])} matches, {N_CHECK} queries "
+                "equal to BruteForce")
         results[label] = (index, values, csr, nn)
     E.bvh_traverse_knn = real_knn
+    E.bvh_traverse_spatial = real_spatial
     launches = counts()
     torch.cuda.synchronize()
 
@@ -641,6 +752,7 @@ def phase_timings(dev, pts, box_lo, box_hi, spheres, knn, policy, card):
     import torch
     import repro_torch as rt
     from repro_torch.core import geometry as G
+    from repro_torch.kernels import bvh_traverse as T
 
     out = {}
     for label, values in (("points", G.Points(pts)),
@@ -652,12 +764,20 @@ def phase_timings(dev, pts, box_lo, box_hi, spheres, knn, policy, card):
 
         build_ms = time_ms(build, reps=3)
         index = holder["index"]
+        # the first query of a fresh index pays the node records' pack,
+        # which the tree keeps for every later query
+        _, first_ms = timed_once(lambda: index.query(spheres))
+        _, pack_ms = timed_once(lambda: T.pack_nodes(
+            index.tree.node_lo, index.tree.node_hi, index.tree.rope,
+            index.tree.left_child, index.tree.leaf_perm))
         q_ms = time_ms(lambda: index.query(spheres), reps=5)
         k_ms = time_ms(lambda: index.query(knn), reps=5)
         out[label] = dict(build_ms=build_ms, spatial_query_ms=q_ms,
                           knn_query_ms=k_ms)
         log(f"[time] {label}: build N={N} {build_ms:.2f} ms; "
-            f"query(intersects(Spheres)) Q={Q} {q_ms:.2f} ms; "
+            f"query(intersects(Spheres)) Q={Q} {q_ms:.2f} ms (the first "
+            f"of the index {first_ms:.2f} ms, with the records' pack, "
+            f"{pack_ms:.3f} ms alone); "
             f"query(nearest k={K}) Q={Q} {k_ms:.2f} ms  [{card}]")
     torch.cuda.reset_peak_memory_stats()
     rt.BVH(G.Points(pts), policy=policy)
@@ -853,7 +973,8 @@ def phase_callback_kernel(dev, pts, box_lo, box_hi, qc, policy, card):
                     sp, _ = T.bvh_traverse_spatial(
                         t.node_lo, t.node_hi, t.rope, t.left_child,
                         t.range_last, t.leaf_perm, qc, qc, preds.geom.radius,
-                        capacity=1, fine_sqrt=label == "points")
+                        capacity=1, fine_sqrt=label == "points",
+                        records=t.records)
                     check(torch.equal(sp.to(torch.int64), counts),
                           f"callback counting ({label}) differs from the "
                           "spatial kernel's counts")

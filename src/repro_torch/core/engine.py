@@ -27,7 +27,8 @@ import dataclasses
 
 import torch
 
-from ..kernels.bvh_callback import bvh_traverse_callback, expressible
+from ..kernels.bvh_callback import (bvh_traverse_callback, expressible,
+                                    query_order)
 from ..kernels.bvh_traverse import (KNN_MAX_K, MAX_DIM, RAY_TARGETS,
                                     bvh_traverse_knn, bvh_traverse_ray_knn,
                                     bvh_traverse_spatial, knn_order)
@@ -174,15 +175,22 @@ class QueryEngine:
 
     def kernel_fill(self, bvh, predicates, capacity: int):
         """(counts, idx_buf): full counts plus the first `capacity` matched
-        indices per query in traversal order."""
+        indices per query in traversal order; on the card a 3-D tree's
+        kept node records, and the leaf order when the queries are centred
+        on the indexed points."""
         q_lo, q_hi, r = _spatial_rep(predicates)
         t = bvh.tree
+        records = order = None
+        if t.node_lo.is_cuda and t.dim == 3:
+            records = t.records
+            order = query_order(predicates, bvh.values, t.leaf_perm)
         # Points values take the sqrt-form fine test (distance <= r), the
         # exact twin of predicates.leaf_match_test for them
         return bvh_traverse_spatial(
             t.node_lo, t.node_hi, t.rope, t.left_child, t.range_last,
             t.leaf_perm, q_lo, q_hi, r, capacity=capacity,
-            fine_sqrt=isinstance(bvh.values, G.Points))
+            fine_sqrt=isinstance(bvh.values, G.Points), records=records,
+            order=order)
 
     def run_callback(self, bvh, predicates, callback, state0):
         """Per-query final states of a callback batch (`state0` batched),

@@ -59,7 +59,7 @@ class LBVH:
     @functools.cached_property
     def records(self):
         """The (2N-1, 8) int32 node records of a 3-D tree that the 3-D
-        instances of the callback and kNN kernels read
+        instances of the spatial, callback and kNN kernels read
         (``kernels.bvh_traverse.pack_nodes``), made at first use and kept
         with the tree; None in other dims."""
         from ..kernels.bvh_traverse import pack_nodes

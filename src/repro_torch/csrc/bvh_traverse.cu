@@ -11,7 +11,24 @@
 //   Bound on this card: per visited node one node box (2 * dim floats)
 //   and two or three int32s at a data-dependent address and about 6 * dim
 //   float operations: a latency-bound pointer chase over a tree (about
-//   75 MB at 2^20 leaves) larger than the 50 MB L2.
+//   75 MB at 2^20 leaves) larger than the 50 MB L2. So the 3-D instance
+//   (spatial_kernel3) cuts the loads per visit, as callback_kernel3 of
+//   bvh_callback.cu does for the same walk:
+//   * node m is two 16-byte records of LBVH.records, (lo.xyz, rope) and
+//     (hi.xyz, left child | leaf_perm), one vector load each;
+//   * range_last is read at an internal node only under a pair filter
+//     (min_pos >= 0): range_last >= 0 everywhere, so a negative min_pos
+//     passes every node; at a leaf range_last is the leaf's position, so
+//     the filter is pos > min_pos with no read;
+//   * a leaf's box is its value's box, so the d2 of the node test at the
+//     leaf is the leaf test (d2 <= r2, and sqrtf(d2) <= r under fine_sqrt),
+//     and the record's .w is the leaf's original index;
+//   * thread i walks query order[i] where the wrapper gives an order,
+//     and writes only that query's row; it pads its row with -1 itself.
+//   The node test stays the twin's unified d2 form (not callback_kernel3's
+//   interval overlap, which differs where a square underflows), so the
+//   two walks keep their own instances. Other dims (1..16) run
+//   spatial_kernel over the flat arrays.
 // k-nearest: the rope walk descends left first with the running k-th best
 //   (tau) at +inf, so its first k leaves are the tree's leftmost, far from
 //   most queries, and tau stays loose until the walk reaches the query's
@@ -121,7 +138,7 @@ __global__ void spatial_kernel(Tree t, const int* __restrict__ range_last,
   }
   const float r = radius[qi];
   const float r2 = r * r;
-  const int mp = min_pos[qi];
+  const int mp = min_pos == nullptr ? -1 : min_pos[qi];
   int* out = buf + static_cast<long long>(qi) * cap;
 
   int cnt = 0;
@@ -151,6 +168,65 @@ __global__ void spatial_kernel(Tree t, const int* __restrict__ range_last,
     }
   }
   counts[qi] = cnt;
+  for (int j = cnt; j < cap; ++j) out[j] = -1;
+}
+
+// the 3-D instance over node records: rec[2m] = (lo.xyz, rope), rec[2m + 1]
+// = (hi.xyz, left child of an internal node | leaf_perm of a leaf)
+template <bool kFineSqrt>
+__global__ void __launch_bounds__(kThreads)
+    spatial_kernel3(const int4* __restrict__ rec,
+                    const int* __restrict__ range_last, int n,
+                    const float* __restrict__ qlo,
+                    const float* __restrict__ qhi,
+                    const float* __restrict__ radius,
+                    const int* __restrict__ min_pos,
+                    const int* __restrict__ order, int q, int cap,
+                    int* __restrict__ counts, int* __restrict__ buf) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= q) return;
+  const int qi = order == nullptr ? i : __ldg(order + i);
+  const long long qo = static_cast<long long>(qi) * 3;
+  float ql[3], qh[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    ql[c] = __ldg(qlo + qo + c);
+    qh[c] = __ldg(qhi + qo + c);
+  }
+  const float r = __ldg(radius + qi);
+  const float r2 = r * r;
+  const int mp = min_pos == nullptr ? -1 : __ldg(min_pos + qi);
+  int* out = buf + static_cast<long long>(qi) * cap;
+  const int n1 = n - 1;
+
+  int cnt = 0;
+  int node = 0;
+  while (node != -1) {
+    const int4 a = __ldg(rec + 2 * static_cast<long long>(node));
+    const int4 b = __ldg(rec + 2 * static_cast<long long>(node) + 1);
+    const float lo[3] = {__int_as_float(a.x), __int_as_float(a.y),
+                         __int_as_float(a.z)};
+    const float hi[3] = {__int_as_float(b.x), __int_as_float(b.y),
+                         __int_as_float(b.z)};
+    float d2 = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float g = max_nan(max_nan(ql[c] - hi[c], lo[c] - qh[c]), 0.0f);
+      d2 = c == 0 ? g * g : __fmaf_rn(g, g, d2);
+    }
+    const bool reach = d2 <= r2;
+    if (node < n1) {
+      node = reach && (mp < 0 || __ldg(range_last + node) > mp) ? b.w : a.w;
+      continue;
+    }
+    if (reach && node - n1 > mp && (!kFineSqrt || sqrtf(d2) <= r)) {
+      if (cnt < cap) out[cnt] = b.w;
+      ++cnt;
+    }
+    node = a.w;
+  }
+  counts[qi] = cnt;
+  for (int j = cnt; j < cap; ++j) out[j] = -1;
 }
 
 // ---------------------------------------------------------------------------
@@ -274,18 +350,21 @@ cudaError_t launch_knn_k(const Nodes& nodes, const int* perm, int n, int dim,
 
 }  // namespace
 
+// records: the tree's LBVH.records in 3-D (spatial_kernel3), or null (the
+// flat arrays); order: the query each thread walks (with records only),
+// or null; min_pos: (q,) int32 pair filter, or null (none). The kernels
+// write every slot of buf (the matches, then -1).
 REPRO_EXPORT int bvh_spatial_launch(
     const void* node_lo, const void* node_hi, const void* rope,
     const void* left, const void* range_last, const void* perm,
-    const void* qlo, const void* qhi, const void* radius, const void* min_pos,
-    int n, int q, int dim, int cap, int fine_sqrt, void* counts, void* buf,
-    void* stream) {
-  if (dim < 1 || dim > kMaxDim || cap < 1) {
+    const void* records, const void* order, const void* qlo, const void* qhi,
+    const void* radius, const void* min_pos, int n, int q, int dim, int cap,
+    int fine_sqrt, void* counts, void* buf, void* stream) {
+  if (dim < 1 || dim > kMaxDim || cap < 1 || n < 2 ||
+      (records != nullptr && dim != 3) ||
+      (order != nullptr && records == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Tree t{static_cast<const float*>(node_lo), static_cast<const float*>(node_hi),
-         static_cast<const int*>(rope), static_cast<const int*>(left),
-         static_cast<const int*>(perm), n, dim};
   const int blocks = (q + kThreads - 1) / kThreads;
   auto s = static_cast<cudaStream_t>(stream);
   auto rl = static_cast<const int*>(range_last);
@@ -295,6 +374,21 @@ REPRO_EXPORT int bvh_spatial_launch(
   auto mp = static_cast<const int*>(min_pos);
   auto c = static_cast<int*>(counts);
   auto b = static_cast<int*>(buf);
+  if (records != nullptr) {
+    auto rec = static_cast<const int4*>(records);
+    auto od = static_cast<const int*>(order);
+    if (fine_sqrt) {
+      spatial_kernel3<true><<<blocks, kThreads, 0, s>>>(rec, rl, n, lo, hi, r,
+                                                        mp, od, q, cap, c, b);
+    } else {
+      spatial_kernel3<false><<<blocks, kThreads, 0, s>>>(rec, rl, n, lo, hi, r,
+                                                         mp, od, q, cap, c, b);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  Tree t{static_cast<const float*>(node_lo), static_cast<const float*>(node_hi),
+         static_cast<const int*>(rope), static_cast<const int*>(left),
+         static_cast<const int*>(perm), n, dim};
   if (fine_sqrt) {
     spatial_kernel<true><<<blocks, kThreads, 0, s>>>(t, rl, lo, hi, r, mp, q,
                                                      cap, c, b);

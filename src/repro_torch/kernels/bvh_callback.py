@@ -140,7 +140,8 @@ def query_order(predicates, values, leaf_perm):
     indexed points (the same tensor as ``values.coords``, as in DBSCAN):
     the tree's `leaf_perm`, which is the stable sort of their 64-bit
     Morton codes in the tree's root box; None for other predicates, which
-    are walked in the caller's order."""
+    are walked in the caller's order. The engine gives the 3-D spatial
+    kernel the same order (``bvh_traverse.bvh_traverse_spatial``)."""
     return leaf_perm if _centred_on_values(predicates, values) else None
 
 

@@ -26,7 +26,15 @@ Two kernels, each with its plain PyTorch twin beside it:
 A CPU tensor takes the twin (``*_ref``), which walks every query's cursor
 step by step until all are -1, the node sequence of the rope walk. A CUDA
 tensor launches ``csrc/bvh_traverse.cu``; any other device raises. The
-spatial kernel runs the rope walk, one thread per query. The kNN kernel
+spatial kernel runs the rope walk, one thread per query; in 3-D it reads
+the tree's node records (:func:`pack_nodes`, ``LBVH.records``: two
+16-byte loads a node, the leaf's original index in the second),
+``range_last`` only where a query's ``min_pos`` is >= 0, and nothing
+more at a leaf (the node test at a leaf is the leaf test); other dims
+read the flat arrays. A caller may give the order in which its threads
+take the queries (the engine gives the tree's leaf order when the
+queries are centred on the indexed points, ``bvh_callback.query_order``);
+outputs stay in the caller's rows. The kNN kernel
 walks nearest first with a stack and orders its list by (d2, position)
 (``csrc/knn_list.cuh``), which gives the twin's lists bit for bit in
 another visit order; in 3-D it reads the tree's packed node records
@@ -283,17 +291,23 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-_SPATIAL_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+_SPATIAL_ARGS = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
                  + [ctypes.c_void_p] * 3)
 _KNN_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
 
 
 def bvh_traverse_spatial(node_lo, node_hi, rope, left_child, range_last,
                          leaf_perm, q_lo, q_hi, radius, *, capacity: int = 1,
-                         fine_sqrt: bool = False, min_pos=None):
+                         fine_sqrt: bool = False, min_pos=None, records=None,
+                         order=None):
     """(counts (Q,) int32, idx_buf (Q, capacity) int32) for Q spatial
     queries over an LBVH's arrays. See the module docstring for the
-    semantics."""
+    semantics. `records`: the tree's :func:`pack_nodes` records where the
+    caller keeps them (``LBVH.records``); a 3-D call on the card makes
+    them otherwise. `order`: a (Q,) int32 permutation of the queries in
+    which the 3-D kernel's threads take them, or None; each row must
+    appear once, since a row it leaves out is never written
+    (``REPRO_SANITIZE`` checks it). Neither changes a result."""
     what = "bvh_traverse_spatial"
     if capacity < 1:
         raise ValueError(f"{what}: capacity must be >= 1, got {capacity}")
@@ -305,38 +319,56 @@ def bvh_traverse_spatial(node_lo, node_hi, rope, left_child, range_last,
     else:
         counts, buf = _spatial_launch(
             what, node_lo, node_hi, rope, left_child, range_last, leaf_perm,
-            q_lo, q_hi, radius, capacity, fine_sqrt, min_pos)
+            q_lo, q_hi, radius, capacity, fine_sqrt, min_pos, records, order)
     sanitize.check_spatial(counts, buf, n=leaf_perm.shape[0], kernel=what)
     return counts, buf
 
 
+def _check_order(what, order, q, dev):
+    if order is not None and (order.shape != (q,) or order.dtype != torch.int32
+                              or order.device != dev
+                              or not order.is_contiguous()):
+        raise ValueError(f"{what}: order must be a contiguous ({q},) int32 "
+                         f"permutation on {dev}")
+    sanitize.check_order(order, q=q, kernel=what)
+
+
 def _spatial_launch(what, node_lo, node_hi, rope, left_child, range_last,
                     leaf_perm, q_lo, q_hi, radius, capacity, fine_sqrt,
-                    min_pos):
+                    min_pos, records, order):
     dev = q_lo.device
     q, dim = q_lo.shape
     n = leaf_perm.shape[0]
-    min_pos = (torch.full((q,), -1, dtype=torch.int32, device=dev)
-               if min_pos is None else min_pos.to(torch.int32))
+    extra = {} if min_pos is None else {"min_pos": min_pos.to(torch.int32)}
     a = _args(dev, what, node_lo=node_lo, node_hi=node_hi, rope=rope,
               left_child=left_child, range_last=range_last,
               leaf_perm=leaf_perm, q_lo=q_lo, q_hi=q_hi, radius=radius,
-              min_pos=min_pos)
+              **extra)
     _check_tree(what, n, dim, a["node_lo"], a["node_hi"], a["rope"],
                 a["left_child"], a["leaf_perm"])
     if (a["q_hi"].shape != (q, dim) or a["radius"].shape != (q,)
-            or a["min_pos"].shape != (q,) or a["range_last"].shape != (2 * n - 1,)):
+            or ("min_pos" in a and a["min_pos"].shape != (q,))
+            or a["range_last"].shape != (2 * n - 1,)):
         raise ValueError(f"{what}: query arrays must be (Q, dim) and (Q,)")
+    if dim == 3:
+        records = _kept_records(what, [a[f] for f in _TREE], None, records,
+                                None, dev, False)[0]
+    elif order is not None:
+        raise ValueError(f"{what}: an order is taken in 3-D only")
+    else:
+        records = None
+    _check_order(what, order, q, dev)
     counts = torch.empty((q,), dtype=torch.int32, device=dev)
-    buf = torch.full((q, capacity), -1, dtype=torch.int32, device=dev)
+    buf = torch.empty((q, capacity), dtype=torch.int32, device=dev)
     if q == 0:
         return counts, buf
     fn = _build.function("bvh_traverse", "bvh_spatial_launch", _SPATIAL_ARGS)
     with torch.cuda.device(dev):
         err = fn(*(a[k].data_ptr() for k in (
                      "node_lo", "node_hi", "rope", "left_child", "range_last",
-                     "leaf_perm", "q_lo", "q_hi", "radius", "min_pos")),
-                 n, q, dim, capacity, int(fine_sqrt),
+                     "leaf_perm")), _ptr(records), _ptr(order),
+                 *(a[k].data_ptr() for k in ("q_lo", "q_hi", "radius")),
+                 _ptr(a.get("min_pos")), n, q, dim, capacity, int(fine_sqrt),
                  counts.data_ptr(), buf.data_ptr(), _stream(dev))
     _build.check("bvh_traverse", err, what)
     bvh_traverse_spatial.launches += 1
@@ -349,8 +381,9 @@ def bvh_traverse_knn(node_lo, node_hi, rope, left_child, leaf_perm, queries,
     for Q query points. `records`: the tree's :func:`pack_nodes` records
     where the caller keeps them (``LBVH.records``); a 3-D call on the card
     makes them otherwise. `order`: a (Q,) permutation of the queries in
-    which the kernel's threads take them (:func:`knn_order`), or None.
-    Neither changes a result."""
+    which the kernel's threads take them (:func:`knn_order`), or None;
+    each row must appear once (``REPRO_SANITIZE`` checks it). Neither
+    changes a result."""
     what = "bvh_traverse_knn"
     if k < 1:
         raise ValueError(f"{what}: k must be >= 1, got {k}")
@@ -377,11 +410,7 @@ def _knn_launch(what, node_lo, node_hi, rope, left_child, leaf_perm, queries,
                 a["left_child"], a["leaf_perm"])
     records = None if dim != 3 else _kept_records(
         what, [a[f] for f in _TREE], None, records, None, dev, False)[0]
-    if order is not None and (order.shape != (q,) or order.dtype != torch.int32
-                              or order.device != dev
-                              or not order.is_contiguous()):
-        raise ValueError(f"{what}: order must be a contiguous ({q},) int32 "
-                         f"permutation on {dev}")
+    _check_order(what, order, q, dev)
     dists = torch.empty((q, k), dtype=torch.float32, device=dev)
     idxs = torch.empty((q, k), dtype=torch.int32, device=dev)
     if q == 0:

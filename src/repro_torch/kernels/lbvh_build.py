@@ -102,21 +102,20 @@ def karras_ranges_fused(hi, lo, idx, n: int, max_log2: int):
 # the kernel's wrapper
 # ---------------------------------------------------------------------------
 
-def _as_u32_bits(x: torch.Tensor) -> torch.Tensor:
-    """int64 tensor of uint32 values -> int32 tensor of the same bits."""
-    return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32).contiguous()
+_LAUNCH_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 4
 
 
 def karras_ranges(hi, lo, idx, n: int, max_log2: int):
-    """(first, last, gamma) (N-1,) int32 for the sorted 96-bit keys
-    (hi | lo | idx), each an (N,) int64 tensor of uint32 values.
+    """(first, last, gamma) (N-1,) int32 for the sorted, distinct 96-bit
+    keys (hi | lo | idx), each an (N,) int64 tensor of uint32 values.
 
     CPU tensors take the plain twin; CUDA tensors launch
-    ``csrc/karras.cu`` (one thread per internal node); any other device
-    raises. Under ``REPRO_SANITIZE`` the twin also runs beside the
-    kernel and must agree with it bit for bit (the reference's
-    build-conformance check), and each result is held to
-    ``sanitize.check_karras``."""
+    ``csrc/karras.cu`` (one thread per internal node, reading the int64
+    lanes as they are; its searches stop where the node's range does, so
+    `max_log2` bounds only the twin's); any other device raises. Under
+    ``REPRO_SANITIZE`` the twin also runs beside the kernel and must agree
+    with it bit for bit (the reference's build-conformance check), and
+    each result is held to ``sanitize.check_karras``."""
     what = "karras_ranges"
     if hi.device.type == "cpu":
         out = karras_ranges_fused(hi, lo, idx, n, max_log2)
@@ -144,15 +143,14 @@ def _karras_launch(hi, lo, idx, n: int, max_log2: int):
     if n < 2 or (1 << (max_log2 + 1)) <= n - 1:
         raise ValueError(f"karras_ranges: need n >= 2 and 2^(max_log2+1) > "
                          f"n - 1, got n={n}, max_log2={max_log2}")
-    keys = [_as_u32_bits(t) for t in (hi, lo, idx)]
+    # the kernel reads the int64 lanes and takes their low 32 bits
+    keys = [t.to(torch.int64).contiguous() for t in (hi, lo, idx)]
     out = [torch.empty((n - 1,), dtype=torch.int32, device=dev)
            for _ in range(3)]
-    fn = _build.function("karras", "karras_ranges_launch",
-                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                         + [ctypes.c_void_p] * 4)
+    fn = _build.function("karras", "karras_ranges_launch", _LAUNCH_ARGS)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(k.data_ptr() for k in keys), n, max_log2,
+        err = fn(*(k.data_ptr() for k in keys), n,
                  *(o.data_ptr() for o in out), stream)
     _build.check("karras", err, "karras_ranges")
     karras_ranges.launches += 1

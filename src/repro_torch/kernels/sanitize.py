@@ -11,6 +11,10 @@ public contracts:
     inside [first, last);
   * callback: no NaN in any float state leaf.
 
+One input is checked too, before the launch: a walk order (``order=`` of
+the spatial and kNN walks) is a permutation of the queries, since a row
+it leaves out is never written.
+
 Unarmed, a check returns before it touches a tensor, so it costs no
 device synchronisation. ``karras_ranges`` also runs its twin beside the
 kernel when armed and requires the two to agree bit for bit. A violated
@@ -23,7 +27,7 @@ import os
 import torch
 
 __all__ = ["enabled", "check_spatial", "check_knn", "check_karras",
-           "check_state_tree"]
+           "check_state_tree", "check_order"]
 
 
 def enabled() -> bool:
@@ -76,3 +80,16 @@ def check_state_tree(state, *, kernel: str):
     for leaf in state if isinstance(state, (tuple, list)) else (state,):
         if leaf.is_floating_point() and bool(torch.isnan(leaf).any()):
             _fail(kernel, "NaN in callback state leaf")
+
+
+def check_order(order, *, q: int, kernel: str):
+    """`order`: None or a (q,) integer tensor, each of 0..q-1 once."""
+    if not enabled() or order is None:
+        return
+    o = order.to(torch.int64)
+    if o.numel() and (int(o.min()) < 0 or int(o.max()) >= q):
+        raise AssertionError(f"REPRO_SANITIZE: {kernel} was given an order "
+                             f"with entries outside [0, {q})")
+    if not bool(torch.bincount(o, minlength=q).eq(1).all()):
+        raise AssertionError(f"REPRO_SANITIZE: {kernel} was given an order "
+                             f"that is not a permutation of its {q} queries")

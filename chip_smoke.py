@@ -35,17 +35,30 @@ Phases (one line or more each, then the two closing lines):
      row at distance 0 first) and the self CSR query (spheres centred on
      the points, checked on 2048 rows against BruteForce). The launch
      counters are zeroed before this phase and read after it: one
-     karras_ranges launch per build, two spatial launches per CSR query,
+     morton64 launch (the build's key), one karras_ranges launch and one
+     lbvh_tail launch per build, the node records kept by the build, two
+     spatial launches per CSR query,
      one kNN launch per kNN query, each handed the tree's node records,
      and the self queries the leaf order.
   5. timings: CUDA events around repeated launches after a warm-up, for
      each kernel and its twin, and end-to-end build / query times (the
-     first spatial query of a fresh index once, with the node records'
-     pack it pays, and the pack alone).
+     first spatial query of a fresh index once: the build made its node
+     records), and the peak device memory of a Points build above what
+     was allocated before it.
   6. profile: one build + CSR query + kNN query of the Points index under
      torch.profiler: device-busy share of the window and the kernels that
      take the device time ("not measured" when the profiler sees no
      device activity).
+  6b. build path: the card's ``BVH(Points | Boxes | Triangles)`` trees at
+     N = 2^20 (the triangles of the ray phase's soup), a build over points
+     with two NaN coordinates and a refit of the points moved by
+     N(0, 0.002^2), each held node for node, records too, against the
+     twins run on the card (``morton_key_ref``, the sort,
+     ``karras_ranges_fused``, ``lbvh_tail_ref`` / ``lbvh_refit_ref``:
+     tolerance 0, NaN by place); then ``lbvh_tail`` over the Boxes build's
+     ranges against its twin, timed through its wrapper, its C entry
+     alone and its two kernels' device time, beside the twin, the twin's
+     ``aabb_rmq`` alone and the tail's bytes bound.
   7. callback kernel: ``bvh_traverse_callback`` against its twin on the
      Points, Boxes and Spheres (radii 0.005) indexes at N = 2^20 with
      Q = 2^17 sphere queries of r = 0.0132: every epilogue (counting,
@@ -107,10 +120,15 @@ Phases (one line or more each, then the two closing lines):
      search points and ``kernels.ops.bruteforce_knn`` of 2^13 of the
      queries against them (k = 10), the two launch counters zeroed just
      before and read just after: one launch each.
- 12. morton: the kernel bit-identical to its twin (``core.morton.morton64``,
-     the LBVH build's encoder) on every point, at N = 2^20 in 3-D and at
-     2^16 points in dims 1, 2, 4, 6 and 10 (the bits rule, the hi lane);
-     timed beside its bytes bound and the twin.
+ 12. morton: the op bit-identical to its twin (``core.morton.morton64``)
+     on every point, at N = 2^20 in 3-D and at 2^16 points in dims 1, 2,
+     4, 6 and 10 (the bits rule, the hi lane); the build instance
+     (``morton_key``) against ``morton_key_ref`` at 64 and 32 bits over the
+     same sweep and over the main path's Boxes and Points inputs; each
+     timed through its wrapper, its C entry alone and its kernels' device
+     time, beside its bytes bound and the twin. The kernels line takes the
+     build instance over the Boxes inputs, and counts the builds' launches
+     on the main path with the op's.
  13. bruteforce: the kernel bit-identical to its twin on every row at
      Q = 2^13, N = 2^20, k = 10 (2^33 pairs; the point axis in the S
      chunks of ``kernels.bruteforce_knn.plan``), its distances against
@@ -146,7 +164,7 @@ Phases (one line or more each, then the two closing lines):
      time (ms, tokens/s) and one profiled forward, with the flash
      kernel's share of device time.
 
-The line before the last is ``{"kernels": [...]}`` (10 entries: name,
+The line before the last is ``{"kernels": [...]}`` (11 entries: name,
 route, source, replaced TPU kernel, launches, max_abs_err, ms, plain_ms,
 bound_ms, bound_by, library_ms); the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -301,15 +319,22 @@ def _ptxas_summary(text):
                            r"(LeafBox|LeafSphere3|LeafTriangle3|LeafFlat)?E?"
                            r"N3knn\d+(KeyList|KeyHeap)ILi(\d+)E", m.group(1))
             rb3 = re.search(r"ray_box3_kernelILi(\d+)EE", m.group(1))
-            rb = re.search(r"ray_box_kernel|ray_box_decode|morton_kernel",
+            rb = re.search(r"ray_box_kernel|ray_box_decode|lanes_generic|"
+                           r"key_generic|scene_generic|scene_final|"
+                           r"link_kernel|rope_kernel|parent_kernel",
                            m.group(1))
+            mt = re.search(r"(lanes_kernel|key_kernel|scene_kernel|"
+                           r"climb_kernel3?)I(?:Li(\d+)E|Lb([01])E)"
+                           r"(?:Li(\d+)E)?", m.group(1))
             fa = re.search(r"flash_kernel_(tc|f32)I(6__half|13__nv_bfloat16)?"
                            r"Li(\d+)E", m.group(1))
             bf = re.search(r"scan_kernelILi(n?\d+)EN3knn\d+(KeyList|KeyHeap)"
                            r"ILi(\d+)E", m.group(1))
             bm = re.search(r"merge_kernelIN3knn\d+(KeyList|KeyHeap)ILi(\d+)E",
                            m.group(1))
-            fn = (f"ray_knn_nf_kernel<{rn.group(1)} {rn.group(2)}>" if rn
+            fn = (f"{mt.group(1)}<{mt.group(2) or mt.group(3)}"
+                  f"{', ' + mt.group(4) if mt.group(4) else ''}>" if mt
+                  else f"ray_knn_nf_kernel<{rn.group(1)} {rn.group(2)}>" if rn
                   else f"{rk.group(1)}<"
                   f"{', '.join(g for g in rk.group(2, 3) if g)}, "
                   f"{rk.group(4)} {rk.group(5)}>" if rk
@@ -624,8 +649,10 @@ def phase_main_path(dev, pts, box_lo, box_hi, qc):
     from repro_torch.core import geometry as G
     from repro_torch.kernels import bvh_traverse as T
     from repro_torch.kernels import lbvh_build as KB
+    from repro_torch.kernels import morton as KM
 
-    counters = {"karras_ranges": KB.karras_ranges,
+    counters = {"morton64": KM.morton64, "karras_ranges": KB.karras_ranges,
+                "lbvh_tail": KB.lbvh_tail,
                 "bvh_traverse_spatial": T.bvh_traverse_spatial,
                 "bvh_traverse_knn": T.bvh_traverse_knn}
 
@@ -669,8 +696,11 @@ def phase_main_path(dev, pts, box_lo, box_hi, qc):
         nn = index.query(knn)
         torch.cuda.synchronize()
         c3 = counts()
-        check(c1["karras_ranges"] - c0["karras_ranges"] == 1,
-              f"{label}: build did not launch karras_ranges once")
+        for kname in ("morton64", "karras_ranges", "lbvh_tail"):
+            check(c1[kname] - c0[kname] == 1,
+                  f"{label}: build did not launch {kname} once")
+        check("records" in index.tree.__dict__,
+              f"{label}: the build did not keep the node records")
         check(c2["bvh_traverse_spatial"] - c1["bvh_traverse_spatial"] == 2,
               f"{label}: CSR query did not launch the spatial kernel twice")
         check(c3["bvh_traverse_knn"] - c2["bvh_traverse_knn"] == 1,
@@ -752,7 +782,6 @@ def phase_timings(dev, pts, box_lo, box_hi, spheres, knn, policy, card):
     import torch
     import repro_torch as rt
     from repro_torch.core import geometry as G
-    from repro_torch.kernels import bvh_traverse as T
 
     out = {}
     for label, values in (("points", G.Points(pts)),
@@ -764,27 +793,171 @@ def phase_timings(dev, pts, box_lo, box_hi, spheres, knn, policy, card):
 
         build_ms = time_ms(build, reps=3)
         index = holder["index"]
-        # the first query of a fresh index pays the node records' pack,
-        # which the tree keeps for every later query
+        # the first query of a fresh index: the build made the node
+        # records, so it pays no pack
         _, first_ms = timed_once(lambda: index.query(spheres))
-        _, pack_ms = timed_once(lambda: T.pack_nodes(
-            index.tree.node_lo, index.tree.node_hi, index.tree.rope,
-            index.tree.left_child, index.tree.leaf_perm))
         q_ms = time_ms(lambda: index.query(spheres), reps=5)
         k_ms = time_ms(lambda: index.query(knn), reps=5)
         out[label] = dict(build_ms=build_ms, spatial_query_ms=q_ms,
                           knn_query_ms=k_ms)
         log(f"[time] {label}: build N={N} {build_ms:.2f} ms; "
             f"query(intersects(Spheres)) Q={Q} {q_ms:.2f} ms (the first "
-            f"of the index {first_ms:.2f} ms, with the records' pack, "
-            f"{pack_ms:.3f} ms alone); "
+            f"of the index {first_ms:.2f} ms); "
             f"query(nearest k={K}) Q={Q} {k_ms:.2f} ms  [{card}]")
+    holder.clear()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     rt.BVH(G.Points(pts), policy=policy)
     torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
     log(f"[time] peak device memory of a Points build N={N}: "
-        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+        f"{peak / 2**20:.0f} MiB, {(peak - base) / 2**20:.1f} MiB above the "
+        f"{base / 2**20:.0f} MiB allocated before it  [{card}]")
     return out
+
+
+def same_bits(a, b):
+    """a and b equal bit for bit, NaN by position (the twin's torch.minimum
+    makes an all-ones NaN, the kernel keeps an operand's)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        nan = torch.isnan(a)
+        if not torch.equal(nan, torch.isnan(b)):
+            return False
+        a, b = a[~nan].view(torch.int32), b[~nan].view(torch.int32)
+    return torch.equal(a, b)
+
+
+def same_tree(got, want, label):
+    """Every LBVH field and the records of `got` equal to `want`'s."""
+    import torch
+    from repro_torch.core import lbvh as L
+    for f in L.FIELDS:
+        check(same_bits(getattr(got, f), getattr(want, f)),
+              f"{label}: {f} differs from the twin's")
+    if got.records is not None or want.records is not None:
+        cols = [0, 1, 2, 4, 5, 6]
+        check(same_bits(got.records[:, cols].view(torch.float32),
+                        want.records[:, cols].view(torch.float32))
+              and torch.equal(got.records[:, [3, 7]],
+                              want.records[:, [3, 7]]),
+              f"{label}: the records differ from the twin's")
+
+
+def twin_build(boxes):
+    """The build through the plain twins, on the boxes' device: the key
+    (core.morton's quantize and interleave), the sort, the Karras twin,
+    the tail twin (the RMQ sparse table, the closed forms, pack_nodes)."""
+    import torch
+    from repro_torch.core import lbvh as L
+    from repro_torch.core import morton as M
+    from repro_torch.kernels import lbvh_build as KB
+    from repro_torch.kernels import morton as KM
+    n = boxes.lo.shape[0]
+    key, perm = torch.sort(KM.morton_key_ref(boxes.lo, boxes.hi), stable=True)
+    first, last, gamma = KB.karras_ranges_fused(*M.key_lanes(key), n,
+                                                KB.max_log2(n))
+    *fields, records = KB.lbvh_tail_ref(first, last, gamma, perm, boxes.lo,
+                                        boxes.hi)
+    return L._with_records(L.LBVH(*fields, first), records)
+
+
+def tail_bytes(n, dim, records):
+    """Bytes the tail must move, each input read once and each output
+    written once: the ranges (3 int32 an internal node), the permutation
+    (int64) and the leaf boxes; the node boxes, links, ropes, range_last,
+    leaf_perm and (3-D) the 32-byte records."""
+    inputs = 12 * (n - 1) + 8 * n + 2 * dim * 4 * n
+    outputs = (2 * dim * 4 * (2 * n - 1) + 8 * (n - 1) + 8 * (2 * n - 1)
+               + 4 * n + (32 * (2 * n - 1) if records else 0))
+    return inputs + outputs
+
+
+def phase_build_path(dev, pts, box_lo, box_hi, policy, card):
+    """The card's builds node for node against the twins on the card:
+    BVH(Points | Boxes | Triangles) at N = 2^20, a build over points with
+    NaN coordinates, and a refit; then the tail kernel timed through its
+    wrapper and alone beside its twin and its bytes bound. Returns the
+    kernels line's record of the tail."""
+    import dataclasses
+    import torch
+    import repro_torch as rt
+    from repro_torch.core import geometry as G
+    from repro_torch.core import lbvh as L
+    from repro_torch.core import morton as M
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import lbvh_build as KB
+    from repro_torch.kernels import morton as KM
+    t0 = time.perf_counter()
+    a, b, c, _, _ = make_soup(dev)
+    for label, values in (("points", G.Points(pts)),
+                          ("boxes", G.Boxes(box_lo, box_hi)),
+                          ("triangles", G.Triangles(a, b, c))):
+        got = rt.BVH(values, policy=policy).tree
+        same_tree(got, twin_build(G.to_boxes(values)), label)
+        log(f"[build] {label} N={N}: BVH's tree identical to the twins' on "
+            "the card, every field and the node records (tolerance 0, NaN by "
+            "place)")
+    del a, b, c
+    nan_pts = pts.clone()
+    nan_pts[7, 0] = float("nan")
+    nan_pts[N // 2, 2] = float("nan")
+    nan_boxes = G.Boxes(nan_pts, nan_pts)
+    got = L.build(nan_boxes)
+    want = twin_build(nan_boxes)
+    same_tree(got, want, "NaN points")
+    check(bool(torch.isnan(got.node_lo[0]).any()),
+          "NaN points: the root box lost the NaN")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    moved = pts + 0.002 * torch.randn(pts.shape, generator=gen, device=dev)
+    tree = L.build(G.Boxes(pts, pts))
+    refit = L.refit(tree, G.Boxes(moved, moved))
+    twin_lo, twin_hi, twin_rec = KB.lbvh_refit_ref(
+        tree.left_child, tree.right_child, tree.rope, tree.range_first,
+        tree.range_last, tree.leaf_perm, moved, moved)
+    same_tree(refit, L._with_records(dataclasses.replace(
+        tree, node_lo=twin_lo, node_hi=twin_hi), twin_rec), "refit")
+    log(f"[build] NaN coordinates (2 points) and a refit of the points "
+        f"(moved by N(0, 0.002^2)) N={N}: identical to the twins (NaN by "
+        "place); the root box is NaN where a point is")
+
+    # the tail kernel over the Boxes build's ranges
+    key, perm = torch.sort(KM.morton_key(box_lo, box_hi), stable=True)
+    first, last, gamma = KB.karras_ranges(*M.key_lanes(key), N,
+                                          KB.max_log2(N))
+    args = (first, last, gamma, perm, box_lo, box_hi)
+    ms = time_ms(lambda: KB.lbvh_tail(*args), reps=20)
+    out = KB.lbvh_tail(*args)
+    scratch = torch.empty((4 * N - 3,), dtype=torch.int32, device=dev)
+    entry = _build.function("lbvh_tail", "lbvh_tail_launch", KB._TAIL_ARGS)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [t.data_ptr() for t in args] + [N, 3] + \
+        [t.data_ptr() for t in out] + [scratch.data_ptr(), stream]
+    alone = time_ms(lambda: entry(*ptrs), reps=20)
+    dev_ms = kernel_ms(lambda: entry(*ptrs), ("climb_kernel3",), reps=10)
+    link_ms = kernel_ms(lambda: entry(*ptrs), ("link_kernel",), reps=10)
+    plain = time_ms(lambda: KB.lbvh_tail_ref(*args), reps=3)
+    want = KB.lbvh_tail_ref(*args)
+    torch.cuda.synchronize()
+    for g, w, f in zip(out, want, L.FIELDS[:7] + ("records",)):
+        check(same_bits(g, w), f"lbvh_tail: {f} differs from its twin")
+    b_ms, b_by = bound(tail_bytes(N, 3, True), 0)
+    rmq = time_ms(lambda: KB.aabb_rmq(box_lo[perm], box_hi[perm], first,
+                                      last, KB.max_log2(N)), reps=3)
+    log(f"[build] lbvh_tail N={N} boxes: identical to its twin; "
+        f"{ms:.4f} ms through the wrapper, the C entry alone {alone:.4f} ms "
+        f"(device: link_kernel {fmt_ms(link_ms)}, climb_kernel3 "
+        f"{fmt_ms(dev_ms)}); twin "
+        f"{plain:.3f} ms (its aabb_rmq alone {rmq:.3f} ms); bound "
+        f"{b_ms:.4f} ms ({b_by}); phase {time.perf_counter() - t0:.1f} s  "
+        f"[{card}]")
+    return dict(source="src/repro_torch/csrc/lbvh_tail.cu",
+                replaces="src/repro/core/lbvh.py:247", max_abs_err=0,
+                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
 
 
 def profile_window(label, fn, card, share_of=None):
@@ -827,6 +1000,11 @@ def profile_window(label, fn, card, share_of=None):
         log(f"[profile]   {share_of}: {us / 1e3:.3f} ms in "
             f"{sum(r[2] for r in mine)} launches, {100 * us / busy:.1f} % of "
             f"device time")
+
+
+def fmt_ms(ms):
+    """A device time from kernel_ms for a log line."""
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def kernel_ms(fn, keys, reps):
@@ -1128,7 +1306,8 @@ def dbscan_walks(coords, is_core, counts, policy, card):
             f"(callback_kernel3<{ep}>: "
             f"{_registers('bvh_callback', f'callback_kernel3<{ep}>')}, "
             f"profiler device time); the wrapper's steps: {steps}; the node "
-            f"records {pack_ms:.3f} ms once per tree, kept as LBVH.records; twin "
+            f"records written by the build (pack_nodes alone {pack_ms:.3f} "
+            f"ms); twin "
             f"{plain:.1f} ms; {stats['visits'] / n:.1f} node visits and "
             f"{hits / n:.2f} leaf hits per query, leaf gathers "
             f"{hits / n * LEAF_BYTES_BEFORE[name]:.1f} -> "
@@ -1545,7 +1724,8 @@ def phase_rays(dev, box_lo, box_hi, policy, card):
         f"(CUDA events, records kept); bound at k=4 {kb_ms:.4f} ms "
         f"({kb_by}; {hits4} hits); ray_knn_kernel<Records3, LeafTriangle3, "
         f"KeyList 4> {regs}; packs: value records {pack_ms:.3f} ms "
-        f"({N * 48} bytes), node records {node_pack_ms:.3f} ms  [{card}]")
+        f"({N * 48} bytes); the node records come with the build "
+        f"(pack_nodes alone {node_pack_ms:.3f} ms)  [{card}]")
     knn_record = dict(source="src/repro_torch/csrc/ray_knn.cu",
                       replaces="src/repro/core/engine.py:590",
                       max_abs_err=0.0, ms=knn_ms[4], plain_ms=knn_plain,
@@ -1778,11 +1958,28 @@ def phase_ops_main(pts, qc):
     return launches, codes, knn
 
 
-def phase_morton(dev, pts, codes, card):
-    """The Morton kernel bit-identical to its twin (core.morton.morton64,
-    the LBVH build's encoder) on every point of the search cloud and of a
-    sweep of dims, timed beside its bound and the twin."""
+def key_bound(n, dim, reads, total=64):
+    """The build instance: `reads` distinct (N, dim) float32 arrays read
+    once (1 when a Points build passes one array as both corners), one
+    int64 key written; per point the centroid (2 operations a dimension),
+    the quantization (7) and 3 per interleaved bit."""
+    from repro_torch.core.morton import bits_per_dim
+    bits = min(bits_per_dim(dim, total) * dim, total)
+    return bound(reads * n * dim * 4 + n * 8, n * (9 * dim + 3 * bits))
+
+
+def phase_morton(dev, pts, box_lo, box_hi, codes, card):
+    """The Morton kernel bit-identical to its twins: the stand-alone op
+    (``core.morton.morton64``) on every point of the search cloud and of a
+    sweep of dims, and the build instance (``morton_key_ref``: the
+    centroids, their scene, the codes and the sort key) at 64 and 32 bits
+    over the main path's Boxes and Points inputs and the sweep of dims;
+    each timed through its wrapper, its C entry alone and its kernels'
+    device time, beside its bound and the twin. Returns the kernels
+    line's record: the build instance over the Boxes build's inputs."""
     import torch
+    from repro_torch.core.morton import bits_per_dim
+    from repro_torch.kernels import _build
     from repro_torch.kernels import morton as KM
     lo, hi = pts.amin(0), pts.amax(0)
     want, plain = timed_once(lambda: KM.morton64_ref(pts, lo, hi))
@@ -1792,10 +1989,18 @@ def phase_morton(dev, pts, codes, card):
           "morton64: the hi lane is unused or out of the uint32 range")
     ms = time_ms(lambda: KM.morton64(pts, lo, hi), reps=50)
     plain = time_ms(lambda: KM.morton64_ref(pts, lo, hi), reps=3)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fn = _build.function("morton", "morton64_launch", KM._ARGS)
+    oh, ol = torch.empty_like(codes[0]), torch.empty_like(codes[1])
+    op_args = (pts.data_ptr(), lo.data_ptr(), hi.data_ptr(), N, 3,
+               bits_per_dim(3), oh.data_ptr(), ol.data_ptr(), stream)
+    alone = time_ms(lambda: fn(*op_args), reps=50)
+    dev_ms = kernel_ms(lambda: fn(*op_args), ("lanes_kernel",), reps=20)
     b_ms, b_by = morton_bound(N, 3)
-    log(f"[morton] N={N} dim 3: all points identical to twin (tolerance 0); "
-        f"{ms:.4f} ms vs twin {plain:.3f} ms; bound {b_ms:.4f} ms ({b_by})  "
-        f"[{card}]")
+    log(f"[morton] op N={N} dim 3: all points identical to twin (tolerance "
+        f"0); {ms:.4f} ms through the wrapper, the C entry alone "
+        f"{alone:.4f} ms, lanes_kernel's device time {fmt_ms(dev_ms)}; twin "
+        f"{plain:.3f} ms; bound {b_ms:.4f} ms ({b_by})  [{card}]")
     gen = torch.Generator(device=dev).manual_seed(SEED + 17)
     for dim in (1, 2, 4, 6, 10):
         x = torch.rand((MORTON_DIMS_N, dim), generator=gen, device=dev)
@@ -1806,13 +2011,53 @@ def phase_morton(dev, pts, codes, card):
               f"morton64 differs from its twin at dim {dim}")
         check(dim == 1 or bool((got[0] > 0).any()),
               f"morton64 dim {dim}: the hi lane is unused")
+        for bits in (64, 32):
+            check(torch.equal(KM.morton_key(x, x + 0.01, bits),
+                              KM.morton_key_ref(x, x + 0.01, bits)),
+                  f"morton_key differs from its twin at dim {dim}, {bits} "
+                  "bits")
         dms = time_ms(lambda: KM.morton64(x, xlo, xhi), reps=20)
-        log(f"[morton] N={MORTON_DIMS_N} dim {dim}: identical to twin; "
-            f"{dms:.4f} ms; bound {morton_bound(MORTON_DIMS_N, dim)[0]:.4f} ms")
-    return dict(source="src/repro_torch/csrc/morton.cu",
-                replaces="src/repro/kernels/morton.py:59", max_abs_err=0,
-                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+        kms = time_ms(lambda: KM.morton_key(x, x + 0.01), reps=20)
+        log(f"[morton] N={MORTON_DIMS_N} dim {dim}: the op and the build "
+            f"instance (64 and 32 bits) identical to their twins; the op "
+            f"{dms:.4f} ms (bound "
+            f"{morton_bound(MORTON_DIMS_N, dim)[0]:.4f}), the build "
+            f"instance {kms:.4f} ms (bound "
+            f"{key_bound(MORTON_DIMS_N, dim, 2)[0]:.4f})")
+
+    kfn = _build.function("morton", "morton_key_launch", KM._KEY_ARGS)
+    parts = KM.key_scratch(3, dev)
+    key = torch.empty((N,), dtype=torch.int64, device=dev)
+    record = None
+    for label, blo, bhi, reads in (("boxes", box_lo, box_hi, 2),
+                                   ("points", pts, pts, 1)):
+        for bits in (64, 32):
+            got = KM.morton_key(blo, bhi, bits)
+            twin = KM.morton_key_ref(blo, bhi, bits)
+            check(torch.equal(got, twin), f"morton_key differs from its twin "
+                  f"over the {label} build's inputs at {bits} bits")
+            k_ms = time_ms(lambda: KM.morton_key(blo, bhi, bits), reps=50)
+            k_args = (blo.data_ptr(), bhi.data_ptr(), N, 3, bits,
+                      parts.data_ptr(), key.data_ptr(), stream)
+            k_alone = time_ms(lambda: kfn(*k_args), reps=50)
+            scene_ms = kernel_ms(lambda: kfn(*k_args), ("scene",), reps=20)
+            key_ms = kernel_ms(lambda: kfn(*k_args), ("key_kernel",), reps=20)
+            k_plain = time_ms(lambda: KM.morton_key_ref(blo, bhi, bits),
+                              reps=3)
+            kb_ms, kb_by = key_bound(N, 3, reads, bits)
+            log(f"[morton] build instance, {label} N={N} dim 3, {bits} bits: "
+                f"identical to twin; {k_ms:.4f} ms through the wrapper, the "
+                f"C entry alone {k_alone:.4f} ms (device: scene_kernel and "
+                f"scene_final {fmt_ms(scene_ms)}, key_kernel {fmt_ms(key_ms)}); twin "
+                f"{k_plain:.3f} ms; bound {kb_ms:.4f} ms ({kb_by})"
+                f"  [{card}]")
+            if record is None:
+                record = dict(source="src/repro_torch/csrc/morton.cu",
+                              replaces="src/repro/kernels/morton.py:59",
+                              max_abs_err=0, ms=k_ms, plain_ms=k_plain,
+                              bound_ms=kb_ms, bound_by=kb_by,
+                              library_ms=None)
+    return record
 
 
 def _library_knn(q, p, k):
@@ -2256,6 +2501,8 @@ def main():
                                                         box_hi, qc)
     phase_timings(dev, pts, box_lo, box_hi, spheres, knn, policy, card)
     phase_profile(pts, spheres, knn, policy, card)
+    records["lbvh_tail"] = phase_build_path(dev, pts, box_lo, box_hi, policy,
+                                            card)
     cb_err = phase_callback_kernel(dev, pts, box_lo, box_hi, qc, policy, card)
     db_launches, record = phase_dbscan(dev, policy, card)
     # the walk the DBSCAN path launches most, with the largest difference
@@ -2274,8 +2521,10 @@ def main():
     records["ray_box_nearest"] = box_record
     launches["ray_box_nearest"] = ray_launches["ray_box_nearest"]
     ops_launches, codes, knn_out = phase_ops_main(pts, qc)
-    launches.update(ops_launches)
-    records["morton64"] = phase_morton(dev, pts, codes, card)
+    # morton64: the builds' launches on the main path and the op's
+    launches["morton64"] += ops_launches["morton64"]
+    launches["bruteforce_knn"] = ops_launches["bruteforce_knn"]
+    records["morton64"] = phase_morton(dev, pts, box_lo, box_hi, codes, card)
     records["bruteforce_knn"] = phase_bruteforce(dev, pts, qc, knn_out,
                                                  policy, card)
     del codes, knn_out
@@ -2283,7 +2532,8 @@ def main():
     records["flash_attention"] = phase_flash(dev, card)
     launches.update(phase_lm(dev, card))
     kernels = []
-    for kname in ("karras_ranges", "bvh_traverse_spatial", "bvh_traverse_knn",
+    for kname in ("karras_ranges", "lbvh_tail", "bvh_traverse_spatial",
+                  "bvh_traverse_knn",
                   "bvh_traverse_ray_knn", "bvh_traverse_callback",
                   "bvh_traverse_callback_rays",
                   "ray_box_nearest", "morton64", "bruteforce_knn",

@@ -1,13 +1,19 @@
-"""LBVH construction: Morton sort, Karras ranges, Apetrei links, RMQ
-AABBs and ropes in closed form, as in ``repro.core.lbvh`` (its fused
-build with ``refit="rmq"``).
+"""LBVH construction: Morton sort, Karras ranges, Apetrei links, AABBs
+and ropes in closed form, as in ``repro.core.lbvh`` (its fused build).
 
-  1. Morton codes of the box centroids, stable sort;
-  2. node ranges and splits: ``kernels.lbvh_build.karras_ranges`` (the
-     CUDA kernel on the card, its plain twin on the CPU);
-  3. links in O(1) per node from range and split;
-  4. internal AABBs as range minima over a sparse table;
-  5. ropes: rope(node covering [f, l]) = right_child(split_owner(l)).
+  1. the sort key of each leaf: the Morton code of its box's centroid in
+     the centroids' scene (``kernels.morton.morton_key``), stable sort;
+  2. node ranges and splits: ``kernels.lbvh_build.karras_ranges``;
+  3. the tail (``kernels.lbvh_build.lbvh_tail``): links in O(1) per node
+     from range and split, every node's box, the ropes (rope(node covering
+     [f, l]) = right_child(split_owner(l))) and, in 3-D, the node records
+     the 3-D walks read.
+
+Each step launches its CUDA kernel on the card (``csrc/morton.cu``,
+``karras.cu``, ``lbvh_tail.cu``: the tail climbs bottom up, as ArborX
+builds) and runs its plain twin on the CPU (the reference's quantize and
+interleave, its Karras searches, its RMQ sparse table with
+``refit="rmq"``).
 
 Node numbering: internal 0..N-2 (root 0), leaves N-1..2N-2 (leaf id =
 N-1 + sorted position); rope -1 ends the walk. Every field equals the
@@ -21,12 +27,11 @@ import functools
 import torch
 
 from ..kernels import lbvh_build as K
+from ..kernels import morton as KM
 from . import morton as M
 from .geometry import Boxes
 
 __all__ = ["LBVH", "build", "refit", "sah_cost", "FIELDS"]
-
-SENTINEL = -1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,8 +65,10 @@ class LBVH:
     def records(self):
         """The (2N-1, 8) int32 node records of a 3-D tree that the 3-D
         instances of the spatial, callback and kNN kernels read
-        (``kernels.bvh_traverse.pack_nodes``), made at first use and kept
-        with the tree; None in other dims."""
+        (``kernels.bvh_traverse.pack_nodes``): written by the build and the
+        refit, made at first use for a tree made otherwise (``.to()``,
+        ``convert.lbvh_from_numpy``), and kept with the tree; None in
+        other dims."""
         from ..kernels.bvh_traverse import pack_nodes
         if self.dim != 3:
             return None
@@ -72,77 +79,47 @@ class LBVH:
 FIELDS = tuple(f.name for f in dataclasses.fields(LBVH))
 
 
-def _max_log2(n: int) -> int:
-    return max((n - 1).bit_length(), 1)
+def _with_records(tree: LBVH, records) -> LBVH:
+    """Keep the records the tail made where ``LBVH.records`` caches its
+    value (the instance's ``__dict__``)."""
+    if records is not None:
+        tree.__dict__["records"] = records
+    return tree
 
 
 def build(boxes: Boxes, *, bits: int = 64) -> LBVH:
-    """Build an LBVH over N >= 2 leaf boxes on the boxes' device, with the
-    RMQ sparse-table refit (the reference's ``refit="rmq"``).
+    """Build an LBVH over N >= 2 leaf boxes on the boxes' device (the
+    reference's ``refit="rmq"`` tree; every refit gives the same floats).
 
     bits: 32 or 64 (Morton code width; 64 is the ArborX 2.0 default)."""
     if bits not in (32, 64):
         raise ValueError(f"bits must be 32 or 64, got {bits}")
-    leaf_lo_u, leaf_hi_u = boxes.lo, boxes.hi
-    n, _ = leaf_lo_u.shape
+    n = boxes.lo.shape[0]
     if n < 2:
         raise ValueError("LBVH requires N >= 2 (the BVH handles N in {0, 1})")
-    dev = leaf_lo_u.device
-    max_log2 = _max_log2(n)
-
-    centroids = 0.5 * (leaf_lo_u + leaf_hi_u)
-    scene_lo, scene_hi = centroids.amin(0), centroids.amax(0)
-    morton = M.morton64 if bits == 64 else M.morton32
-    codes = morton(centroids, scene_lo, scene_hi)
-    perm0 = torch.arange(n, dtype=torch.int64, device=dev)
-    codes_s, perm = M.sort_by_morton(codes, perm0)
-    hi, lo, idx = M.combined_delta_key(codes_s, n)
-    del codes, codes_s
-
-    leaf_lo = leaf_lo_u[perm]
-    leaf_hi = leaf_hi_u[perm]
-
-    first, last, gamma = K.karras_ranges(hi, lo, idx, n, max_log2)
+    key = KM.morton_key(boxes.lo, boxes.hi, bits)
+    key, perm = torch.sort(key, stable=True)
+    hi, lo, idx = M.key_lanes(key)
+    del key
+    first, last, gamma = K.karras_ranges(hi, lo, idx, n, K.max_log2(n))
     del hi, lo, idx
-
-    # Apetrei links: the child at gamma / gamma+1 is a leaf exactly when it
-    # coincides with the range end
-    left_child = torch.where(gamma == first, (n - 1) + gamma, gamma).to(torch.int32)
-    right_child = torch.where(gamma + 1 == last, (n - 1) + gamma + 1,
-                              gamma + 1).to(torch.int32)
-
-    int_lo, int_hi = K.aabb_rmq(leaf_lo, leaf_hi, first, last, max_log2)
-    node_lo = torch.cat([int_lo, leaf_lo], 0)
-    node_hi = torch.cat([int_hi, leaf_hi], 0)
-    del int_lo, int_hi
-
-    # ropes in closed form: the splits are a bijection onto [0, N-2]
-    split_owner = torch.zeros((n - 1,), dtype=torch.int64, device=dev)
-    split_owner[gamma.to(torch.int64)] = torch.arange(n - 1, device=dev)
-    leaf_pos = torch.arange(n, dtype=torch.int32, device=dev)
-    range_last = torch.cat([last, leaf_pos]).to(torch.int32)
-    safe_last = torch.clamp(range_last, 0, n - 2).to(torch.int64)
-    rope = torch.where(range_last >= n - 1, SENTINEL,
-                       right_child[split_owner[safe_last]]).to(torch.int32)
-
-    return LBVH(node_lo, node_hi, left_child, right_child, rope, range_last,
-                perm.to(torch.int32), first.to(torch.int32))
+    *fields, records = K.lbvh_tail(first, last, gamma, perm, boxes.lo,
+                                   boxes.hi)
+    return _with_records(LBVH(*fields, first), records)
 
 
 def refit(tree: LBVH, boxes: Boxes) -> LBVH:
-    """Recompute every AABB for new leaf boxes (original index order, as
-    the build input), keeping the topology: one RMQ pass, no sort."""
+    """Recompute every AABB (and the records) for new leaf boxes (original
+    index order, as the build input), keeping the topology: no sort."""
     n = tree.num_leaves
     if boxes.lo.shape[0] != n:
         raise ValueError(f"refit needs the same leaf count (tree has {n}, "
                          f"got {boxes.lo.shape[0]}); rebuild instead")
-    perm = tree.leaf_perm.to(torch.int64)
-    leaf_lo = boxes.lo[perm]
-    leaf_hi = boxes.hi[perm]
-    int_lo, int_hi = K.aabb_rmq(leaf_lo, leaf_hi, tree.range_first,
-                                tree.range_last[:n - 1], _max_log2(n))
-    return dataclasses.replace(tree, node_lo=torch.cat([int_lo, leaf_lo], 0),
-                               node_hi=torch.cat([int_hi, leaf_hi], 0))
+    node_lo, node_hi, records = K.lbvh_refit(
+        tree.left_child, tree.right_child, tree.rope, tree.range_first,
+        tree.range_last, tree.leaf_perm, boxes.lo, boxes.hi)
+    return _with_records(dataclasses.replace(tree, node_lo=node_lo,
+                                             node_hi=node_hi), records)
 
 
 def _surface_measure(lo, hi):

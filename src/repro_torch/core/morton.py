@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["quantize", "morton32", "morton64", "sort_by_morton",
-           "combined_delta_key", "delta_from_keys", "bits_per_dim"]
+           "combined_delta_key", "delta_from_keys", "bits_per_dim", "key_of",
+           "key_lanes"]
 
 _U32_MAX = (1 << 32) - 1
 
@@ -79,17 +80,33 @@ def morton64(coords, scene_lo=None, scene_hi=None):
     return _interleave(quantize(coords, scene_lo, scene_hi, bits), bits, 64)
 
 
-def sort_by_morton(codes, aux: torch.Tensor):
-    """Stable sort by Morton code; `codes` is a (lo,) tensor or an (hi, lo)
-    pair. Returns (sorted_codes, permuted_aux).
-
-    The pair sorts as ONE int64 key: ``(hi - 2^31) << 32 | lo`` maps the
-    unsigned 64-bit order onto the signed order, so codes with bit 63 set
-    (dim 4 and dim 8 use all 64 bits) still sort last."""
+def key_of(codes) -> torch.Tensor:
+    """The (N,) int64 sort key of Morton codes, a (lo,) tensor (32-bit, hi
+    taken as 0) or an (hi, lo) pair: ``(hi - 2^31) << 32 | lo``, the signed
+    image of code ^ 2^63, which maps the unsigned 64-bit order onto the
+    signed order, so codes with bit 63 set (dim 4 and dim 8 use all 64
+    bits) still sort last."""
     if isinstance(codes, tuple):
         hi, lo = codes
-        key = ((hi - (1 << 31)) << 32) + lo
-        order = torch.sort(key, stable=True).indices
+    else:
+        hi, lo = torch.zeros_like(codes), codes
+    return ((hi - (1 << 31)) << 32) + lo
+
+
+def key_lanes(key: torch.Tensor):
+    """(hi, lo, idx) lanes of the 96-bit augmented keys (as
+    :func:`combined_delta_key`) from sorted :func:`key_of` keys."""
+    idx = torch.arange(key.shape[0], dtype=torch.int64, device=key.device)
+    return (key >> 32) + (1 << 31), key & _U32_MAX, idx
+
+
+def sort_by_morton(codes, aux: torch.Tensor):
+    """Stable sort by Morton code; `codes` is a (lo,) tensor or an (hi, lo)
+    pair. Returns (sorted_codes, permuted_aux). The pair sorts as ONE
+    int64 key (:func:`key_of`)."""
+    if isinstance(codes, tuple):
+        hi, lo = codes
+        order = torch.sort(key_of(codes), stable=True).indices
         return (hi[order], lo[order]), aux[order]
     order = torch.sort(codes, stable=True).indices
     return codes[order], aux[order]

@@ -148,6 +148,17 @@ def test_wrappers_refuse_other_devices():
     k = torch.zeros((8,), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         TK.karras_ranges(k, k, k, 8, 3)
+    with pytest.raises(ValueError, match="no kernel"):
+        TM.morton_key(meta["node_lo"], meta["node_hi"])
+    with pytest.raises(ValueError, match="no kernel"):
+        TK.lbvh_tail(meta["range_first"], meta["range_first"],
+                     meta["range_first"], meta["leaf_perm"],
+                     meta["node_lo"][:32], meta["node_hi"][:32])
+    with pytest.raises(ValueError, match="no kernel"):
+        TK.lbvh_refit(meta["left_child"], meta["right_child"], meta["rope"],
+                      meta["range_first"], meta["range_last"],
+                      meta["leaf_perm"], meta["node_lo"][:32],
+                      meta["node_hi"][:32])
     cb, s0 = CB.counting()
     with pytest.raises(ValueError, match="no kernel"):
         TC.bvh_traverse_callback(
@@ -170,8 +181,9 @@ def test_wrappers_have_no_try_and_count_only_kernel_launches():
     t, x = _tree_args()
     before = (TK.karras_ranges.launches, TT.bvh_traverse_spatial.launches,
               TT.bvh_traverse_knn.launches, TC.bvh_traverse_callback.launches,
-              TR.ray_box_nearest.launches)
-    TL.build(TG.Boxes(x, x))
+              TR.ray_box_nearest.launches, TK.lbvh_tail.launches,
+              TM.morton64.launches)
+    TL.refit(TL.build(TG.Boxes(x, x)), TG.Boxes(x, x))
     TT.bvh_traverse_knn(t.node_lo, t.node_hi, t.rope, t.left_child,
                         t.leaf_perm, x[:3], k=2)
     cb, s0 = CB.counting()
@@ -184,7 +196,8 @@ def test_wrappers_have_no_try_and_count_only_kernel_launches():
     TR.ray_box_nearest(x[:3], x[:3], x, x + 0.1)
     assert (TK.karras_ranges.launches, TT.bvh_traverse_spatial.launches,
             TT.bvh_traverse_knn.launches, TC.bvh_traverse_callback.launches,
-            TR.ray_box_nearest.launches) == before
+            TR.ray_box_nearest.launches, TK.lbvh_tail.launches,
+            TM.morton64.launches) == before
 
 
 # ---------------------------------------------------------------------------
@@ -206,10 +219,16 @@ def test_wrappers_on_the_card_never_call_the_twins(cuda_device, monkeypatch):
     monkeypatch.setattr(TT, "bvh_traverse_spatial_ref", boom)
     monkeypatch.setattr(TT, "bvh_traverse_knn_ref", boom)
     monkeypatch.setattr(TK, "karras_ranges_fused", boom)
+    monkeypatch.setattr(TK, "lbvh_tail_ref", boom)
+    monkeypatch.setattr(TK, "lbvh_refit_ref", boom)
+    monkeypatch.setattr(TK, "aabb_rmq", boom)
+    monkeypatch.setattr(TM, "morton_key_ref", boom)
+    monkeypatch.setattr(M, "_interleave", boom)
     monkeypatch.setattr(TC, "bvh_traverse_callback_ref", boom)
     monkeypatch.setattr(TR, "ray_box_nearest_ref", boom)
     x = torch.rand((500, 3), device=cuda_device)
     t = TL.build(TG.Boxes(x, x))
+    TL.refit(t, TG.Boxes(x, x + 0.01))
     r = torch.full((20,), 0.1, device=cuda_device)
     c, _ = TT.bvh_traverse_spatial(t.node_lo, t.node_hi, t.rope, t.left_child,
                                    t.range_last, t.leaf_perm, x[:20], x[:20], r,

@@ -116,6 +116,33 @@ Phases (one line or more each, then the two closing lines):
      stages, splits and registers, and the device time of its second
      kernel, the decode pass.
 
+ 10b. serve (slice 12): ``QueryServer`` on the card
+     (``ServiceConfig(capacity=64, min_bucket=8, max_bucket=4096)``) over
+     "cloud" (the search points) and "scene" (the soup's 2^20
+     triangles); every bucket from 8 to 4096 warmed for within (r =
+     0.0132), kNN (k = 10) and rays (k = 1 and 4); then 1,000 seeded
+     mixed requests of 1-512 rows in handle() calls of 8, with every twin
+     of the path made to raise: no cache miss and no library load after
+     the warm-up, one kernel launch per group, every response equal to
+     ``BVH.query`` (kernel route) on the version it reports. Each
+     bucket's handle() time beside the wrapper's (CUDA events), its
+     device time with the stream held by a spin (``device_ms``) and the
+     kernel's under the profiler, for kNN and within; the
+     ``engine.kernel`` span's kernel_us with telemetry on against CUDA
+     events, and its Chrome trace through ``validate_chrome_trace``;
+     three refits (N(0, 0.002^2) moves) and a rebuild (N - 1 points)
+     through ``IndexStore.update``. Then a ``ServingPipeline`` over an
+     ``IndexStore(keep_versions=64)``: 4 closed-loop clients of 500
+     requests each (half with 20 ms deadlines) while the maintenance
+     stream moves "cloud" 20 times by steps that add up, as in
+     ``examples/moving_points_service.py`` (a refit each, or a rebuild
+     when the SAH monitor says the tree has degraded: at least one), and
+     rebuilds it at N - 1: every ticket served, no failure, no stall
+     behind maintenance, versions monotone per client, two responses per
+     (index, version, kind) equal to ``BVH.query`` on that version; p50
+     / p99 latency, miss rate, occupancy, requests/s. Counters are zeroed
+     before each of its serving runs and read after; the phase logs and
+     checks its own launches, which stay out of the kernels line.
  11. ops (slice 4's main path): ``kernels.ops.morton64`` over the 2^20
      search points and ``kernels.ops.bruteforce_knn`` of 2^13 of the
      queries against them (k = 10), the two launch counters zeroed just
@@ -179,6 +206,8 @@ import re
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -1026,6 +1055,36 @@ def kernel_ms(fn, keys, reps):
              if e.device_type == torch.autograd.DeviceType.CUDA
              and all(k in e.key for k in keys))
     return us / 1e3 / reps if us else None
+
+
+#: cycles of the spin that holds the stream in device_ms (about 50 ms at
+#: the H100's 1.98 GHz)
+SPIN_CYCLES = 10 ** 8
+
+
+def device_ms(fn, reps):
+    """Mean device milliseconds per call of fn, without the profiler: a
+    spin kernel holds the stream while the host enqueues `reps` calls, so
+    the events between them time the device's work alone, host gaps
+    excluded. None when the host took longer to enqueue than the spin
+    held the stream (or fn waited for the device)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    held, start, stop = (torch.cuda.Event(enable_timing=True)
+                         for _ in range(3))
+    held.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    stop.record()
+    torch.cuda.synchronize()
+    if host_ms >= held.elapsed_time(start):
+        return None
+    return start.elapsed_time(stop) / reps
 
 
 def phase_profile(pts, spheres, knn, policy, card):
@@ -2487,6 +2546,466 @@ def phase_lm(dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 12: the serving path (QueryServer, ServingPipeline, telemetry)
+# ---------------------------------------------------------------------------
+
+SERVE_CAPACITY = 64
+SERVE_MIN_BUCKET = 8
+SERVE_MAX_BUCKET = 4096
+SERVE_REQUESTS = 1000    # mixed requests through QueryServer.handle
+SERVE_PER_CALL = 8       # requests per handle() call
+SERVE_MAX_ROWS = 512
+SERVE_RAY_KS = (1, 4)
+SERVE_CLIENTS = 4
+SERVE_PER_CLIENT = 500
+SERVE_DEADLINE_US = 20_000.0
+SERVE_REFITS = 20
+SERVE_MOVE_SIGMA = 0.002
+SERVE_KEEP_VERSIONS = 64
+SERVE_SAMPLES = 2        # responses held per (index, version, kind)
+
+
+def _serve_request(rng, kind, m, k):
+    """One seeded request: kNN and within over "cloud" (uniform query
+    points, r = RADIUS), rays over "scene" (uniform origins,
+    standard-normal directions)."""
+    from repro_torch.service import knn_request, ray_request, within_request
+    a = rng.uniform(0, 1, (m, 3)).astype(np.float32)
+    if kind == "knn":
+        return knn_request(a, k, "cloud")
+    if kind == "within":
+        return within_request(a, RADIUS, "cloud")
+    return ray_request(a, rng.standard_normal((m, 3)).astype(np.float32), k,
+                       "scene")
+
+
+def _serve_draw(rng):
+    """(kind, k) of one request of the mix: a third each of kNN (k = K),
+    within and rays (k = 1 or 4)."""
+    kind = ("knn", "within", "ray")[int(rng.integers(0, 3))]
+    k = K if kind == "knn" else 0 if kind == "within" else \
+        int(rng.choice(SERVE_RAY_KS))
+    return kind, k
+
+
+def _direct(index, req, dev):
+    """The same request through BVH.query on `index` with the kernel route
+    forced (the route the server reports): (counts or t, idx) on the host."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.core import geometry as G
+    from repro_torch.core import predicates as P
+    pol = rt.ExecutionPolicy(engine=rt.QueryEngine(rt.EngineConfig(
+        force="kernel")))
+    a = torch.tensor(req.a, device=dev)
+    if req.kind == "within":
+        res = index.query(rt.intersects(G.Spheres(
+            a, torch.tensor(req.b, device=dev))), policy=pol)
+        counts = res.offsets.diff().cpu().numpy()
+        idx = res.indices.cpu().numpy()
+        off = res.offsets.cpu().numpy()
+        return counts, [idx[off[i]:off[i + 1]] for i in range(len(counts))]
+    if req.kind == "knn":
+        res = index.query(rt.nearest(G.Points(a), k=req.k), policy=pol)
+    else:
+        res = index.query(P.RayNearest(G.Rays(
+            a, torch.tensor(req.b, device=dev)), req.k), policy=pol)
+    return res.distances.cpu().numpy(), res.indices.cpu().numpy()
+
+
+def _same_as_direct(resp, index, req, dev, label):
+    check(resp.stats.route == "kernel",
+          f"{label}: served on route {resp.stats.route}")
+    want = _direct(index, req, dev)
+    if req.kind == "within":
+        counts, rows = want
+        check(np.array_equal(resp.counts, counts),
+              f"{label}: within counts differ from BVH.query")
+        check(resp.overflow == bool((counts > SERVE_CAPACITY).any()),
+              f"{label}: overflow flag")
+        for got, c, row in zip(resp.idxs, counts, rows):
+            if c <= SERVE_CAPACITY:
+                check(np.array_equal(np.sort(got[:c]), np.sort(row))
+                      and (got[c:] == -1).all(),
+                      f"{label}: within index set differs from BVH.query")
+    else:
+        check(np.array_equal(resp.dists, want[0])
+              and np.array_equal(resp.idxs, want[1]),
+              f"{label}: {req.kind} differs from BVH.query")
+
+
+def _twins_raise():
+    """Make every twin of the serving path raise; returns the restorer."""
+    from repro_torch.core import morton as CM
+    from repro_torch.kernels import bvh_traverse as T
+    from repro_torch.kernels import lbvh_build as KB
+    from repro_torch.kernels import morton as KM
+    saved = []
+
+    def boom(*a, **k):
+        raise RuntimeError("a twin ran on the serving path")
+
+    for mod, name in ((T, "bvh_traverse_spatial_ref"),
+                      (T, "bvh_traverse_knn_ref"),
+                      (T, "bvh_traverse_ray_knn_ref"),
+                      (KB, "karras_ranges_fused"), (KB, "lbvh_tail_ref"),
+                      (KB, "lbvh_refit_ref"), (KB, "aabb_rmq"),
+                      (KM, "morton_key_ref"), (CM, "_interleave")):
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, boom)
+
+    def restore():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return restore
+
+
+def phase_serve(dev, pts, card):
+    """QueryServer and ServingPipeline on the card over "cloud" (the search
+    points) and "scene" (the ray phase's triangles). Logs the kernel
+    launches of the serving path (counters zeroed just before each part,
+    read just after), which stay out of the kernels line."""
+    import tempfile
+    import threading
+    import torch
+    from repro_torch import telemetry
+    from repro_torch.core import geometry as G
+    from repro_torch.core import predicates as P
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import bvh_traverse as T
+    from repro_torch.kernels import lbvh_build as KB
+    from repro_torch.kernels import morton as KM
+    from repro_torch.service import (IndexStore, PipelineConfig,
+                                     QueryServer, ServiceConfig,
+                                     ServingPipeline, knn_request,
+                                     ray_request, within_request)
+
+    t_phase = time.perf_counter()
+    counters = {"bvh_traverse_spatial": T.bvh_traverse_spatial,
+                "bvh_traverse_knn": T.bvh_traverse_knn,
+                "bvh_traverse_ray_knn": T.bvh_traverse_ray_knn,
+                "morton64": KM.morton64, "karras_ranges": KB.karras_ranges,
+                "lbvh_tail": KB.lbvh_tail}
+    op_of = {"within": "bvh_traverse_spatial", "knn": "bvh_traverse_knn",
+             "ray": "bvh_traverse_ray_knn"}
+    a, b, c, _, _ = make_soup(dev)
+    svc = ServiceConfig(capacity=SERVE_CAPACITY, min_bucket=SERVE_MIN_BUCKET,
+                        max_bucket=SERVE_MAX_BUCKET)
+    restore = _twins_raise()
+    total = {k: 0 for k in counters}
+
+    def take_counts():
+        out = {k: f.launches for k, f in counters.items()}
+        for k, v in out.items():
+            total[k] += v
+        return out
+
+    def zero():
+        for f in counters.values():
+            f.launches = 0
+
+    try:
+        zero()
+        srv = QueryServer(config=svc)
+        check(srv.store.device.type == "cuda", "QueryServer is not on the card")
+        srv.create_index("cloud", G.Points(pts))
+        srv.create_index("scene", G.Triangles(a, b, c))
+        ladder = []
+        bkt = SERVE_MIN_BUCKET
+        while bkt <= SERVE_MAX_BUCKET:
+            ladder.append(bkt)
+            bkt *= 2
+        t0 = time.perf_counter()
+        for bkt in ladder:
+            z = np.zeros((bkt, 3), np.float32)
+            srv.handle([within_request(z, RADIUS, "cloud"),
+                        knn_request(z, K, "cloud")]
+                       + [ray_request(z, np.ones((bkt, 3), np.float32), k,
+                                      "scene") for k in SERVE_RAY_KS])
+        warm_s = time.perf_counter() - t0
+        eng = srv.engine
+        warm = eng.stats.snapshot()
+        check(warm.cache_misses == 4 * len(ladder), f"warm-up: {warm}")
+        libs, funcs = len(_build._LIBS), len(_build._FUNCS)
+        take_counts()
+
+        # -- 1,000 mixed requests through handle() ----------------------
+        rng = np.random.default_rng(SEED + 41)
+        calls = []
+        for _ in range(SERVE_REQUESTS // SERVE_PER_CALL):
+            reqs = []
+            for _ in range(SERVE_PER_CALL):
+                kind, k = _serve_draw(rng)
+                reqs.append(_serve_request(
+                    rng, kind, int(rng.integers(1, SERVE_MAX_ROWS + 1)), k))
+            calls.append(reqs)
+        zero()
+        groups = {k: 0 for k in op_of.values()}
+        served = []
+        t0 = time.perf_counter()
+        for reqs in calls:
+            for g in srv.batcher.plan(reqs):
+                groups[op_of[g.kind]] += 1
+            served.append(srv.handle(reqs))
+        load_s = time.perf_counter() - t0
+        got = take_counts()
+        after = eng.stats.snapshot()
+        check(after.cache_misses == warm.cache_misses,
+              f"a cache miss after the warm-up: {after}")
+        check((len(_build._LIBS), len(_build._FUNCS)) == (libs, funcs),
+              "a kernel library was loaded after the warm-up")
+        for name, n in groups.items():
+            check(got[name] == n, f"{name}: {got[name]} launches for {n} "
+                  "groups (one a group expected)")
+        check(got["morton64"] == got["karras_ranges"] == got["lbvh_tail"] == 0,
+              "serving launched a build kernel")
+        n_req = 0
+        for reqs, resps in zip(calls, served):
+            for req, resp in zip(reqs, resps):
+                check(resp.stats.cache_hit, "a cold dispatch after warm-up")
+                entry = srv.store.get(resp.stats.index_name,
+                                      resp.stats.index_version)
+                _same_as_direct(resp, entry.bvh, req, dev,
+                                f"handle {req.kind} m={req.m}")
+                n_req += 1
+        log(f"[serve] QueryServer on the card: \"cloud\" {N} points, "
+            f"\"scene\" {N} triangles; warm-up of buckets "
+            f"{SERVE_MIN_BUCKET}-{SERVE_MAX_BUCKET} (within r={RADIUS}, "
+            f"kNN k={K}, rays k={SERVE_RAY_KS}) {warm_s:.2f} s, "
+            f"{warm.cache_misses} cache entries")
+        log(f"[serve] {n_req} mixed requests (m = 1-{SERVE_MAX_ROWS}) in "
+            f"{len(calls)} handle() calls, {load_s:.3f} s "
+            f"({n_req / load_s:.0f} requests/s): 0 cache misses, 0 library "
+            f"loads; launches {json.dumps(got)} for "
+            f"groups {json.dumps(groups)}; no twin; every response equal "
+            "to BVH.query on its version  [" + card + "]")
+
+        # -- handle() against its kernel, bucket by bucket ---------------
+        cloud = srv.store.get("cloud").bvh
+        rows = []
+        for bkt in ladder:
+            q = rng.uniform(0, 1, (bkt, 3)).astype(np.float32)
+            for kind, req in (("knn", knn_request(q, K, "cloud")),
+                              ("within", within_request(q, RADIUS, "cloud"))):
+                walls = []
+                for _ in range(5):
+                    t1 = time.perf_counter()
+                    srv.handle([req])
+                    walls.append((time.perf_counter() - t1) * 1e3)
+                qd = torch.from_numpy(q).to(dev)
+                if kind == "knn":
+                    preds = P.nearest(G.Points(qd), k=K)
+
+                    def launch():
+                        return eng.kernel_knn(cloud, preds)
+                    names = ("knn_kernel",)
+                else:
+                    preds = P.intersects(G.Spheres(qd, torch.full(
+                        (bkt,), RADIUS, device=dev)))
+
+                    def launch():
+                        return eng.kernel_fill(cloud, preds, SERVE_CAPACITY)
+                    names = ("spatial_kernel",)
+                w_ms = time_ms(launch, reps=10)
+                d_ms = device_ms(launch, reps=20)
+                p_ms = kernel_ms(launch, names, reps=5)
+                rows.append((kind, bkt, float(np.median(walls)), w_ms, d_ms,
+                             p_ms))
+        for kind in ("knn", "within"):
+            log(f"[serve] handle() of one {kind} bucket against its kernel "
+                "(bucket: handle() ms / the wrapper's call, CUDA events / "
+                "its device time, the stream held / the kernel under the "
+                "profiler / host share of handle() beyond the device time): "
+                + "; ".join(
+                    f"{bkt}: {h:.3f} / {w:.4f} / {fmt_ms(d)} / {fmt_ms(p)} / "
+                    + ("not measured" if d is None
+                       else f"{100 * (h - d) / h:.1f} %")
+                    for kd, bkt, h, w, d, p in rows if kd == kind)
+                + f"  [{card}]")
+
+        # -- telemetry: the engine.kernel span against CUDA events ------
+        q = rng.uniform(0, 1, (512, 3)).astype(np.float32)
+        preds = P.nearest(G.Points(torch.from_numpy(q).to(dev)), k=K)
+        ev_ms = time_ms(lambda: eng.kernel_knn(cloud, preds), reps=20)
+        tracer = telemetry.enable(capacity=1 << 16)
+        try:
+            kus = [srv.handle([knn_request(q, K, "cloud")])[0].stats.kernel_us
+                   for _ in range(5)]
+            spans = tracer.drain()
+        finally:
+            telemetry.disable()
+        kern = [s for s in spans if s.name == "engine.kernel"]
+        check(len(kern) == 5 and all(s.clock == "device" for s in kern),
+              "engine.kernel spans missing or not device-clocked")
+        check(all(k > 0 for k in kus), "kernel_us is 0 with telemetry on")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "serve_trace.json")
+            telemetry.write_chrome_trace(path, spans)
+            with open(path) as fh:
+                problems = telemetry.validate_chrome_trace(json.load(fh))
+        check(not problems, f"the serve trace is invalid: {problems[:3]}")
+        log(f"[serve] kNN bucket 512: engine.kernel span kernel_us "
+            f"{float(np.median(kus)):.1f} us (median of 5, fenced on the "
+            f"serving stream) vs CUDA events {ev_ms * 1e3:.1f} us; the "
+            f"Chrome trace ({len(spans)} spans) passes "
+            f"validate_chrome_trace  [{card}]")
+
+        # -- refits and a rebuild through the store ----------------------
+        # each move is of the original points (a step's displacement), so
+        # the quality monitor keeps refitting
+        gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+        moves = [pts + SERVE_MOVE_SIGMA * torch.randn(
+            pts.shape, generator=gen, device=dev) for _ in range(3)]
+        torch.cuda.synchronize()
+        zero()
+        refit_ms = []
+        for moved in moves:
+            t1 = time.perf_counter()
+            v = srv.update_index("cloud", G.Points(moved))
+            refit_ms.append((time.perf_counter() - t1) * 1e3)
+            check(v.action == "refit",
+                  f"a small move did not refit: {v.action}")
+        degradation = v.degradation
+        t1 = time.perf_counter()
+        v = srv.update_index("cloud", G.Points(moves[-1][:-1]))
+        rebuild_ms = (time.perf_counter() - t1) * 1e3
+        check(v.action == "rebuild" and v.bvh.size() == N - 1,
+              "N - 1 points did not rebuild")
+        take_counts()
+        log(f"[serve] IndexStore.update at N={N}: three refits "
+            + " / ".join(f"{ms:.3f}" for ms in refit_ms) + " ms (SAH "
+            f"degradation {degradation:.4f}), a rebuild at N-1 "
+            f"{rebuild_ms:.3f} ms (host clock, each ending in a stream "
+            f"sync)  [{card}]")
+        del moves
+        del srv, cloud, v
+
+        # -- the pipeline: 4 clients, 20 refits and a rebuild --------------
+        zero()
+        pipe = ServingPipeline(
+            IndexStore(eng, keep_versions=SERVE_KEEP_VERSIONS),
+            config=PipelineConfig(service=svc))
+        check(pipe.maintenance_stream is not None,
+              "the pipeline has no maintenance stream")
+        pipe.create_index("cloud", G.Points(pts))
+        pipe.create_index("scene", G.Triangles(a, b, c))
+        results = [[] for _ in range(SERVE_CLIENTS)]
+        errors = []
+        go = threading.Event()
+
+        def client(i):
+            crng = np.random.default_rng(SEED + 100 + i)
+            go.wait(60)
+            try:
+                for j in range(SERVE_PER_CLIENT):
+                    kind, k = _serve_draw(crng)
+                    req = _serve_request(crng, kind, int(crng.integers(
+                        1, SERVE_MAX_ROWS + 1)), k)
+                    dl = SERVE_DEADLINE_US if j % 2 == 0 else None
+                    resp = pipe.submit(req, deadline_us=dl).result(120)
+                    results[i].append((req, resp))
+            except Exception as err:        # reported below, fails the phase
+                errors.append(f"client {i}: {err!r}")
+
+        def maintain():
+            # the points drift as in examples/moving_points_service.py: each
+            # step moves them from where the last one left them, so the
+            # quality monitor rebuilds when the refit tree degrades
+            go.wait(60)
+            try:
+                cur = pts
+                for _ in range(SERVE_REFITS):
+                    cur = cur + SERVE_MOVE_SIGMA * torch.randn(
+                        pts.shape, generator=gen, device=dev)
+                    pipe.update_index("cloud", G.Points(cur))
+                    check(pipe.wait_maintenance_idle(60), "refit stuck")
+                    time.sleep(0.05)
+                pipe.update_index("cloud", G.Points(cur[:-1]))
+                check(pipe.wait_maintenance_idle(60), "rebuild stuck")
+            except BaseException as err:    # reported below
+                errors.append(f"maintenance: {err!r}")
+
+        threads = [threading.Thread(target=client, args=(i,), name=f"client{i}")
+                   for i in range(SERVE_CLIENTS)]
+        threads.append(threading.Thread(target=maintain, name="updates"))
+        for t in threads:
+            t.start()
+        t0 = time.perf_counter()
+        go.set()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        pipe.close()
+        got = take_counts()
+        check(not any(t.is_alive() for t in threads), "a pipeline thread hung")
+        check(not errors, f"pipeline: {errors[:3]}")
+        st = pipe.stats()
+        n_served = SERVE_CLIENTS * SERVE_PER_CLIENT
+        check(st.served == st.submitted == n_served and st.failed == 0,
+              f"pipeline: served {st.served} of {st.submitted}, "
+              f"{st.failed} failed")
+        check(st.stalled_behind_maintenance == 0 and st.maintenance_errors == 0,
+              f"pipeline: {st.stalled_behind_maintenance} stalls, "
+              f"{st.maintenance_errors} maintenance errors")
+        check(st.refits + st.rebuilds == SERVE_REFITS + 1,
+              f"pipeline: {st.refits} refits and {st.rebuilds} rebuilds for "
+              f"{SERVE_REFITS + 1} updates")
+        # cloud's versions: 1 the build, then one per update in order
+        steps = [pipe.store.get("cloud", v) for v in
+                 range(2, SERVE_REFITS + 3)]
+        drift = [e.version for e in steps[:-1] if e.action == "rebuild"]
+        check(drift and all(e.bvh.size() == N for e in steps[:-1]),
+              f"pipeline: no rebuild on drift (actions "
+              f"{[e.action for e in steps]})")
+        check(steps[-1].action == "rebuild" and steps[-1].bvh.size() == N - 1,
+              "pipeline: N - 1 points did not rebuild")
+        samples = {}
+        lat = []
+        for i, rs in enumerate(results):
+            last = {}
+            for req, resp in rs:
+                s = resp.stats
+                check(s.index_version >= last.get(s.index_name, 0),
+                      f"client {i}: {s.index_name} went back from version "
+                      f"{last.get(s.index_name)} to {s.index_version}")
+                last[s.index_name] = s.index_version
+                lat.append(s.queue_wait_us + s.service_us)
+                samples.setdefault((s.index_name, s.index_version, req.kind),
+                                   []).append((req, resp))
+        versions = sorted({v for (n, v, _) in samples if n == "cloud"})
+        check(len(versions) >= 2, f"clients saw only cloud versions {versions}")
+        n_checked = 0
+        for (name, version, kind), pairs in sorted(samples.items()):
+            entry = pipe.store.get(name, version)
+            for req, resp in pairs[:SERVE_SAMPLES]:
+                _same_as_direct(resp, entry.bvh, req, dev,
+                                f"pipeline {name} v{version} {kind}")
+                n_checked += 1
+        lat = np.sort(np.asarray(lat)) / 1e3
+        log(f"[serve] ServingPipeline: {SERVE_CLIENTS} clients x "
+            f"{SERVE_PER_CLIENT} requests (half with {SERVE_DEADLINE_US / 1e3:.0f}"
+            f" ms deadlines) while the maintenance stream moved \"cloud\" "
+            f"{SERVE_REFITS} times by N(0, {SERVE_MOVE_SIGMA}^2) steps that "
+            f"add up ({st.refits} refits, rebuilt on drift at versions "
+            f"{drift}) and rebuilt it at N-1: {n_served} served in {wall:.2f} s "
+            f"({n_served / wall:.0f} requests/s), latency p50 "
+            f"{lat[len(lat) // 2]:.3f} ms p99 {lat[int(0.99 * len(lat))]:.3f} "
+            f"ms, miss rate {st.miss_rate:.4f}, occupancy {st.occupancy:.4f}, "
+            f"{st.batches} batches, 0 failures, 0 stalls behind maintenance; "
+            f"cloud versions seen {versions[0]}-{versions[-1]}, monotone per "
+            f"client; {n_checked} responses equal to BVH.query on their "
+            f"version; launches {json.dumps(got)}  [{card}]")
+    finally:
+        restore()
+    # the serving path's own launches, apart from the main path's
+    for kname, n in total.items():
+        check(n > 0, f"{kname} was not launched on the serving path")
+    log(f"[serve] launches on the serving path (counts zeroed at each "
+        f"part's start, read at its end): {json.dumps(total)}")
+    log(f"[serve] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     name, count, card = phase_device()
     import torch
@@ -2520,6 +3039,7 @@ def main():
         ray_launches["bvh_traverse_callback"]
     records["ray_box_nearest"] = box_record
     launches["ray_box_nearest"] = ray_launches["ray_box_nearest"]
+    phase_serve(dev, pts, card)
     ops_launches, codes, knn_out = phase_ops_main(pts, qc)
     # morton64: the builds' launches on the main path and the op's
     launches["morton64"] += ops_launches["morton64"]

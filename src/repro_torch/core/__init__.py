@@ -6,17 +6,19 @@ from . import (access, callbacks, engine, geometry, morton, predicates,
 from .brute_force import BruteForce
 from .bvh import BVH
 from .dbscan import dbscan
-from .engine import EngineConfig, QueryEngine, default_engine
+from .engine import (EngineConfig, QueryEngine, default_engine,
+                     set_default_engine)
 from .index import ExecutionPolicy, Index, QueryResult
-from .lbvh import LBVH, build, refit, sah_cost
+from .lbvh import LBVH, build, refit, refit_with_quality, sah_cost
 from .predicates import (RayIntersect, RayNearest, RayOrderedIntersect,
                          intersects, nearest)
 from .route_table import RouteRule, RouteTable
 
 __all__ = [
     "Index", "ExecutionPolicy", "QueryResult", "BVH", "BruteForce", "LBVH",
-    "build", "refit", "sah_cost", "QueryEngine", "EngineConfig",
-    "default_engine", "RouteRule", "RouteTable", "intersects", "nearest",
+    "build", "refit", "refit_with_quality", "sah_cost", "QueryEngine",
+    "EngineConfig", "default_engine", "set_default_engine", "RouteRule",
+    "RouteTable", "intersects", "nearest",
     "RayNearest", "RayIntersect", "RayOrderedIntersect", "dbscan", "access",
     "callbacks", "engine", "geometry", "morton", "predicates", "raytracing",
     "route_table", "traversal",

@@ -49,7 +49,9 @@ class BVH(Index):
         rebuilding. The caller guarantees `tree` bounds the values."""
         obj = cls.__new__(cls)
         obj._init_common(values, indexable_getter, policy, engine)
-        obj.tree = tree.to(obj.device) if tree is not None else None
+        if tree is not None and tree.device != obj.device:
+            tree = tree.to(obj.device)
+        obj.tree = tree     # on its device already: its kept records too
         return obj
 
     def _init_common(self, values, indexable_getter, policy, engine):

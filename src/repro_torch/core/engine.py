@@ -17,13 +17,26 @@ bruteforce, pallas and loop.
 
 Routing is decided in Python from N, Q, the predicate kind, the value
 geometry and the callback; a kernel failure raises and never reroutes.
-``callback_batches`` counts the callback batches each route served. The
-executable cache, EngineStats and telemetry spans come with the serving
-slice.
+``callback_batches`` counts the callback batches each route served.
+
+The serving stack dispatches every bucket through the executable cache
+(``exec_spatial``, ``exec_knn``, ``exec_ray_nearest``): one entry per
+(route, op, static parameters, bucket shape, index shape, getter), LRU-
+bounded by ``MAX_EXECUTABLES``. An entry is a closure that binds the
+bucket's static parameters (its route, capacity or k); making one is the
+port's "trace", so ``EngineStats.jit_traces`` rises with
+``cache_misses`` and keeps the reference's metric names. The kernel
+libraries are loaded by the wrappers' first launch and kept
+(``kernels._build``), so a warm service misses nothing and loads
+nothing. The ``engine.route`` span wraps each decision and the
+``engine.kernel`` span each launch, fenced on the calling thread's
+stream when telemetry is on (``ExecInfo.kernel_us``).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import threading
 
 import torch
 
@@ -32,12 +45,17 @@ from ..kernels.bvh_callback import (bvh_traverse_callback, expressible,
 from ..kernels.bvh_traverse import (KNN_MAX_K, MAX_DIM, RAY_TARGETS,
                                     bvh_traverse_knn, bvh_traverse_ray_knn,
                                     bvh_traverse_spatial, knn_order)
+from ..telemetry import MetricsRegistry
+from ..telemetry import tracer as TEL
+from . import callbacks as CB
 from . import geometry as G
 from . import predicates as P
 from . import route_table as RT
 from . import traversal as T
+from .index import _bcast_state
 
-__all__ = ["EngineConfig", "QueryEngine", "default_engine",
+__all__ = ["EngineConfig", "EngineStats", "EngineStatsSnapshot", "ExecInfo",
+           "QueryEngine", "default_engine", "set_default_engine",
            "ROUTE_BRUTEFORCE", "ROUTE_KERNEL", "ROUTE_LOOP"]
 
 ROUTE_BRUTEFORCE = "bruteforce"
@@ -45,6 +63,10 @@ ROUTE_KERNEL = "kernel"
 ROUTE_LOOP = "loop"
 
 _FALLBACK_TABLE = RT.RouteTable.default()
+
+#: LRU bound of the exec_* executable cache, so a service whose leaf count
+#: changes across rebuilds does not keep one entry per past N
+MAX_EXECUTABLES = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,11 +105,83 @@ def _spatial_rep(predicates):
     return None
 
 
+@dataclasses.dataclass(frozen=True)
+class EngineStatsSnapshot:
+    """Immutable point-in-time copy of :class:`EngineStats`."""
+    cache_hits: int = 0
+    cache_misses: int = 0
+    jit_traces: int = 0
+
+    def snapshot(self) -> "EngineStatsSnapshot":
+        return self
+
+
+def _counter_prop(field: str, doc: str) -> property:
+    """A field read from, and written to, its registry counter."""
+    def _get(self):
+        return self._counters[field].value
+
+    def _set(self, v):
+        self._counters[field].set(v)
+
+    return property(_get, _set, doc=doc)
+
+
+class EngineStats:
+    """Executable-cache accounting: counters ``engine.cache_hits``,
+    ``engine.cache_misses`` and ``engine.jit_traces`` on a per-instance
+    :class:`~repro_torch.telemetry.MetricsRegistry` (``.registry``), so
+    they reach the JSONL metrics export. ``jit_traces`` counts the cache
+    entries made (the module docstring): a warm service shows hits growing
+    and misses and traces flat."""
+
+    _FIELDS = ("cache_hits", "cache_misses", "jit_traces")
+
+    cache_hits = _counter_prop("cache_hits", "executable-cache hits")
+    cache_misses = _counter_prop("cache_misses", "executable-cache misses")
+    jit_traces = _counter_prop("jit_traces", "cache entries made")
+
+    def __init__(self, registry=None):
+        self.registry = registry if registry is not None else MetricsRegistry()
+        self._counters = {f: self.registry.counter(f"engine.{f}")
+                          for f in self._FIELDS}
+
+    def snapshot(self) -> EngineStatsSnapshot:
+        return EngineStatsSnapshot(
+            **{f: self._counters[f].value for f in self._FIELDS})
+
+    def __repr__(self):
+        body = ", ".join(f"{f}={self._counters[f].value}"
+                         for f in self._FIELDS)
+        return f"EngineStats({body})"
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecInfo:
+    """Per-dispatch metadata of the exec_* entry points. kernel_us is the
+    fenced duration of the launch (the ``engine.kernel`` span): 0.0 when
+    telemetry is disabled, because fencing would wait for the device."""
+    route: str
+    cache_hit: bool
+    kernel_us: float = 0.0
+
+
 class QueryEngine:
     """Routes batched BVH queries to brute force or the kernels."""
 
+    #: the executable cache, its stats and the callback-batch counts are
+    #: coherent only under _cache_lock: the serving pipeline calls one
+    #: engine from its scheduler and maintenance threads and callers' own
+    _REPROLINT_GUARDED_BY = {"_executables": "_cache_lock",
+                             "stats": "_cache_lock",
+                             "callback_batches": "_cache_lock"}
+
     def __init__(self, config: EngineConfig | None = None):
         self.config = config or EngineConfig()
+        self.stats = EngineStats()
+        self._executables: collections.OrderedDict[tuple, object] = \
+            collections.OrderedDict()
+        self._cache_lock = threading.Lock()
         #: callback batches served per route
         self.callback_batches = {ROUTE_KERNEL: 0, ROUTE_LOOP: 0}
 
@@ -132,8 +226,9 @@ class QueryEngine:
                          and type(bvh.values) in RAY_TARGETS
                          and (type(bvh.values) is not G.Triangles
                               or bvh.values.dim == 3))
-        k_ok = (bvh.tree is not None and q > 0 and values_ok
-                and bvh.tree.dim <= MAX_DIM and predicates.k <= KNN_MAX_K)
+        k_ok = (bvh.tree is not None and q > 0
+                and values_ok and bvh.tree.dim <= MAX_DIM
+                and predicates.k <= KNN_MAX_K)
         return self._pick(bvh.size(), q, bf_ok, k_ok, rule)
 
     def route_callback(self, bvh, predicates, callback) -> str:
@@ -196,7 +291,8 @@ class QueryEngine:
         """Per-query final states of a callback batch (`state0` batched),
         through the route ``route_callback`` picks; counts the batch."""
         route = self.route_callback(bvh, predicates, callback)
-        self.callback_batches[route] += 1
+        with self._cache_lock:
+            self.callback_batches[route] += 1
         if route == ROUTE_KERNEL:
             return self.kernel_callback(bvh, predicates, callback, state0)
         return T.traverse(bvh.tree, bvh.values, predicates, callback, state0)
@@ -243,8 +339,140 @@ class QueryEngine:
             k=predicates.k, records=records, order=order)
 
 
+    # -- executable cache --------------------------------------------------
+    #
+    # The service dispatches every micro-batch through these entry points.
+    # An entry's only inputs are the index and the bucket's predicates, so
+    # a refit or rebuild at the same N reuses the warm entry.
+
+    def _note_trace(self):
+        """Count one cache entry made. Called from _cached's critical
+        section, so the count is exact under concurrent schedulers."""
+        self.stats.jit_traces += 1
+
+    def _launch(self, fn, args, *, route: str, op: str, hit: bool):
+        """Run a cached entry under an ``engine.kernel`` span and return
+        (result, kernel_us). With telemetry enabled the span is fenced on
+        the calling thread's stream, so kernel_us covers the device work;
+        disabled, this is one flag check and nothing waits (0.0)."""
+        sp = TEL.span("engine.kernel", route=route, op=op, cache_hit=hit)
+        with sp:
+            out = sp.fence(fn(*args))
+        return out, sp.dur_us
+
+    def _route_span(self, op: str):
+        """Span around a route decision (wall clock, Python only)."""
+        return TEL.span("engine.route", op=op)
+
+    def _cached(self, key, make):
+        """(entry, hit): the entry of `key`, made by make() on a miss,
+        under the lock, so two threads never make one key twice or lose a
+        count."""
+        with self._cache_lock:
+            fn = self._executables.get(key)
+            hit = fn is not None
+            if hit:
+                self.stats.cache_hits += 1
+                self._executables.move_to_end(key)
+            else:
+                self.stats.cache_misses += 1
+                fn = self._executables[key] = make()
+                self._note_trace()
+                while len(self._executables) > MAX_EXECUTABLES:
+                    self._executables.popitem(last=False)  # LRU eviction
+        return fn, hit
+
+    def _shape_key(self, bvh, predicates):
+        if bvh.tree is None:
+            raise ValueError("engine exec_* paths require an index with "
+                             "N >= 2 (degenerate N handled by BVH directly)")
+        geom = getattr(predicates, "geom", None)
+        geom = geom if geom is not None else predicates.rays
+        # the getter is part of the key: two same-shaped indexes with
+        # different getters must not share one entry
+        return (type(predicates).__name__, type(geom).__name__,
+                type(bvh.values).__name__, len(predicates), bvh.size(),
+                bvh._boxes.dim, bvh._getter, bvh.device.type)
+
+    def exec_spatial(self, bvh, predicates, capacity: int):
+        """Cached count + fill of an Intersects bucket. Returns ((counts,
+        idx_buf), ExecInfo): full per-query counts plus the first
+        `capacity` matched original indices per query (-1 padded)."""
+        with self._route_span("spatial") as rsp:
+            route = self.route_spatial(bvh, predicates)
+            rsp.annotate(route=route)
+        # the Points fine test (fine_sqrt) follows from the values' type,
+        # which the shape key holds
+        key = (route, "spatial", capacity) + self._shape_key(bvh, predicates)
+
+        def make():
+            if route == ROUTE_KERNEL:
+                def body(index, preds):
+                    return self.kernel_fill(index, preds, capacity)
+            elif route == ROUTE_BRUTEFORCE:
+                def body(index, preds):
+                    return index._brute()._fill_impl(preds, capacity,
+                                                     index.policy)
+            else:
+                def body(index, preds):
+                    cb, s0 = CB.collect_hits(capacity)
+                    s0 = _bcast_state(s0, len(preds), index.device)
+                    count, idxs, _ = T.traverse(index.tree, index.values,
+                                                preds, cb, s0)
+                    return count, idxs
+            return body
+
+        fn, hit = self._cached(key, make)
+        out, kus = self._launch(fn, (bvh, predicates), route=route,
+                                op="spatial", hit=hit)
+        return out, ExecInfo(route, hit, kus)
+
+    def exec_knn(self, bvh, predicates):
+        """Cached kNN of a Nearest bucket. Returns ((dists, idxs),
+        ExecInfo)."""
+        with self._route_span("knn") as rsp:
+            route = self.route_knn(bvh, predicates)
+            rsp.annotate(route=route)
+        k = predicates.k
+        key = (route, "knn", k) + self._shape_key(bvh, predicates)
+        fn, hit = self._cached(key, lambda: self._knn_body(route, k))
+        out, kus = self._launch(fn, (bvh, predicates), route=route,
+                                op="knn", hit=hit)
+        return out, ExecInfo(route, hit, kus)
+
+    def exec_ray_nearest(self, bvh, rays, k: int):
+        """Cached first k hits of a bucket of rays, routed as
+        ``route_knn`` routes a RayNearest batch (the ray kNN kernel where
+        it takes the values). Returns ((t, idx), ExecInfo), (Q, k) padded
+        (inf, -1)."""
+        preds = P.RayNearest(rays, k)
+        with self._route_span("ray_nearest") as rsp:
+            route = self.route_knn(bvh, preds)
+            rsp.annotate(route=route)
+        key = (route, "ray_nearest", k) + self._shape_key(bvh, preds)
+        fn, hit = self._cached(key, lambda: self._knn_body(route, k))
+        out, kus = self._launch(fn, (bvh, preds), route=route,
+                                op="ray_nearest", hit=hit)
+        return out, ExecInfo(route, hit, kus)
+
+    def _knn_body(self, route, k):
+        """A kNN entry (Nearest or RayNearest) for one route."""
+        if route == ROUTE_KERNEL:
+            return self.kernel_knn
+        if route == ROUTE_BRUTEFORCE:
+            return lambda index, preds: index._brute()._knn_impl(
+                preds, index.policy)
+        return lambda index, preds: T.traverse_knn(index.tree, index.values,
+                                                   preds, k)
+
+
 _DEFAULT = QueryEngine()
 
 
 def default_engine() -> QueryEngine:
     return _DEFAULT
+
+
+def set_default_engine(engine: QueryEngine):
+    global _DEFAULT
+    _DEFAULT = engine

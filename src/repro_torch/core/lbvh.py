@@ -31,7 +31,8 @@ from ..kernels import morton as KM
 from . import morton as M
 from .geometry import Boxes
 
-__all__ = ["LBVH", "build", "refit", "sah_cost", "FIELDS"]
+__all__ = ["LBVH", "build", "refit", "refit_with_quality", "sah_cost",
+           "FIELDS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +121,14 @@ def refit(tree: LBVH, boxes: Boxes) -> LBVH:
         tree.range_last, tree.leaf_perm, boxes.lo, boxes.hi)
     return _with_records(dataclasses.replace(tree, node_lo=node_lo,
                                              node_hi=node_hi), records)
+
+
+def refit_with_quality(tree: LBVH, boxes: Boxes) -> tuple[LBVH, torch.Tensor]:
+    """``(refit(tree, boxes), sah)`` in one call: the refit tree and the
+    SAH cost of its node boxes (``sah_cost``), a 0-d tensor on the tree's
+    device. ``service.IndexStore.update`` decides refit or rebuild on it."""
+    new = refit(tree, boxes)
+    return new, sah_cost(new)
 
 
 def _surface_measure(lo, hi):

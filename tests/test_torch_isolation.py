@@ -1024,3 +1024,165 @@ def test_ray_callback_entry_refuses_3d_rays_without_records(cuda_device):
     torch.cuda.synchronize()
     assert torch.equal(out, TC.bvh_traverse_callback_ref(*tree, values,
                                                          preds, cb, s0))
+
+
+# ---------------------------------------------------------------------------
+# the serving slice: telemetry, the engine's executable cache, the service
+# ---------------------------------------------------------------------------
+
+SERVING_MODULES = tuple(importlib.import_module(f"repro_torch.{m}") for m in (
+    "telemetry", "telemetry.tracer", "telemetry.metrics", "telemetry.export",
+    "telemetry.report", "service", "service.batcher", "service.index_store",
+    "service.server", "service.pipeline"))
+
+
+def test_serving_modules_are_scanned_for_imports():
+    files = {os.path.realpath(p) for p in _port_files()}
+    for mod in SERVING_MODULES:
+        assert os.path.realpath(mod.__file__) in files, mod
+
+
+def test_service_runs_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import numpy as np, torch\n"
+        "from repro_torch import telemetry\n"
+        "from repro_torch.core.geometry import Points\n"
+        "from repro_torch.service import (QueryServer, ServingPipeline,\n"
+        "    knn_request, ray_request, within_request)\n"
+        "telemetry.enable()\n"
+        "pts = np.random.default_rng(0).uniform(0, 1, (300, 3)).astype(np.float32)\n"
+        "srv = QueryServer(device='cpu')\n"
+        "srv.create_index('default', Points(torch.from_numpy(pts)))\n"
+        "rs = srv.handle([knn_request(pts[:5], k=2), within_request(pts[:5], 0.1),\n"
+        "                 ray_request(pts[:5], np.ones((5, 3), np.float32))])\n"
+        "assert rs[0].idxs[:, 0].tolist() == list(range(5))\n"
+        "assert (rs[1].counts >= 1).all() and (rs[2].dists[:, 0] == 0).all()\n"
+        "with ServingPipeline(device='cpu') as pipe:\n"
+        "    pipe.create_index('default', Points(torch.from_numpy(pts)))\n"
+        "    r = pipe.submit(knn_request(pts[:3], k=1)).result(60)\n"
+        "    pipe.update_index('default', Points(torch.from_numpy(pts + 1e-3)))\n"
+        "    assert pipe.wait_maintenance_idle(60)\n"
+        "    assert pipe.stats().refits == 1\n"
+        "assert r.idxs[:, 0].tolist() == [0, 1, 2]\n"
+        "names = {s.name for s in telemetry.get_tracer().drain()}\n"
+        "assert {'engine.kernel', 'store.refit', 'request'} <= names\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules\n"
+        "               if sys.modules[m] is not None)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    env.pop("REPRO_TELEMETRY", None)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_service_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    from repro_torch.service import IndexStore, QueryServer, ServingPipeline
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (IndexStore, QueryServer, ServingPipeline,
+                 lambda: IndexStore(device=None)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert IndexStore(device="cpu").device.type == "cpu"
+
+
+def _serving_twins_raise(monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("a twin ran for a CUDA tensor")
+
+    for mod, name in ((TT, "bvh_traverse_spatial_ref"),
+                      (TT, "bvh_traverse_knn_ref"),
+                      (TT, "bvh_traverse_ray_knn_ref"),
+                      (TK, "karras_ranges_fused"), (TK, "lbvh_tail_ref"),
+                      (TK, "lbvh_refit_ref"), (TK, "aabb_rmq"),
+                      (TM, "morton_key_ref"), (M, "_interleave")):
+        monkeypatch.setattr(mod, name, boom)
+
+
+@pytest.mark.cuda
+def test_server_on_the_card_launches_one_kernel_a_group(cuda_device,
+                                                        monkeypatch):
+    """Each group of a warm server on the card is one launch of its
+    kernel (spatial, kNN, ray kNN) and never a twin; no cache miss and
+    no library load after the warm-up."""
+    from repro_torch.core.engine import EngineConfig, QueryEngine
+    from repro_torch.core.route_table import RouteRule, RouteTable
+    from repro_torch.kernels import _build
+    from repro_torch.service import (QueryServer, ServiceConfig, knn_request,
+                                     ray_request, within_request)
+    rng = np.random.default_rng(5)
+    pts = rng.uniform(0, 1, (5000, 3)).astype(np.float32)
+    q = rng.uniform(0, 1, (40, 3)).astype(np.float32)
+    d = rng.normal(size=(40, 3)).astype(np.float32)
+    eng = QueryEngine(EngineConfig(route_table=RouteTable(
+        rules={"default": RouteRule(bf_max_work=0)})))
+    cpu = BVH(TG.Points(torch.from_numpy(pts)),
+              policy=ExecutionPolicy(device="cpu", engine=eng))
+    want = cpu.query(TP.nearest(TG.Points(torch.from_numpy(q)), k=4))
+    _serving_twins_raise(monkeypatch)
+    srv = QueryServer(engine=eng, config=ServiceConfig(capacity=16,
+                                                       max_bucket=64))
+    srv.create_index("pts", TG.Points(torch.from_numpy(pts)))
+    srv.create_index("boxes", TG.Boxes(torch.from_numpy(pts),
+                                       torch.from_numpy(pts + 0.01)))
+    srv.warmup("pts", [("knn", 4), ("within", 0), ("ray", 2)])
+    srv.warmup("boxes", [("knn", 4), ("within", 0), ("ray", 2)])
+    before = eng.stats.snapshot()
+    libs, funcs = len(_build._LIBS), len(_build._FUNCS)
+    counters = (TT.bvh_traverse_spatial, TT.bvh_traverse_knn,
+                TT.bvh_traverse_ray_knn)
+    for f in counters:
+        f.launches = 0
+    rs = srv.handle([knn_request(q[:7], 4, "pts"), knn_request(q, 4, "pts"),
+                     within_request(q, 0.05, "pts"),
+                     ray_request(q, d, 2, "boxes")])
+    assert [f.launches for f in counters] == [1, 1, 1]
+    assert {r.stats.route for r in rs} == {"kernel"}
+    assert all(r.stats.cache_hit for r in rs)
+    after = eng.stats.snapshot()
+    assert (after.cache_misses, after.jit_traces) == \
+        (before.cache_misses, before.jit_traces)
+    assert (len(_build._LIBS), len(_build._FUNCS)) == (libs, funcs)
+    assert np.array_equal(rs[1].dists, want.distances.numpy())
+    assert np.array_equal(rs[1].idxs, want.indices.numpy())
+
+
+@pytest.mark.cuda
+def test_refit_on_the_maintenance_stream_serves_correctly(cuda_device):
+    """A refit on the pipeline's maintenance stream publishes a tree that
+    a query on the serving stream reads correctly: the answers equal the
+    CPU twins' over the moved points, version by version."""
+    from repro_torch.core.engine import EngineConfig, QueryEngine
+    from repro_torch.core.route_table import RouteRule, RouteTable
+    from repro_torch.service import (PipelineConfig, ServiceConfig,
+                                     ServingPipeline, knn_request)
+    eng = QueryEngine(EngineConfig(route_table=RouteTable(
+        rules={"default": RouteRule(bf_max_work=0)})))
+    rng = np.random.default_rng(6)
+    pts = rng.uniform(0, 1, (20000, 3)).astype(np.float32)
+    q = rng.uniform(0, 1, (64, 3)).astype(np.float32)
+    cfg = PipelineConfig(service=ServiceConfig(capacity=16, max_bucket=64))
+    with ServingPipeline(engine=eng, config=cfg) as pipe:
+        assert pipe.maintenance_stream is not None
+        pipe.create_index("pts", TG.Points(torch.from_numpy(pts)))
+        moved = pts
+        for step in range(5):
+            moved = moved + rng.normal(0, 0.002, moved.shape).astype(np.float32)
+            # made on the caller's stream, read on the maintenance stream
+            values = TG.Points(torch.from_numpy(moved).to(cuda_device) * 1.0)
+            pipe.update_index("pts", values)
+            assert pipe.wait_maintenance_idle(60)
+            r = pipe.submit(knn_request(q, 5, "pts")).result(60)
+            assert r.stats.index_version == step + 2
+            cpu = BVH(TG.Points(torch.from_numpy(moved)),
+                      policy=ExecutionPolicy(device="cpu", engine=eng))
+            want = cpu.query(TP.nearest(TG.Points(torch.from_numpy(q)), k=5))
+            assert np.array_equal(r.dists, want.distances.numpy()), step
+            assert np.array_equal(r.idxs, want.indices.numpy()), step
+        st = pipe.stats()
+    assert st.refits == 5 and st.maintenance_errors == 0
+    assert st.stalled_behind_maintenance == 0

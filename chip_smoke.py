@@ -143,6 +143,33 @@ Phases (one line or more each, then the two closing lines):
      / p99 latency, miss rate, occupancy, requests/s. Counters are zeroed
      before each of its serving runs and read after; the phase logs and
      checks its own launches, which stay out of the kernels line.
+ 10c. emst (slice 13): ``emst`` at N = 2^20 in 3-D over the search
+     points and over a ``clusters`` cloud (the reference data pipeline's
+     formula: floor(sqrt(N) / 4) centres, sigma 0.01, its own seed),
+     with every round's exclusion query recorded: a spanning tree (N - 1
+     edges, one component by scipy), with the counters zeroed just before
+     and read just after one run and every twin made to raise: one
+     ``bvh_traverse_knn_exclude`` launch a Borůvka round, no call of
+     ``traversal.knn_walk``; rounds, components per round, ms per run,
+     the exclusion query's ms per round, host syncs and, under the
+     profiler, the device's busy share and the kernel's share; the
+     kernel against its twin on all N rows in the first round (timed
+     beside it: the kernels line), and in every round of a run over the
+     first 2^14 points on every row (tolerance 0; the twin, a host loop,
+     takes 12-24 s a round at 2^20 rows, so the per-round check runs at
+     the smaller N); the total weight at 2^17 points against scipy's
+     ``minimum_spanning_tree`` over the ``Delaunay`` edges in float64,
+     within 1e-6 relative (each float32 edge length is within a few u of
+     its float64 value, and a float32 tie broken the other way swaps
+     edges of lengths within that).
+ 10d. mls (slice 13): ``mls_interpolate`` of bench_mls.py's function
+     from the 2^20 search points onto the 2^17 queries, degree 0, 1 and 2
+     (k = 4, 10, 22): one kNN kernel launch a call (counters zeroed just
+     before, read just after), no loop walk, the neighbours equal to
+     ``BVH.query(nearest)``, 2048 values within the bound that
+     ``tests/test_torch_mls.py`` derives of a float64 solve of the same
+     systems; ms per call beside the build's and the kNN query's, the
+     busy share under the profiler, the mean |value - f|.
  11. ops (slice 4's main path): ``kernels.ops.morton64`` over the 2^20
      search points and ``kernels.ops.bruteforce_knn`` of 2^13 of the
      queries against them (k = 10), the two launch counters zeroed just
@@ -191,7 +218,7 @@ Phases (one line or more each, then the two closing lines):
      time (ms, tokens/s) and one profiled forward, with the flash
      kernel's share of device time.
 
-The line before the last is ``{"kernels": [...]}`` (11 entries: name,
+The line before the last is ``{"kernels": [...]}`` (12 entries: name,
 route, source, replaced TPU kernel, launches, max_abs_err, ms, plain_ms,
 bound_ms, bound_by, library_ms); the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -335,7 +362,8 @@ def _ptxas_summary(text):
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             k = re.search(r"(karras_kernel|spatial_kernel3?ILb[01]E)", m.group(1))
-            kn = re.search(r"knn_kernelINS_\d+(Records3|Flat)EN3knn\d+"
+            kn = re.search(r"(knn_kernel|knn_exclude_kernel)INS_\d+"
+                           r"(Records3|Flat)EN3knn\d+"
                            r"(KeyList|KeyHeap)ILi(\d+)E", m.group(1))
             cb = re.search(r"(callback_kernel3|callback_kernel|ray_kernel3|"
                            r"ray_kernel).*?"
@@ -374,8 +402,8 @@ def _ptxas_summary(text):
                   else f"scan_kernel<dim {bf.group(1).replace('n', '-')}, "
                        f"{bf.group(2)} {bf.group(3)}>" if bf
                   else f"merge_kernel<{bm.group(1)} {bm.group(2)}>" if bm
-                  else f"knn_kernel<{kn.group(1)}, {kn.group(2)} {kn.group(3)}>"
-                  if kn
+                  else f"{kn.group(1)}<{kn.group(2)}, {kn.group(3)} "
+                       f"{kn.group(4)}>" if kn
                   else f"ray_box3_kernel<T {rb3.group(1)}>"
                   if rb3
                   else k.group(1) if k else rb.group(0) if rb
@@ -993,7 +1021,8 @@ def profile_window(label, fn, card, share_of=None):
     """Run fn under torch.profiler: log the device-busy share of the
     window and the kernels that take the device time ("not measured" when
     the profiler sees no device activity); with `share_of`, also the share
-    of device time of the kernels whose names contain it."""
+    of device time of the kernels whose names contain it. Returns (busy
+    share of the window, that share), None where not measured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1017,18 +1046,20 @@ def profile_window(label, fn, card, share_of=None):
     if not rows:
         log(f"[profile] {label}: device time not measured: the profiler saw "
             "no device activity")
-        return
+        return None, None
     log(f"[profile] {label}: window {wall_us / 1e3:.2f} ms under the "
         f"profiler, device busy {busy / 1e3:.2f} ms "
         f"({100 * busy / wall_us:.1f} %)  [{card}]")
     for us, key, count in rows[:8]:
         log(f"[profile]   {us / 1e3:9.3f} ms  {count:5d}x  {key[:90]}")
+    mine_us = None
     if share_of:
         mine = [r for r in rows if share_of in r[1]]
-        us = sum(r[0] for r in mine)
-        log(f"[profile]   {share_of}: {us / 1e3:.3f} ms in "
-            f"{sum(r[2] for r in mine)} launches, {100 * us / busy:.1f} % of "
-            f"device time")
+        mine_us = sum(r[0] for r in mine)
+        log(f"[profile]   {share_of}: {mine_us / 1e3:.3f} ms in "
+            f"{sum(r[2] for r in mine)} launches, "
+            f"{100 * mine_us / busy:.1f} % of device time")
+    return busy / wall_us, None if mine_us is None else mine_us / busy
 
 
 def fmt_ms(ms):
@@ -2636,7 +2667,8 @@ def _same_as_direct(resp, index, req, dev, label):
 
 
 def _twins_raise():
-    """Make every twin of the serving path raise; returns the restorer."""
+    """Make every twin of the serving and EMST paths raise; returns the
+    restorer."""
     from repro_torch.core import morton as CM
     from repro_torch.kernels import bvh_traverse as T
     from repro_torch.kernels import lbvh_build as KB
@@ -2644,10 +2676,11 @@ def _twins_raise():
     saved = []
 
     def boom(*a, **k):
-        raise RuntimeError("a twin ran on the serving path")
+        raise RuntimeError("a twin ran on a path held to the kernels")
 
     for mod, name in ((T, "bvh_traverse_spatial_ref"),
                       (T, "bvh_traverse_knn_ref"),
+                      (T, "bvh_traverse_knn_exclude_ref"),
                       (T, "bvh_traverse_ray_knn_ref"),
                       (KB, "karras_ranges_fused"), (KB, "lbvh_tail_ref"),
                       (KB, "lbvh_refit_ref"), (KB, "aabb_rmq"),
@@ -3006,6 +3039,391 @@ def phase_serve(dev, pts, card):
     log(f"[serve] phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# slice 13: the remaining algorithms (EMST over Nearest.exclude, MLS)
+# ---------------------------------------------------------------------------
+
+EMST_SEED = 23            # the clusters cloud's own seed
+EMST_TWIN_N = 1 << 14     # points of the run held to the twin every round
+EMST_ORACLE_N = 1 << 17   # points of the scipy MST weight oracle
+EMST_WEIGHT_RTOL = 1e-6   # the oracle's relative bound (phase_emst)
+MLS_CHECK = 2048          # targets held to the float64 solve
+U32 = 2.0 ** -24
+
+
+def clusters_cloud(n, seed):
+    """``point_cloud("clusters", n, 3, seed)`` of the reference's data
+    pipeline: max(floor(sqrt(n) / 4), 2) uniform centres, each point one
+    centre plus N(0, 0.01^2) per coordinate, float32."""
+    rng = np.random.default_rng(seed)
+    k = max(int(np.sqrt(n) / 4), 2)
+    centres = rng.uniform(0, 1, (k, 3))
+    idx = rng.integers(0, k, n)
+    return (centres[idx] + rng.normal(0, 0.01, (n, 3))).astype(np.float32)
+
+
+def _tree_check(eu, ev, ew, n, label):
+    """N - 1 edges between valid points with finite weights forming one
+    component (so no cycle): the spanning-tree property."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+    eu, ev, ew = (a.cpu().numpy() for a in (eu, ev, ew))
+    check(eu.shape == (n - 1,) and (eu >= 0).all() and (ev >= 0).all()
+          and (eu < n).all() and (ev < n).all() and np.isfinite(ew).all(),
+          f"emst {label}: the edge buffer is not full of valid edges")
+    parts = connected_components(coo_matrix(
+        (np.ones(n - 1), (eu, ev)), shape=(n, n)), directed=False)[0]
+    check(parts == 1, f"emst {label}: {parts} components, not a tree")
+    return eu, ev, ew
+
+
+def _mst_weight_oracle(x):
+    """The float64 weight of the MST of the points `x` (numpy): scipy's
+    minimum_spanning_tree over the Delaunay triangulation's edges (an EMST
+    is a subgraph of it)."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import minimum_spanning_tree
+    from scipy.spatial import Delaunay
+    x = x.astype(np.float64)
+    simplices = Delaunay(x).simplices
+    pairs = np.concatenate([simplices[:, [a, b]] for a in range(4)
+                            for b in range(a + 1, 4)])
+    pairs = np.unique(np.sort(pairs, 1), axis=0)
+    w = np.linalg.norm(x[pairs[:, 0]] - x[pairs[:, 1]], axis=1)
+    # a zero length (duplicate points) would read as "no edge"
+    w = np.maximum(w, np.finfo(np.float64).tiny)
+    g = coo_matrix((w, (pairs[:, 0], pairs[:, 1])), shape=(len(x),) * 2)
+    return float(minimum_spanning_tree(g).sum())
+
+
+def _emst_rounds(coords):
+    """Run emst once with each round's exclusion query recorded: the query
+    labels, the kernel's (d, j), the query's CUDA-event ms, and the tree
+    arguments and keywords the path gives the wrapper."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.kernels import bvh_traverse as T
+    real = rt.BVH._knn_exclude
+    rounds = []
+
+    def recorded(self, preds):
+        out, ms = timed_once(lambda: real(self, preds))
+        t = self.tree
+        rounds.append(dict(
+            tree=tuple(getattr(t, f) for f in (
+                "node_lo", "node_hi", "rope", "left_child", "leaf_perm",
+                "range_first", "range_last")),
+            labels=preds.exclude[0].clone(), d=out[0][:, 0].clone(),
+            j=out[1][:, 0].clone(), ms=ms,
+            kw=dict(k=1, records=t.records, order=T.knn_order(
+                preds.geom.coords, self.values.coords, t.leaf_perm))))
+        return out
+
+    rt.BVH._knn_exclude = recorded
+    try:
+        result = rt.emst(coords)
+    finally:
+        rt.BVH._knn_exclude = real
+    torch.cuda.synchronize()
+    return result, rounds
+
+
+def _emst_path(coords, label, card):
+    """emst on the card with the counters zeroed just before and read just
+    after, every twin made to raise: (eu, ev, ew, stats, ms, launches)."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.core import traversal as TT
+    from repro_torch.kernels import bvh_traverse as T
+    from repro_torch.kernels import lbvh_build as KB
+    from repro_torch.kernels import morton as KM
+    counters = {"bvh_traverse_knn_exclude": T.bvh_traverse_knn_exclude,
+                "bvh_traverse_knn": T.bvh_traverse_knn,
+                "bvh_traverse_spatial": T.bvh_traverse_spatial,
+                "karras_ranges": KB.karras_ranges,
+                "lbvh_tail": KB.lbvh_tail, "morton64": KM.morton64}
+    restore = _twins_raise()
+    walks = TT.knn_walk.calls
+    try:
+        for f in counters.values():
+            f.launches = 0
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eu, ev, ew = rt.emst(coords, stats=stats)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: f.launches for k, f in counters.items()}
+    finally:
+        restore()
+    check(TT.knn_walk.calls == walks,
+          f"emst {label}: the loop walk ran {TT.knn_walk.calls - walks} times")
+    check(launches["bvh_traverse_knn_exclude"] == stats["rounds"],
+          f"emst {label}: {launches['bvh_traverse_knn_exclude']} exclusion "
+          f"launches in {stats['rounds']} rounds")
+    return eu, ev, ew, stats, ms, launches
+
+
+def phase_emst(dev, pts, card):
+    """EMST at N = 2^20 in 3-D over the smoke's uniform points and over a
+    clusters cloud: the tree property, one exclusion launch a round and no
+    twin or loop walk on the path (counters zeroed just before, read just
+    after), rounds, ms per run, the wrapper's ms per round, host syncs and
+    the device's busy share; the first round's kernel against its twin on
+    all N rows (the kernels line); every round of a run over the cloud's
+    first EMST_TWIN_N points against the twin on every row (tolerance 0:
+    the twin, a host loop, takes 12-24 s a round at N = 2^20); the total
+    weight against scipy's MST over the Delaunay edges at EMST_ORACLE_N
+    points. Returns (the uniform run's launches, the kernels-line record
+    of bvh_traverse_knn_exclude)."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.kernels import bvh_traverse as T
+
+    t_phase = time.perf_counter()
+    clouds = (("uniform", pts),
+              ("clusters", torch.from_numpy(clusters_cloud(N, EMST_SEED)).to(dev)))
+    record = path_launches = None
+    for label, coords in clouds:
+        n = coords.shape[0]
+        (eu, ev, ew), rounds = _emst_rounds(coords)
+        _tree_check(eu, ev, ew, n, label)
+        eu2, ev2, ew2, stats, ms, launches = _emst_path(coords, label, card)
+        check(torch.equal(eu2, eu) and torch.equal(ev2, ev)
+              and torch.equal(ew2, ew), f"emst {label}: two runs differ")
+        check(stats["rounds"] == len(rounds)
+              and stats["rounds"] <= math.ceil(math.log2(n)),
+              f"emst {label}: {stats['rounds']} rounds")
+        _, ms2 = timed_once(lambda: rt.emst(coords))
+        comps = [int(torch.unique(rd["labels"]).numel()) for rd in rounds]
+        busy, share = profile_window(
+            f"emst {label} N={n}", lambda: rt.emst(coords), card,
+            share_of="knn_exclude_kernel")
+        kms = [rd["ms"] for rd in rounds]
+        log(f"[emst] {label} N={n}: a tree (N-1 edges, one component), "
+            f"weight {float(ew.double().sum()):.6f}; {stats['rounds']} "
+            f"rounds, components per round {comps}; {ms:.1f} / {ms2:.1f} ms "
+            f"per run (host clock after synchronize; CUDA events); "
+            f"{stats['host_syncs']} host syncs; the exclusion query per "
+            f"round {', '.join(f'{x:.3f}' for x in kms)} ms (sum "
+            f"{sum(kms):.2f}; CUDA events); busy "
+            f"{'not measured' if busy is None else f'{100 * busy:.1f} %'}, "
+            f"the kernel "
+            f"{'not measured' if share is None else f'{100 * share:.1f} %'} "
+            f"of device time; launches {json.dumps(launches)}  [{card}]")
+        if label == "uniform":
+            path_launches = launches
+            record = _emst_kernel_record(coords, rounds[0], card)
+        del rounds
+        # every round against the twin, every row, at EMST_TWIN_N points
+        small = coords[:EMST_TWIN_N]
+        _, rounds = _emst_rounds(small)
+        t0 = time.perf_counter()
+        for r, rd in enumerate(rounds):
+            wd, wj = T.bvh_traverse_knn_exclude_ref(
+                *rd["tree"], small, rd["labels"], rd["labels"], k=1)
+            check(torch.equal(wd[:, 0], rd["d"])
+                  and torch.equal(wj[:, 0], rd["j"]),
+                  f"emst {label} N={EMST_TWIN_N} round {r + 1}: the "
+                  f"exclusion kernel differs from its twin on "
+                  f"{int((wj[:, 0] != rd['j']).sum())} rows")
+        log(f"[emst] {label} N={EMST_TWIN_N}: all {len(rounds)} rounds "
+            f"identical to the twin on every row (tolerance 0; components "
+            f"per round {[int(torch.unique(rd['labels']).numel()) for rd in rounds]}; "
+            f"twins {time.perf_counter() - t0:.1f} s)")
+    # the total weight against scipy at EMST_ORACLE_N points
+    for label, coords in clouds:
+        x = coords[:EMST_ORACLE_N]
+        t0 = time.perf_counter()
+        want = _mst_weight_oracle(x.cpu().numpy())
+        oracle_s = time.perf_counter() - t0
+        eu, ev, ew = _tree_check(*rt.emst(x), EMST_ORACLE_N, label)
+        got = float(ew.astype(np.float64).sum())
+        rel = abs(got - want) / want
+        check(rel <= EMST_WEIGHT_RTOL,
+              f"emst {label}: weight {got} against scipy's {want} "
+              f"(relative {rel:.3g} > {EMST_WEIGHT_RTOL})")
+        log(f"[emst] {label} N={EMST_ORACLE_N}: weight {got:.9f} against "
+            f"scipy's MST over the Delaunay edges in float64 {want:.9f}: "
+            f"relative {rel:.3g} (bound {EMST_WEIGHT_RTOL}); oracle "
+            f"{oracle_s:.1f} s")
+    log(f"[emst] phase {time.perf_counter() - t_phase:.1f} s")
+    return path_launches, record
+
+
+def _emst_kernel_record(coords, rd, card):
+    """The kernels line's bvh_traverse_knn_exclude: the first round's
+    inputs (every label distinct: each point's nearest other point) on all
+    N rows, the wrapper against the twin (tolerance 0), both timed."""
+    import torch
+    from repro_torch.kernels import bvh_traverse as T
+    n = coords.shape[0]
+    args = (*rd["tree"], coords, rd["labels"], rd["labels"])
+    ms = time_ms(lambda: T.bvh_traverse_knn_exclude(*args, **rd["kw"]),
+                 reps=5)
+    stats = {}
+    (wd, wj), plain = timed_once(
+        lambda: T.bvh_traverse_knn_exclude_ref(*args, k=1, stats=stats))
+    check(torch.equal(wd[:, 0], rd["d"]) and torch.equal(wj[:, 0], rd["j"]),
+          "bvh_traverse_knn_exclude: the first round differs from its twin")
+    # each input read once (node records or boxes and links, ranges, leaf
+    # labels, queries, query labels), each output written once
+    nbytes = (tree_bytes(n, 3, True) + (n - 1) * 4 + n * 4 + n * 12 + n * 4
+              + n * 8)
+    b_ms, b_by = bound(nbytes, n * leaf_ops(3))
+    log(f"[emst] bvh_traverse_knn_exclude N={n} k=1, the first round's "
+        f"labels: identical to the twin on all {n} rows (tolerance 0); "
+        f"{ms:.4f} ms (CUDA events, records and the leaf order as the path "
+        f"gives them) vs twin {plain:.1f} ms ({stats['visits'] / n:.1f} node "
+        f"visits per query); bound {b_ms:.4f} ms ({b_by})  [{card}]")
+    return dict(source="src/repro_torch/csrc/bvh_traverse.cu",
+                replaces="src/repro/core/bvh.py:197",
+                max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def mls_float64(src, values, tgt, idx, degree, reg=1e-8, expansion=False):
+    """(c0, bound) per target: the float64 solution of the MLS systems the
+    neighbours `idx` (T, k) give (the same float32 inputs, every step in
+    float64) and the bound on a float32 pipeline's distance from it that
+    tests/test_torch_mls.py derives (its docstring: weights through the
+    fit's residuals, the basis, the k-term sums, LU with partial
+    pivoting; twice the first-order sum). `expansion`: the distances came
+    from brute force's expansion, else from the kNN kernel's fused sum."""
+    import scipy.linalg
+    src, values, tgt = (np.asarray(a, np.float64) for a in (src, values, tgt))
+    t, k = idx.shape
+    dim = src.shape[1]
+    dx = src[idx] - tgt[:, None, :]
+    d = np.sqrt((dx * dx).sum(-1))
+    radius = np.maximum(d[:, -1:], 1e-30) * 1.1
+    r = np.clip(d / radius, 0.0, 1.0)
+    w = (1.0 - r) ** 4 * (4.0 * r + 1.0)
+    parts = [np.ones(dx.shape[:-1] + (1,))]
+    if degree >= 1:
+        parts.append(dx)
+    if degree >= 2:
+        iu, ju = np.triu_indices(dim)
+        parts.append(dx[..., iu] * dx[..., ju])
+    p = np.concatenate(parts, -1)
+    m = p.shape[-1]
+    f = values[idx]
+    a = np.einsum("tki,tk,tkj->tij", p, w, p) + reg * np.eye(m)
+    b = np.einsum("tki,tk,tk->ti", p, w, f)
+    c = np.linalg.solve(a, b[..., None])[..., 0]
+    g = np.linalg.inv(a)[:, 0, :]
+    gp = np.abs(np.einsum("ti,tki->tk", g, p))
+    ag, ap, ac = np.abs(g), np.abs(p), np.abs(c)
+    rho = np.abs(f - np.einsum("tki,ti->tk", p, c))
+    pc = np.einsum("tki,ti->tk", ap, ac)
+    dd = (dim + 3) * U32 * d
+    if expansion:
+        e = 2 * (dim + 3) * U32 * ((src * src).sum(-1)[idx]
+                                   + (tgt * tgt).sum(-1)[:, None])
+        dd = np.minimum(e / np.maximum(d, 1e-300), np.sqrt(e))
+    eta = 2.11 * ((dd + r * dd[:, -1:]) / radius + 3 * U32) + 8 * U32
+    lu = np.empty_like(a)
+    for i in range(t):
+        perm, low, up = scipy.linalg.lu(a[i])
+        lu[i] = perm @ (np.abs(low) @ np.abs(up))
+    weights = (eta * gp * rho).sum(-1)
+    basis = 3 * U32 * (w * (np.einsum("ti,tki->tk", ag, ap) * rho
+                            + gp * pc)).sum(-1)
+    sums = (k + 2) * U32 * np.einsum("ti,tki,tk->t", ag, ap,
+                                     w * (pc + np.abs(f)))
+    solve = U32 * np.einsum("ti,ti->t", ag, reg * ac
+                            + 3 * m * np.einsum("tij,tj->ti", lu, ac))
+    return c[:, 0], 2.0 * (weights + basis + sums + solve)
+
+
+def phase_mls(dev, pts, qc, policy, card):
+    """MLS over the 2^20 search points with bench_mls.py's function onto
+    the Q = 2^17 queries, degree 0, 1 and 2: one kNN kernel launch a call
+    (counters zeroed just before, read just after), no loop walk, the
+    neighbours equal to BVH.query(nearest), MLS_CHECK values within the
+    stated bound of a float64 solve; ms per degree, the kNN and solve
+    shares, the mean absolute error against f."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.core import geometry as G
+    from repro_torch.core import interpolation as I
+    from repro_torch.core import traversal as TT
+    from repro_torch.kernels import bvh_traverse as T
+    from repro_torch.kernels import lbvh_build as KB
+
+    t_phase = time.perf_counter()
+    x = pts.double()
+    fv = (torch.sin(2 * x[:, 0]) * torch.cos(3 * x[:, 1]) + x[:, 2]).float()
+    want_t = (torch.sin(2 * qc[:, 0].double()) * torch.cos(3 * qc[:, 1].double())
+              + qc[:, 2].double())
+    rows = torch.randperm(Q, generator=torch.Generator(device=dev).manual_seed(
+        SEED + 14), device=dev)[:MLS_CHECK]
+    for degree in (0, 1, 2):
+        k = 2 * I.polynomial_basis_size(3, degree) + 2
+        seen = []
+        real = rt.BVH._knn_impl
+
+        def spy(self, preds, pol):
+            out = real(self, preds, pol)
+            seen.append(out)
+            return out
+
+        for f in (T.bvh_traverse_knn, KB.karras_ranges):
+            f.launches = 0
+        walks = TT.knn_walk.calls
+        rt.BVH._knn_impl = spy
+        try:
+            got, ms = timed_once(lambda: rt.mls_interpolate(pts, fv, qc,
+                                                            degree=degree))
+        finally:
+            rt.BVH._knn_impl = real
+        launched = T.bvh_traverse_knn.launches
+        check(launched == 1 and KB.karras_ranges.launches == 1
+              and TT.knn_walk.calls == walks and len(seen) == 1,
+              f"mls degree {degree}: {launched} kNN launches, "
+              f"{TT.knn_walk.calls - walks} loop walks")
+        check(got.shape == (Q,) and bool(torch.isfinite(got).all()),
+              f"mls degree {degree}: not Q finite values")
+        d, idx = seen[0]
+        want = rt.BVH(G.Points(pts), policy=policy).query(
+            rt.nearest(G.Points(qc), k=k))
+        check(torch.equal(idx, want.indices) and torch.equal(d, want.distances),
+              f"mls degree {degree}: neighbours differ from BVH.query(nearest)")
+        c64, bnd = mls_float64(pts.cpu().numpy(), fv.cpu().numpy(),
+                               qc[rows].cpu().numpy(),
+                               idx[rows].cpu().numpy(), degree)
+        err = np.abs(got[rows].cpu().numpy().astype(np.float64) - c64)
+        check((err <= bnd).all(),
+              f"mls degree {degree}: {int((err > bnd).sum())} of {MLS_CHECK} "
+              f"values outside the float64 bound")
+        mae = float((got.double() - want_t).abs().mean())
+        ms_avg = time_ms(lambda: rt.mls_interpolate(pts, fv, qc, degree=degree),
+                         reps=3)
+        index = rt.BVH(G.Points(pts), policy=policy)
+        build_ms = time_ms(lambda: rt.BVH(G.Points(pts), policy=policy),
+                           reps=3)
+        knn_ms = time_ms(lambda: index.query(rt.nearest(G.Points(qc), k=k)),
+                         reps=3)
+        busy, share = profile_window(
+            f"mls degree {degree} N={N} T={Q}",
+            lambda: rt.mls_interpolate(pts, fv, qc, degree=degree), card,
+            share_of="knn_kernel")
+        log(f"[mls] degree {degree} (k={k}) N={N} T={Q}: {ms:.2f} ms first "
+            f"call, {ms_avg:.3f} ms per call (CUDA events): the build "
+            f"{build_ms:.3f} ms ({100 * build_ms / ms_avg:.1f} %), the kNN "
+            f"query {knn_ms:.3f} ({100 * knn_ms / ms_avg:.1f} %), the basis, "
+            f"the normal equations and the solve the rest "
+            f"({100 * (1 - (build_ms + knn_ms) / ms_avg):.1f} %); "
+            f"{launched} kNN launch; neighbours equal to BVH.query(nearest); "
+            f"{MLS_CHECK} values within the float64 bound (largest error "
+            f"{err.max():.3g}, largest share of its bound "
+            f"{(err / bnd).max():.3g}, median bound {np.median(bnd):.3g}); "
+            f"mean |value - f| {mae:.3g}; busy "
+            f"{'not measured' if busy is None else f'{100 * busy:.1f} %'}  "
+            f"[{card}]")
+    log(f"[mls] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     name, count, card = phase_device()
     import torch
@@ -3040,6 +3458,11 @@ def main():
     records["ray_box_nearest"] = box_record
     launches["ray_box_nearest"] = ray_launches["ray_box_nearest"]
     phase_serve(dev, pts, card)
+    emst_launches, records["bvh_traverse_knn_exclude"] = phase_emst(
+        dev, pts, card)
+    launches["bvh_traverse_knn_exclude"] = \
+        emst_launches["bvh_traverse_knn_exclude"]
+    phase_mls(dev, pts, qc, policy, card)
     ops_launches, codes, knn_out = phase_ops_main(pts, qc)
     # morton64: the builds' launches on the main path and the op's
     launches["morton64"] += ops_launches["morton64"]
@@ -3053,7 +3476,7 @@ def main():
     launches.update(phase_lm(dev, card))
     kernels = []
     for kname in ("karras_ranges", "lbvh_tail", "bvh_traverse_spatial",
-                  "bvh_traverse_knn",
+                  "bvh_traverse_knn", "bvh_traverse_knn_exclude",
                   "bvh_traverse_ray_knn", "bvh_traverse_callback",
                   "bvh_traverse_callback_rays",
                   "ray_box_nearest", "morton64", "bruteforce_knn",

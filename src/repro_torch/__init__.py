@@ -4,8 +4,10 @@ port of the JAX package ``repro`` (which stays the reference).
 The main path builds an LBVH over points, boxes, spheres or triangles,
 then answers batched spatial (CSR) and k-nearest queries through
 ``BVH(...).query()``, callback queries (``query(callback=)``,
-``query(out=)``), DBSCAN (``dbscan``) and ray tracing (``raytracing``:
-``cast_nearest``, ``cast_intersect``, ``cast_ordered``). The stand-alone
+``query(out=)``), DBSCAN (``dbscan``), the Euclidean minimum spanning
+tree (``emst``, over ``nearest(..., exclude=)``), MLS interpolation
+(``mls_interpolate``) and ray tracing (``raytracing``: ``cast_nearest``,
+``cast_intersect``, ``cast_ordered``). The stand-alone
 kernel ops are ``kernels.ops`` (``morton64``, ``bruteforce_knn``,
 ``ray_box_nearest``, as ``repro.kernels.ops``), with their oracles in
 ``kernels.ref``; ``REPRO_SANITIZE=1`` arms the kernels' output-contract
@@ -20,15 +22,15 @@ PyTorch twins run instead.
 from .core import (BVH, BruteForce, EngineConfig, ExecutionPolicy, LBVH,
                    QueryEngine, QueryResult, RayIntersect, RayNearest,
                    RayOrderedIntersect, RouteRule, RouteTable, build,
-                   callbacks, dbscan, intersects, nearest, raytracing, refit,
-                   sah_cost)
+                   callbacks, dbscan, emst, intersects, mls_interpolate,
+                   nearest, raytracing, refit, sah_cost)
 from .configs import get_config
 from .core.geometry import Boxes, Points, Rays, Spheres, Triangles
 from .models import LM, ModelConfig
 
 __all__ = ["BVH", "BruteForce", "EngineConfig", "ExecutionPolicy", "LBVH",
            "QueryEngine", "QueryResult", "RouteRule", "RouteTable", "build",
-           "callbacks", "dbscan", "intersects", "nearest", "raytracing",
-           "refit", "sah_cost", "Points", "Boxes", "Spheres", "Triangles",
-           "Rays", "RayNearest", "RayIntersect", "RayOrderedIntersect",
-           "LM", "ModelConfig", "get_config"]
+           "callbacks", "dbscan", "emst", "mls_interpolate", "intersects",
+           "nearest", "raytracing", "refit", "sah_cost", "Points", "Boxes",
+           "Spheres", "Triangles", "Rays", "RayNearest", "RayIntersect",
+           "RayOrderedIntersect", "LM", "ModelConfig", "get_config"]

@@ -128,12 +128,18 @@ class BruteForce(Index):
         """(dists, idxs) (Q, k): exact k nearest by fine distance (ray
         predicates: by hit parameter t, misses (inf, -1)), ties to the lower
         index (a stable sort, as lax.top_k orders them), (inf, -1) padded
-        past N."""
+        past N. Under ``Nearest.exclude`` a pair of equal labels takes
+        d = inf before the sort, so it comes back (inf, -1)."""
         k = predicates.k
         k_eff = min(k, self._n)
 
         def top(blk):
-            d, i = torch.sort(self._distances(blk), dim=1, stable=True)
+            d = self._distances(blk)
+            if getattr(blk, "exclude", None) is not None:
+                query_labels, leaf_labels = blk.exclude
+                d = torch.where(leaf_labels[None, :] == query_labels[:, None],
+                                float("inf"), d)
+            d, i = torch.sort(d, dim=1, stable=True)
             return d[:, :k_eff], i[:, :k_eff].to(torch.int32)
 
         dists, idx = self._blocks(top, predicates)

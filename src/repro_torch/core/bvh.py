@@ -12,14 +12,21 @@ takes the ray kNN kernel where the engine routes it there (Points,
 Boxes, Spheres or 3-D Triangles values, k <= ``KNN_MAX_K``), else the
 general k-nearest walk; both give the same (t, idx) bit for bit. The
 3-D ray walks on the card read the leaves' value records, made at first
-use and kept with the index (:attr:`BVH.value_records`).
+use and kept with the index (:attr:`BVH.value_records`). A ``Nearest``
+with ``exclude`` takes the exclusion walk whatever the engine's route,
+as the reference pins its loop walk: the exclusion kernel
+(``kernels.bvh_traverse.bvh_traverse_knn_exclude``) for Points queries
+over Points or Boxes values, ``traversal.knn_walk`` for other shapes,
+and brute force with the labels masked for N < 2.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
 
+from ..kernels import bvh_traverse as BT
 from . import callbacks as CB
 from . import engine as E
 from . import geometry as G
@@ -152,6 +159,10 @@ class BVH(Index):
         return None
 
     def _knn_impl(self, predicates, pol):
+        if isinstance(predicates, P.Nearest) and predicates.exclude is not None:
+            if self.tree is None:
+                return self._brute()._knn_impl(predicates, pol)
+            return self._knn_exclude(predicates)
         if self.tree is None:
             return _degenerate_knn(self.values, self._n, predicates, self.device)
         engine = pol.resolve_engine()
@@ -162,6 +173,31 @@ class BVH(Index):
             return engine.kernel_knn(self, predicates)
         return T.traverse_knn(self.tree, self.values, predicates,
                               predicates.k)
+
+    def _knn_exclude(self, predicates):
+        """(dists, idxs) of a ``Nearest.exclude`` batch: the exclusion
+        kernel where it takes the batch (on the card a 3-D tree's kept
+        node records, and the leaf order when the queries are the indexed
+        points), else the general k-nearest walk."""
+        t, k = self.tree, predicates.k
+        query_labels, leaf_labels = predicates.exclude
+        if (self.kernel_values_ok and isinstance(predicates.geom, G.Points)
+                and t.dim <= BT.MAX_DIM and k <= BT.KNN_MAX_K):
+            queries = predicates.geom.coords.to(torch.float32)
+            records = order = None
+            if t.node_lo.is_cuda:
+                records = t.records
+                coords = (self.values.coords
+                          if isinstance(self.values, G.Points) else None)
+                order = BT.knn_order(queries, coords, t.leaf_perm)
+            return BT.bvh_traverse_knn_exclude(
+                t.node_lo, t.node_hi, t.rope, t.left_child, t.leaf_perm,
+                t.range_first, t.range_last, queries, query_labels,
+                leaf_labels, k=k, records=records, order=order)
+        plain = dataclasses.replace(predicates, exclude=None)
+        return T.traverse_knn(t, self.values, plain, k,
+                              exclude_labels=query_labels,
+                              leaf_labels=leaf_labels)
 
 
 # --- degenerate N in {0, 1}: linear scan ---------------------------------

@@ -215,7 +215,13 @@ class QueryEngine:
         the ray kNN kernel when the tree exists, Q > 0, k <= KNN_MAX_K,
         dim <= MAX_DIM and the values are Points, Boxes, Spheres or 3-D
         Triangles under the default getter, else the loop walk; never
-        brute force."""
+        brute force. A ``Nearest.exclude`` batch is not routed: ``BVH``
+        answers it with the exclusion walk, and no cached entry is keyed
+        on it, so this raises."""
+        if getattr(predicates, "exclude", None) is not None:
+            raise ValueError(
+                "Nearest.exclude takes no engine route: BVH.query answers it "
+                "with the exclusion walk (core.predicates)")
         rule = self._rule("knn", bvh, policy)
         q = len(predicates)
         bf_ok = isinstance(predicates, P.Nearest)

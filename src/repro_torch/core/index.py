@@ -45,7 +45,8 @@ from . import callbacks as CB
 from . import predicates as P
 from .traversal import value_at
 
-__all__ = ["ExecutionPolicy", "Index", "QueryResult", "resolve_device"]
+__all__ = ["ExecutionPolicy", "Index", "QueryResult", "resolve_device",
+           "placed"]
 
 
 class QueryResult(NamedTuple):
@@ -74,6 +75,17 @@ def resolve_device(device) -> torch.device:
             "repro_torch runs on a CUDA device by default and none is "
             "available; pass ExecutionPolicy(device='cpu') to run on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def placed(x, device) -> torch.Tensor:
+    """An algorithm's input `x` as float32 where it runs: a tensor where
+    it lives (on `device` when given), an array on `device`, the CUDA card
+    by default (raising without one)."""
+    if isinstance(x, torch.Tensor) and device is None:
+        dev = x.device
+    else:
+        dev = resolve_device(device)
+    return torch.as_tensor(x, dtype=torch.float32, device=dev)
 
 
 @dataclasses.dataclass(frozen=True)

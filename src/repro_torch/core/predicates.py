@@ -12,8 +12,21 @@ take it when ``fused`` is set. A ray predicate's node test is the slab
 test (``geometry.ray_box``), its "distance" the ray parameter t, and its
 leaf test :func:`leaf_ray_hit`, whose float order is one of
 ``geometry.SPHERE_ORDERS`` ("eager", "walk" or "loop": see
-``geometry.ray_sphere``). ``Nearest.exclude`` and spatial predicates
-over Triangles values come in later slices.
+``geometry.ray_sphere``). Spatial predicates over Triangles values come
+in a later slice.
+
+``Nearest.exclude = (query_labels (Q,), leaf_labels (N,))``, two int32
+tensors, leaf labels in original index order, is Borůvka's "nearest
+outside my component" (EMST): a value is a candidate for query q only
+where ``leaf_labels[index] != query_labels[q]``; a query with no
+candidate left keeps (inf, -1) slots. ``BVH`` answers it with the
+exclusion walk whatever the engine's route, as the reference pins its
+compiled loop walk: ``kernels.bvh_traverse.bvh_traverse_knn_exclude``
+(its kernel on the card, its twin on the CPU) for Points queries over
+Points or Boxes values under the default getter, with k <= ``KNN_MAX_K``
+and dim <= ``MAX_DIM``; ``traversal.knn_walk`` for any other shape.
+``BruteForce`` (and a BVH of N < 2) masks the excluded pairs before its
+sort. The engine's routes and the serving stack refuse it.
 """
 from __future__ import annotations
 
@@ -61,24 +74,34 @@ class Intersects:
 
 @dataclasses.dataclass(frozen=True)
 class Nearest:
-    """k-nearest predicate over the centroids of `geom`."""
+    """k-nearest predicate over the centroids of `geom`; `exclude`, when
+    given, is the ``(query_labels, leaf_labels)`` pair of int32 tensors of
+    the module docstring."""
     geom: object
     k: int = 1
     data: object = None
     exclude: object = None
 
     def __post_init__(self):
-        if self.exclude is not None:
-            raise NotImplementedError(
-                "Nearest.exclude (the EMST component filter) is not ported "
-                "yet: it comes with the algorithms slice")
+        if self.exclude is None:
+            return
+        ok = (isinstance(self.exclude, tuple) and len(self.exclude) == 2
+              and all(isinstance(t, torch.Tensor) and t.dim() == 1
+                      and t.dtype == torch.int32 for t in self.exclude))
+        if not ok or self.exclude[0].shape[0] != len(self.geom):
+            raise ValueError(
+                "Nearest.exclude must be (query_labels (Q,), leaf_labels "
+                "(N,)), two int32 tensors, one query label per predicate")
 
     def __len__(self):
         return len(self.geom)
 
     def to(self, device) -> "Nearest":
+        exclude = (None if self.exclude is None
+                   else tuple(t.to(device) for t in self.exclude))
         return dataclasses.replace(self, geom=self.geom.to(device),
-                                   data=_to(self.data, device))
+                                   data=_to(self.data, device),
+                                   exclude=exclude)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,10 +164,14 @@ def geometry_of(pred):
 
 
 def take(pred, i):
-    """Rows `i` of a predicate array, its payload included."""
+    """Rows `i` of a predicate array, its payload included (and the query
+    labels of a ``Nearest.exclude``, whose leaf labels stay whole)."""
     data = None if pred.data is None else value_at(pred.data, i)
-    return dataclasses.replace(pred, data=data, **{
-        _field(pred): geometry_of(pred).index(i)})
+    rows = {_field(pred): geometry_of(pred).index(i)}
+    if getattr(pred, "exclude", None) is not None:
+        query_labels, leaf_labels = pred.exclude
+        rows["exclude"] = (query_labels[i], leaf_labels)
+    return dataclasses.replace(pred, data=data, **rows)
 
 
 def lift(pred):

@@ -150,7 +150,11 @@ def knn_walk(node_lo, node_hi, rope, left_child, leaf_perm, values,
     exclude_labels (Q,) / leaf_labels (N,): a value is a candidate for
     query q only when ``leaf_labels[index] != exclude_labels[q]``
     (Borůvka's "nearest outside my component").
+
+    ``knn_walk.calls`` counts the calls, so a path can show that it never
+    ran this host loop on the card.
     """
+    knn_walk.calls += 1
     q = len(predicates)
     n = leaf_perm.shape[0]
     dev = node_lo.device
@@ -197,3 +201,6 @@ def knn_walk(node_lo, node_hi, rope, left_child, leaf_perm, values,
     if stats is not None:
         stats["visits"] = visits
     return dists, idxs
+
+
+knn_walk.calls = 0

@@ -1,5 +1,6 @@
 // BVH traversal: the stackless rope walk of the spatial queries (count +
-// fill), and a nearest-first walk with a stack for k-nearest.
+// fill), and a nearest-first walk with a stack for k-nearest, with an
+// instance for k-nearest outside the query's label (Nearest.exclude).
 //
 // Replaces: src/repro/kernels/bvh_traverse.py::bvh_traverse_spatial (body
 //   _spatial_kernel) and ::bvh_traverse_knn (body _knn_kernel). The TPU
@@ -88,6 +89,38 @@
 //   The list is KeyList<K> in registers for k <= 32, KeyHeap<256> in
 //   local memory for 33..256; the stack (8 bytes an entry) is in local
 //   memory.
+// k-nearest outside the query's label (knn_exclude_kernel, Nearest.exclude):
+//   replaces no TPU kernel. The reference pins Nearest.exclude to its loop
+//   walk (src/repro/core/bvh.py::_knn_impl -> traversal.py::traverse_knn with
+//   exclude_labels / leaf_labels, the leaf test at :174), which jax.jit
+//   compiles into one device program with no pallas_call. Borůvka's EMST
+//   runs one such query over all N points in every round (up to log2 N
+//   rounds), so here it is a kernel: the nearest-first walk and tie pass
+//   above (knn_walk.cuh) with another key, ExcludeKeys:
+//   * the loop walk compares fine distances, sqrt of the fused d2, not d2;
+//     two distinct d2 can round to one distance, so a d2 key would order
+//     such ties otherwise. The key is sqrtf(d2) (correctly rounded: the
+//     library is built without --use_fast_math);
+//   * it is +inf for a leaf whose label is the query's (the loop walk never
+//     admits it), and for an internal node whose leaves all carry the
+//     query's label (node_labels in kernels/bvh_traverse.py: one label or
+//     MIXED per node, from the leaf labels' change counts at the node's
+//     range ends): no leaf below it is a candidate, so pruning it changes
+//     no list, and in the last rounds, where a component holds about N / 2
+//     points, it keeps a query from walking its own component's subtrees.
+//     A node labelled MIXED (-1) is never pruned, so a label of -1 is
+//     excluded leaf by leaf;
+//   * sqrt is monotone, so a node's key still never exceeds that of a leaf
+//     below it (an excluded leaf's +inf exceeds everything), and a
+//     candidate leaf's key is its fine distance: the two properties the
+//     argument for knn_walk.cuh needs, so the kernel's lists are the rope
+//     walk's (the twin's, and the reference's) bit for bit, ties included.
+//     An excluded leaf keyed +inf is never admitted (inf < tau is false),
+//     never lowers `lost`, and the tie pass, which runs only at a finite
+//     k-th key, never counts it.
+//   Bound: the same pointer chase as the k-nearest walk, plus one 4-byte
+//   label a visited node. Points queries over Points or Boxes values,
+//   dims 1..16 (node records in 3-D), k <= 256.
 // Both walks compute a box's squared distance as g0*g0, then one explicit
 //   fmaf per further dimension (the order XLA:CPU gives the reference
 //   kernels, and geometry.sum_sq_fused's); the library is built with
@@ -322,28 +355,88 @@ __global__ void __launch_bounds__(kThreads)
   });
 }
 
+// the exclusion walk's keys: sqrtf of the node test's d2, +inf where the
+// node's label excludes it (the note at the top)
+constexpr int kMixed = -1;   // node_labels' MIXED
+
+template <class Nodes>
+struct ExcludeKeys {
+  const Nodes& nodes;
+  const float (&qc)[Nodes::kDims];
+  const int* __restrict__ labels;   // (2n-1,) node labels
+  int label;                        // the query's
+  int dim;
+  int leaf0;                        // n - 1: the first leaf's node id
+  __device__ __forceinline__ float key(int m, int& link, int& rope) const {
+    const float d2 = nodes.test(qc, m, dim, link, rope);
+    const int l = __ldg(labels + m);
+    return l == label && (m >= leaf0 || l != kMixed) ? INFINITY : sqrtf(d2);
+  }
+};
+
+template <class Nodes, class List>
+__global__ void __launch_bounds__(kThreads)
+    knn_exclude_kernel(Nodes nodes, const int* __restrict__ perm, int n,
+                       int dim, const float* __restrict__ queries,
+                       const int* __restrict__ order,
+                       const int* __restrict__ labels,
+                       const int* __restrict__ qlabels, int q, int k,
+                       float* __restrict__ dists, int* __restrict__ idxs) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= q) return;
+  const int qi = order == nullptr ? i : __ldg(order + i);
+  float qc[Nodes::kDims];
+#pragma unroll
+  for (int c = 0; c < Nodes::kDims; ++c) {
+    if (c < dim) qc[c] = __ldg(queries + static_cast<long long>(qi) * dim + c);
+  }
+  const ExcludeKeys<Nodes> keys{nodes, qc, labels, __ldg(qlabels + qi), dim,
+                                n - 1};
+  List list;
+  float lost;   // the smallest key left out (leaf or node)
+  knn::nearest_first(keys, n, k, list, lost);
+  float* od = dists + static_cast<long long>(qi) * k;
+  int* oi = idxs + static_cast<long long>(qi) * k;
+  knn::tie_pass_and_put(keys, n, k, list, lost, [&](int j, float d, int p) {
+    od[j] = d;
+    oi[j] = p < 0 ? -1 : __ldg(perm + p);
+  });
+}
+
+// the exclusion instance's node and query labels; null for the plain walk
+struct Labels {
+  const int* nodes = nullptr;
+  const int* queries = nullptr;
+};
+
 template <class Nodes, class List>
 void launch_knn(const Nodes& nodes, const int* perm, int n, int dim,
                 const float* queries, const int* order, int q, int k,
-                float* dists, int* idxs, cudaStream_t stream) {
+                float* dists, int* idxs, Labels lab, cudaStream_t stream) {
   const int blocks = (q + kThreads - 1) / kThreads;
-  knn_kernel<Nodes, List><<<blocks, kThreads, 0, stream>>>(
-      nodes, perm, n, dim, queries, order, q, k, dists, idxs);
+  if (lab.nodes == nullptr) {
+    knn_kernel<Nodes, List><<<blocks, kThreads, 0, stream>>>(
+        nodes, perm, n, dim, queries, order, q, k, dists, idxs);
+  } else {
+    knn_exclude_kernel<Nodes, List><<<blocks, kThreads, 0, stream>>>(
+        nodes, perm, n, dim, queries, order, lab.nodes, lab.queries, q, k,
+        dists, idxs);
+  }
 }
 
 template <class Nodes>
 cudaError_t launch_knn_k(const Nodes& nodes, const int* perm, int n, int dim,
                          const float* queries, const int* order, int q, int k,
-                         float* d, int* ix, cudaStream_t s) {
+                         float* d, int* ix, Labels lab, cudaStream_t s) {
   using knn::KeyHeap;
   using knn::KeyList;
-  if (k <= 1) launch_knn<Nodes, KeyList<1, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, s);
-  else if (k <= 2) launch_knn<Nodes, KeyList<2, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, s);
-  else if (k <= 4) launch_knn<Nodes, KeyList<4, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, s);
-  else if (k <= 8) launch_knn<Nodes, KeyList<8, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, s);
-  else if (k <= 16) launch_knn<Nodes, KeyList<16, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, s);
-  else if (k <= 32) launch_knn<Nodes, KeyList<32, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, s);
-  else if (k <= kMaxK) launch_knn<Nodes, KeyHeap<kMaxK, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, s);
+  if (k <= 1) launch_knn<Nodes, KeyList<1, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, lab, s);
+  else if (k <= 2) launch_knn<Nodes, KeyList<2, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, lab, s);
+  else if (k <= 4) launch_knn<Nodes, KeyList<4, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, lab, s);
+  else if (k <= 8) launch_knn<Nodes, KeyList<8, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, lab, s);
+  else if (k <= 16) launch_knn<Nodes, KeyList<16, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, lab, s);
+  else if (k <= 32) launch_knn<Nodes, KeyList<32, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, lab, s);
+  else if (k <= kMaxK) launch_knn<Nodes, KeyHeap<kMaxK, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, lab, s);
   else return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
@@ -399,14 +492,12 @@ REPRO_EXPORT int bvh_spatial_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-// records: the tree's LBVH.records in 3-D (the Records3 instance), or
-// null (the flat arrays); order: the query each thread walks, or null
-REPRO_EXPORT int bvh_knn_launch(const void* node_lo, const void* node_hi,
-                                const void* rope, const void* left,
-                                const void* perm, const void* records,
-                                const void* order, const void* queries, int n,
-                                int q, int dim, int k, void* dists,
-                                void* idxs, void* stream) {
+namespace {
+
+int knn_entry(const void* node_lo, const void* node_hi, const void* rope,
+              const void* left, const void* perm, const void* records,
+              const void* order, const void* queries, Labels lab, int n,
+              int q, int dim, int k, void* dists, void* idxs, void* stream) {
   if (dim < 1 || dim > kMaxDim || k < 1 || k > kMaxK || n < 2 ||
       (records != nullptr && dim != 3)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -420,11 +511,43 @@ REPRO_EXPORT int bvh_knn_launch(const void* node_lo, const void* node_hi,
   if (records != nullptr) {
     return static_cast<int>(launch_knn_k(
         Records3{static_cast<const int4*>(records)}, pm, n, dim, qp, od, q, k,
-        d, ix, s));
+        d, ix, lab, s));
   }
   Tree t{static_cast<const float*>(node_lo), static_cast<const float*>(node_hi),
          static_cast<const int*>(rope), static_cast<const int*>(left), pm, n,
          dim};
   return static_cast<int>(launch_knn_k(Flat{t}, pm, n, dim, qp, od, q, k, d,
-                                       ix, s));
+                                       ix, lab, s));
+}
+
+}  // namespace
+
+// records: the tree's LBVH.records in 3-D (the Records3 instance), or
+// null (the flat arrays); order: the query each thread walks, or null
+REPRO_EXPORT int bvh_knn_launch(const void* node_lo, const void* node_hi,
+                                const void* rope, const void* left,
+                                const void* perm, const void* records,
+                                const void* order, const void* queries, int n,
+                                int q, int dim, int k, void* dists,
+                                void* idxs, void* stream) {
+  return knn_entry(node_lo, node_hi, rope, left, perm, records, order,
+                   queries, Labels{}, n, q, dim, k, dists, idxs, stream);
+}
+
+// the exclusion walk (Nearest.exclude): as bvh_knn_launch, with the
+// tree's (2n-1,) int32 node labels and the (q,) int32 query labels; the
+// distances written are the keys, sqrtf(d2)
+REPRO_EXPORT int bvh_knn_exclude_launch(
+    const void* node_lo, const void* node_hi, const void* rope,
+    const void* left, const void* perm, const void* records,
+    const void* order, const void* queries, const void* node_labels,
+    const void* query_labels, int n, int q, int dim, int k, void* dists,
+    void* idxs, void* stream) {
+  if (node_labels == nullptr || query_labels == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Labels lab{static_cast<const int*>(node_labels),
+                   static_cast<const int*>(query_labels)};
+  return knn_entry(node_lo, node_hi, rope, left, perm, records, order,
+                   queries, lab, n, q, dim, k, dists, idxs, stream);
 }

@@ -1,6 +1,6 @@
 """BVH traversal kernels: spatial count + fill, and k-nearest.
 
-Two kernels, each with its plain PyTorch twin beside it:
+The kernels, each with its plain PyTorch twin beside it:
 
   * ``bvh_traverse_spatial``: Intersects queries in the unified
     (q_lo, q_hi, r) form (a point is a box with r = 0, a sphere a point
@@ -22,6 +22,14 @@ Two kernels, each with its plain PyTorch twin beside it:
     Boxes, Spheres or 3-D Triangles values. Its twin is
     ``core.traversal.knn_walk``, the reference's ``traverse_knn``, which
     the reference compiles for ``RayNearest`` with no kernel of its own.
+  * ``bvh_traverse_knn_exclude``: k nearest Points queries over Points or
+    Boxes values outside the query's label (``Nearest.exclude``, EMST's
+    component exclusion), keyed like the reference's loop walk
+    (``traversal.traverse_knn``), which the reference compiles for it with
+    no kernel of its own: the fine distance sqrt(d2) of the node test, +inf
+    for a leaf whose label is the query's and for a node whose leaves all
+    carry it (:func:`node_labels`). Pruning such a node changes nothing,
+    since no leaf below it is a candidate; its twin prunes them too.
 
 A CPU tensor takes the twin (``*_ref``), which walks every query's cursor
 step by step until all are -1, the node sequence of the rope walk. A CUDA
@@ -69,9 +77,11 @@ from ..core.geometry import sqrt, sum_sq_fused
 from . import _build, sanitize
 
 __all__ = ["bvh_traverse_spatial", "bvh_traverse_knn", "bvh_traverse_ray_knn",
-           "bvh_traverse_spatial_ref", "bvh_traverse_knn_ref",
-           "bvh_traverse_ray_knn_ref", "pack_nodes", "pack_values",
-           "knn_order", "RAY_TARGETS", "KNN_MAX_K", "MAX_DIM", "STACK_DEPTH"]
+           "bvh_traverse_knn_exclude", "bvh_traverse_spatial_ref",
+           "bvh_traverse_knn_ref", "bvh_traverse_ray_knn_ref",
+           "bvh_traverse_knn_exclude_ref", "node_labels", "pack_nodes",
+           "pack_values", "knn_order", "RAY_TARGETS", "KNN_MAX_K", "MAX_DIM",
+           "STACK_DEPTH", "MIXED"]
 
 #: largest k the kNN kernel takes (its largest template bucket)
 KNN_MAX_K = 256
@@ -85,6 +95,10 @@ STACK_DEPTH = 96
 RAY_TARGETS = (G.Points, G.Boxes, G.Spheres, G.Triangles)
 #: the tree arrays the kNN kernels take, in their C entries' order
 _TREE = ("node_lo", "node_hi", "rope", "left_child", "leaf_perm")
+#: node_labels' label of an internal node whose leaves carry more than one
+#: label; an internal node labelled MIXED is never excluded, so a label of
+#: -1 is only ever excluded leaf by leaf
+MIXED = -1
 
 
 # ---------------------------------------------------------------------------
@@ -138,10 +152,14 @@ def bvh_traverse_spatial_ref(node_lo, node_hi, rope, left_child, range_last,
     return cnt, buf
 
 
-def bvh_traverse_knn_ref(node_lo, node_hi, rope, left_child, leaf_perm,
-                         queries, *, k: int, stats: dict | None = None):
-    """Batched kNN rope walk with the kernel's semantics; (dists, idxs)
-    (Q, k) ascending, (inf, -1) padded."""
+def _rope_knn(node_lo, node_hi, rope, left_child, leaf_perm, queries, k,
+              key, stats):
+    """The kNN rope walk of the kernels' twins: (keys, idxs) (Q, k)
+    ascending, (+inf, -1) padded. ``key(nodes, rows, d2)`` maps the
+    squared point-to-box distances (the fused order) of the visited nodes
+    to the walk's key; a node is entered, and a leaf admitted, while its
+    key is strictly below the running k-th, and a leaf is placed before
+    the equal keys."""
     q = queries.shape[0]
     n = leaf_perm.shape[0]
     dev = queries.device
@@ -149,7 +167,7 @@ def bvh_traverse_knn_ref(node_lo, node_hi, rope, left_child, leaf_perm,
     left = left_child.to(torch.int64)
     perm = leaf_perm.to(torch.int32)
     node = torch.zeros((q,), dtype=torch.int64, device=dev)
-    d2s = torch.full((q, k), float("inf"), dtype=torch.float32, device=dev)
+    keys = torch.full((q, k), float("inf"), dtype=torch.float32, device=dev)
     idxs = torch.full((q, k), -1, dtype=torch.int32, device=dev)
     ar = torch.arange(k, device=dev)
     visits = 0
@@ -162,20 +180,20 @@ def bvh_traverse_knn_ref(node_lo, node_hi, rope, left_child, leaf_perm,
         qc = queries[act]
         g = torch.clamp_min(torch.maximum(node_lo[nd] - qc, qc - node_hi[nd]),
                             0.0)
-        d2 = sum_sq_fused(g)
-        promising = d2 < d2s[act, k - 1]              # strict prune
+        kk = key(nd, act, sum_sq_fused(g))
+        promising = kk < keys[act, k - 1]             # strict prune
         is_leaf = nd >= n - 1
         ok = is_leaf & promising
         rows = act[ok]
         if rows.numel():
-            dd = d2[ok][:, None]
+            dd = kk[ok][:, None]
             oi = perm[nd[ok] - (n - 1)][:, None]
-            cur_d, cur_i = d2s[rows], idxs[rows]
+            cur_d, cur_i = keys[rows], idxs[rows]
             at = (cur_d < dd).sum(1, keepdim=True)    # ties land after
             shift_d = torch.cat([dd, cur_d[:, :-1]], 1)
             shift_i = torch.cat([oi, cur_i[:, :-1]], 1)
-            d2s[rows] = torch.where(ar < at, cur_d,
-                                    torch.where(ar == at, dd, shift_d))
+            keys[rows] = torch.where(ar < at, cur_d,
+                                     torch.where(ar == at, dd, shift_d))
             idxs[rows] = torch.where(ar < at, cur_i,
                                      torch.where(ar == at, oi, shift_i))
         descend = promising & ~is_leaf
@@ -183,7 +201,55 @@ def bvh_traverse_knn_ref(node_lo, node_hi, rope, left_child, leaf_perm,
                                 rope[nd])
     if stats is not None:
         stats["visits"] = visits
+    return keys, idxs
+
+
+def bvh_traverse_knn_ref(node_lo, node_hi, rope, left_child, leaf_perm,
+                         queries, *, k: int, stats: dict | None = None):
+    """Batched kNN rope walk with the kernel's semantics, keyed by d2;
+    (dists, idxs) (Q, k) ascending, (inf, -1) padded."""
+    d2s, idxs = _rope_knn(node_lo, node_hi, rope, left_child, leaf_perm,
+                          queries, k, lambda nd, act, d2: d2, stats)
     return sqrt(d2s), idxs
+
+
+def node_labels(leaf_labels, leaf_perm, range_first, range_last):
+    """(2N-1,) int32 node labels of an LBVH for the exclusion walk: a
+    leaf's is its value's label, an internal node's the one label its
+    leaves all carry, else ``MIXED``. With ``ls`` the labels in sorted-leaf
+    order and ``brk[p]`` the count of label changes up to position p, the
+    node covering [range_first, range_last] is uniform iff ``brk`` is equal
+    at both ends: plain tensor operations, no walk."""
+    n = leaf_perm.shape[0]
+    ls = leaf_labels[leaf_perm.to(torch.int64)].to(torch.int32)
+    brk = torch.zeros((n,), dtype=torch.int32, device=ls.device)
+    brk[1:] = torch.cumsum(ls[1:] != ls[:-1], 0, dtype=torch.int32)
+    first = range_first.to(torch.int64)
+    last = range_last[:n - 1].to(torch.int64)
+    inner = torch.where(brk[last] == brk[first], ls[first], MIXED)
+    return torch.cat([inner.to(torch.int32), ls])
+
+
+def bvh_traverse_knn_exclude_ref(node_lo, node_hi, rope, left_child,
+                                 leaf_perm, range_first, range_last, queries,
+                                 query_labels, leaf_labels, *, k: int,
+                                 stats: dict | None = None):
+    """The exclusion kernel's twin: the rope walk keyed by sqrt(d2) (the
+    reference loop walk's fine distance) and +inf where the node's label
+    (:func:`node_labels`) excludes it: a leaf whose label is the query's,
+    an internal node whose leaves all carry it. (dists, idxs) (Q, k)
+    ascending, (inf, -1) padded."""
+    n = leaf_perm.shape[0]
+    labels = node_labels(leaf_labels, leaf_perm, range_first, range_last)
+    ql = query_labels.to(torch.int32)
+
+    def key(nd, act, d2):
+        lab = labels[nd]
+        out = (lab == ql[act]) & ((nd >= n - 1) | (lab != MIXED))
+        return torch.where(out, float("inf"), sqrt(d2))
+
+    return _rope_knn(node_lo, node_hi, rope, left_child, leaf_perm, queries,
+                     k, key, stats)
 
 
 def bvh_traverse_ray_knn_ref(node_lo, node_hi, rope, left_child, leaf_perm,
@@ -398,16 +464,28 @@ def bvh_traverse_knn(node_lo, node_hi, rope, left_child, leaf_perm, queries,
 
 
 def _knn_launch(what, node_lo, node_hi, rope, left_child, leaf_perm, queries,
-                k, records, order):
+                k, records, order, labels=None):
+    """Launch the kNN kernel, or with `labels` = (range_first, range_last,
+    query_labels, leaf_labels) its exclusion instance."""
     if k > KNN_MAX_K:
         raise ValueError(f"{what}: k={k} above the kernel's cap {KNN_MAX_K}")
     dev = queries.device
     q, dim = queries.shape
     n = leaf_perm.shape[0]
+    extra = {} if labels is None else dict(zip(
+        ("range_first", "range_last", "query_labels", "leaf_labels"), labels))
     a = _args(dev, what, node_lo=node_lo, node_hi=node_hi, rope=rope,
-              left_child=left_child, leaf_perm=leaf_perm, queries=queries)
+              left_child=left_child, leaf_perm=leaf_perm, queries=queries,
+              **extra)
     _check_tree(what, n, dim, a["node_lo"], a["node_hi"], a["rope"],
                 a["left_child"], a["leaf_perm"])
+    if labels is not None and (
+            a["range_first"].shape != (n - 1,)
+            or a["range_last"].shape != (2 * n - 1,)
+            or a["query_labels"].shape != (q,)
+            or a["leaf_labels"].shape != (n,)):
+        raise ValueError(f"{what}: ranges (N-1,) and (2N-1,), labels (Q,) "
+                         "and (N,) expected")
     records = None if dim != 3 else _kept_records(
         what, [a[f] for f in _TREE], None, records, None, dev, False)[0]
     _check_order(what, order, q, dev)
@@ -415,13 +493,59 @@ def _knn_launch(what, node_lo, node_hi, rope, left_child, leaf_perm, queries,
     idxs = torch.empty((q, k), dtype=torch.int32, device=dev)
     if q == 0:
         return dists, idxs
-    fn = _build.function("bvh_traverse", "bvh_knn_launch", _KNN_ARGS)
+    ptrs = [a[f].data_ptr() for f in _TREE] + [_ptr(records), _ptr(order),
+                                               a["queries"].data_ptr()]
+    if labels is None:
+        fn = _build.function("bvh_traverse", "bvh_knn_launch", _KNN_ARGS)
+    else:
+        fn = _build.function("bvh_traverse", "bvh_knn_exclude_launch",
+                             _KNN_EXCLUDE_ARGS)
+        nodes = node_labels(a["leaf_labels"], a["leaf_perm"],
+                            a["range_first"], a["range_last"])
+        ptrs += [nodes.data_ptr(), a["query_labels"].data_ptr()]
     with torch.cuda.device(dev):
-        err = fn(*(a[f].data_ptr() for f in _TREE), _ptr(records),
-                 _ptr(order), a["queries"].data_ptr(), n, q, dim, k,
-                 dists.data_ptr(), idxs.data_ptr(), _stream(dev))
+        err = fn(*ptrs, n, q, dim, k, dists.data_ptr(), idxs.data_ptr(),
+                 _stream(dev))
     _build.check("bvh_traverse", err, what)
-    bvh_traverse_knn.launches += 1
+    if labels is None:
+        bvh_traverse_knn.launches += 1
+    else:
+        bvh_traverse_knn_exclude.launches += 1
+    return dists, idxs
+
+
+_KNN_EXCLUDE_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                     + [ctypes.c_void_p] * 3)
+
+
+def bvh_traverse_knn_exclude(node_lo, node_hi, rope, left_child, leaf_perm,
+                             range_first, range_last, queries, query_labels,
+                             leaf_labels, *, k: int, records=None,
+                             order=None):
+    """(dists, idxs) (Q, k) float32/int32, ascending, (inf, -1) padded:
+    the k nearest of Q query points among the tree's leaves (Points, or
+    Boxes by their point-to-box distance) whose label differs from the
+    query's, ``leaf_labels[idx] != query_labels[q]`` (int32, leaf labels
+    in original index order). The fine distance is the key, as in the
+    reference's loop walk, so the lists are its lists bit for bit, ties
+    included. It takes dims 1..``MAX_DIM`` and k <= ``KNN_MAX_K``; a
+    ``Nearest.exclude`` of any other shape (other queries or values, a
+    custom getter, larger dims or k) takes ``traversal.knn_walk``, which
+    counts its calls (``knn_walk.calls``). `records` and `order` as for
+    :func:`bvh_traverse_knn`; the node labels are made per call."""
+    what = "bvh_traverse_knn_exclude"
+    if k < 1:
+        raise ValueError(f"{what}: k must be >= 1, got {k}")
+    if _device_of(queries, what) == "cpu":
+        dists, idxs = bvh_traverse_knn_exclude_ref(
+            node_lo, node_hi, rope, left_child, leaf_perm, range_first,
+            range_last, queries, query_labels, leaf_labels, k=k)
+    else:
+        dists, idxs = _knn_launch(
+            what, node_lo, node_hi, rope, left_child, leaf_perm, queries, k,
+            records, order,
+            labels=(range_first, range_last, query_labels, leaf_labels))
+    sanitize.check_knn(dists, idxs, n=leaf_perm.shape[0], kernel=what)
     return dists, idxs
 
 
@@ -536,4 +660,5 @@ def _ray_knn_launch(what, node_lo, node_hi, rope, left_child, leaf_perm,
 
 bvh_traverse_spatial.launches = 0
 bvh_traverse_knn.launches = 0
+bvh_traverse_knn_exclude.launches = 0
 bvh_traverse_ray_knn.launches = 0

@@ -638,21 +638,24 @@ class ServingPipeline:
             except Exception:
                 failed = True
             finally:
+                # the counters move before the update stops counting as in
+                # flight, so wait_maintenance_idle returns only after they
+                # are final (_maint_cv, then _cv: update_index's order)
                 with self._maint_cv:
                     self._maint_inflight -= 1
-                    pending = len(self._maint) + self._maint_inflight
+                    with self._cv:
+                        s = self._stats
+                        s.maintenance_pending = \
+                            len(self._maint) + self._maint_inflight
+                        if failed:
+                            s.maintenance_errors += 1
+                        elif action is not None:
+                            s.swap_count += 1
+                            if action == "refit":
+                                s.refits += 1
+                            else:
+                                s.rebuilds += 1
                     self._maint_cv.notify_all()
-            with self._cv:
-                s = self._stats
-                s.maintenance_pending = pending
-                if failed:
-                    s.maintenance_errors += 1
-                else:
-                    s.swap_count += 1
-                    if action == "refit":
-                        s.refits += 1
-                    else:
-                        s.rebuilds += 1
 
     def _update(self, name, values, ready) -> str:
         """One refit-or-rebuild on the maintenance stream (the calling

@@ -1186,3 +1186,84 @@ def test_refit_on_the_maintenance_stream_serves_correctly(cuda_device):
         st = pipe.stats()
     assert st.refits == 5 and st.maintenance_errors == 0
     assert st.stalled_behind_maintenance == 0
+
+
+# ---------------------------------------------------------------------------
+# the algorithms slice: Nearest.exclude, EMST, MLS
+# ---------------------------------------------------------------------------
+
+ALGORITHM_MODULES = tuple(importlib.import_module(f"repro_torch.core.{m}")
+                          for m in ("emst", "interpolation"))
+
+
+def test_algorithm_modules_are_scanned_for_imports():
+    files = {os.path.realpath(p) for p in _port_files()}
+    for mod in ALGORITHM_MODULES:
+        assert os.path.realpath(mod.__file__) in files, mod
+
+
+def test_algorithms_run_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import numpy as np, torch, repro_torch as rt\n"
+        "x = np.random.default_rng(0).uniform(0, 1, (200, 3)).astype(np.float32)\n"
+        "eu, ev, ew = rt.emst(x, device='cpu')\n"
+        "assert eu.shape == (199,) and bool((eu >= 0).all())\n"
+        "assert bool(torch.isfinite(ew).all())\n"
+        "f = x @ np.array([1.5, -2.0, 0.25], np.float32) + 3.0\n"
+        "v = rt.mls_interpolate(x, f, x[:20] * 0.5 + 0.25, degree=1, device='cpu')\n"
+        "assert np.allclose(v.numpy(), (x[:20] * 0.5 + 0.25) @ [1.5, -2.0, 0.25] + 3.0,\n"
+        "                   atol=1e-3)\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules\n"
+        "               if sys.modules[m] is not None)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_algorithms_default_to_the_card_and_raise_without_one(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.random.default_rng(1).uniform(0, 1, (20, 3)).astype(np.float32)
+    with pytest.raises(RuntimeError) as want:
+        resolve_device(None)
+    from repro_torch import emst, mls_interpolate
+    for call in (lambda: emst(x), lambda: mls_interpolate(x, x[:, 0], x[:4])):
+        with pytest.raises(RuntimeError) as got:
+            call()
+        assert str(got.value) == str(want.value)
+
+
+def test_exclusion_wrapper_refuses_other_devices_and_counts_only_launches():
+    t, x = _tree_args()
+    meta = {f: getattr(t, f).to("meta") for f in TL.FIELDS}
+    lab = torch.zeros((x.shape[0],), dtype=torch.int32)
+    with pytest.raises(ValueError, match="no kernel"):
+        TT.bvh_traverse_knn_exclude(
+            *(meta[f] for f in ("node_lo", "node_hi", "rope", "left_child",
+                                "leaf_perm", "range_first", "range_last")),
+            x[:4].to("meta"), lab[:4].to("meta"), lab.to("meta"), k=2)
+    before = TT.bvh_traverse_knn_exclude.launches
+    TT.bvh_traverse_knn_exclude(
+        *(getattr(t, f) for f in ("node_lo", "node_hi", "rope", "left_child",
+                                  "leaf_perm", "range_first", "range_last")),
+        x[:4], lab[:4] + 1, lab, k=2)
+    assert TT.bvh_traverse_knn_exclude.launches == before
+
+
+@pytest.mark.cuda
+def test_exclusion_on_the_card_never_calls_the_twin(cuda_device, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("a twin ran for a CUDA tensor")
+
+    monkeypatch.setattr(TT, "bvh_traverse_knn_exclude_ref", boom)
+    x = torch.rand((500, 3), device=cuda_device)
+    lab = (torch.arange(500, device=cuda_device) % 7).to(torch.int32)
+    res = BVH(TG.Points(x), policy=ExecutionPolicy(device=cuda_device)).query(
+        TP.nearest(TG.Points(x), k=2, exclude=(lab, lab)))
+    torch.cuda.synchronize()
+    assert bool((lab[res.indices.clamp_min(0).long()] != lab[:, None]).all())

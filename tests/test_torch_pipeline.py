@@ -9,6 +9,8 @@ The timing margins are the reference's or wider, and no case compares
 two wall times.
 """
 import threading
+import time
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -342,6 +344,34 @@ def test_failed_update_counts_an_error_and_serving_goes_on():
         assert st.maintenance_errors == 1 and st.swap_count == 0
         r = pipe.submit(knn_request(_pts(2, 62), k=1)).result(60.0)
         assert r.stats.index_version == 1
+
+
+@pytest.mark.parametrize("outcome", ["refit", "error"])
+def test_counters_are_final_when_maintenance_goes_idle(monkeypatch, outcome):
+    """wait_maintenance_idle returns only after the maintenance thread
+    has counted its update. The pipeline's conditions are made to hold
+    the maintenance thread for 0.3 s each time it enters one, so a
+    counter update made after the thread leaves the in-flight count
+    (and wakes the waiter) would still be pending when stats() reads."""
+    class SlowForMaintenance(threading.Condition):
+        def __enter__(self):
+            if threading.current_thread().name == "repro-pipeline-maintenance":
+                time.sleep(0.3)
+            return super().__enter__()
+
+    slow = types.SimpleNamespace(**vars(threading))
+    slow.Condition = SlowForMaintenance
+    monkeypatch.setattr(PL, "threading", slow)
+    with _pipeline(100, seed=64) as pipe:
+        name = "default" if outcome == "refit" else "missing"
+        pipe.update_index(name, TG.Points(torch.from_numpy(_pts(100, 64) + 1e-4)))
+        assert pipe.wait_maintenance_idle(60.0)
+        st = pipe.stats()
+        if outcome == "refit":
+            assert (st.refits, st.swap_count, st.maintenance_errors) == (1, 1, 0)
+        else:
+            assert (st.maintenance_errors, st.swap_count) == (1, 0)
+        assert st.maintenance_pending == 0
 
 
 def test_cpu_pipeline_has_no_maintenance_stream():

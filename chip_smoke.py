@@ -170,6 +170,40 @@ Phases (one line or more each, then the two closing lines):
      ``tests/test_torch_mls.py`` derives of a float64 solve of the same
      systems; ms per call beside the build's and the kNN query's, the
      busy share under the profiler, the mean |value - f|.
+ 10e. geometry (slice 14; run right after 6b, so that its host workers
+     overlap the later phases): ``BVH`` over the cube [0, 56]^3 cut into
+     56^3 unit cells of 6 Kuhn tetrahedra (1,053,696), the ray phase's
+     soup of 2^20 triangles, 2^20 uniform segments of length 0.01, the
+     soup's 2^20 14-DOPs and the ray phase's 2^20 spheres, with Q = 2^17
+     uniform points (times 56 for the mesh): point location
+     (``intersects(Points)``), spheres of r = 0.005 over the soup and
+     the segments, boxes of side 0.01 over the k-DOPs (two
+     callback-kernel launches a query), ``nearest(Points)`` at k = 1 and
+     10 over the soup and the segments and k = 10 over the spheres (one
+     fine kNN launch a query), the counters zeroed just before and read
+     just after, no loop walk; each query's time (CUDA events) and each
+     build's. Then: every point in its own tetrahedron (the cell
+     floor(x), the order of the fractional parts) and, farther than 1e-6
+     from a cell face or a fractional tie, in that one alone; the
+     callback kernel's counting and collect_hits(64) walks against their
+     twin on the first 2^12 queries (tolerance 0) over every full index;
+     on the first 2^10 queries, CSR sets and kNN lists against float64
+     oracles (Ericson's closest point on a triangle, the clamped
+     projection on a segment, the sphere distance): distances within
+     2^-21 absolute, pairs apart only within 2^-21 of the radius,
+     indices apart only at near ties (counted), and the k-DOPs' sets
+     equal BruteForce's; the two new instances' registers and spills.
+     The fine kNN twin (a host loop that steps once per node of the
+     longest rope walk) runs over the first 2^8 queries of each of the
+     five nearest queries, on the main path's own 2^20-value indexes, in
+     four spawned processes on the host CPU; after the lm phase the main
+     path's rows are held against its lists (tolerance 0, ties and
+     order). The kernels line takes the callback kernel's
+     spheres-over-the-soup walk (ms at Q = 2^17, plain_ms the twin on the
+     card over the first 2^12 queries) and the fine kNN walk at k = 10
+     over the soup (ms at Q = 2^17, plain_ms the twin on the host CPU,
+     one thread, over the first 2^8 queries: each plain_ms is at a
+     smaller shape than its ms).
  11. ops (slice 4's main path): ``kernels.ops.morton64`` over the 2^20
      search points and ``kernels.ops.bruteforce_knn`` of 2^13 of the
      queries against them (k = 10), the two launch counters zeroed just
@@ -218,7 +252,7 @@ Phases (one line or more each, then the two closing lines):
      time (ms, tokens/s) and one profiled forward, with the flash
      kernel's share of device time.
 
-The line before the last is ``{"kernels": [...]}`` (12 entries: name,
+The line before the last is ``{"kernels": [...]}`` (14 entries: name,
 route, source, replaced TPU kernel, launches, max_abs_err, ms, plain_ms,
 bound_ms, bound_by, library_ms); the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -226,8 +260,10 @@ Any failed check raises and the script exits nonzero without them.
 """
 from __future__ import annotations
 
+import atexit
 import json
 import math
+import multiprocessing
 import os
 import re
 import subprocess
@@ -366,7 +402,7 @@ def _ptxas_summary(text):
                            r"(Records3|Flat)EN3knn\d+"
                            r"(KeyList|KeyHeap)ILi(\d+)E", m.group(1))
             cb = re.search(r"(callback_kernel3|callback_kernel|ray_kernel3|"
-                           r"ray_kernel).*?"
+                           r"ray_kernel|shaped_kernel3).*?"
                            r"(CountWithLimit|Counting|MinDistance|"
                            r"CollectILb[01]E|MinWhere)", m.group(1))
             rn = re.search(r"ray_knn_nf_kernelIN3knn\d+(KeyList|KeyHeap)"
@@ -375,6 +411,8 @@ def _ptxas_summary(text):
                            r"LeafBox|LeafSphere3|LeafTriangle3|LeafFlat)E.*?"
                            r"(LeafBox|LeafSphere3|LeafTriangle3|LeafFlat)?E?"
                            r"N3knn\d+(KeyList|KeyHeap)ILi(\d+)E", m.group(1))
+            fk = re.search(r"fine_knn_kernelINS_\d+(Records3|Flat)EN3knn\d+"
+                           r"(KeyList|KeyHeap)ILi(\d+)E", m.group(1))
             rb3 = re.search(r"ray_box3_kernelILi(\d+)EE", m.group(1))
             rb = re.search(r"ray_box_kernel|ray_box_decode|lanes_generic|"
                            r"key_generic|scene_generic|scene_final|"
@@ -389,7 +427,9 @@ def _ptxas_summary(text):
                            r"ILi(\d+)E", m.group(1))
             bm = re.search(r"merge_kernelIN3knn\d+(KeyList|KeyHeap)ILi(\d+)E",
                            m.group(1))
-            fn = (f"{mt.group(1)}<{mt.group(2) or mt.group(3)}"
+            fn = (f"fine_knn_kernel<{fk.group(1)}, {fk.group(2)} "
+                  f"{fk.group(3)}>" if fk
+                  else f"{mt.group(1)}<{mt.group(2) or mt.group(3)}"
                   f"{', ' + mt.group(4) if mt.group(4) else ''}>" if mt
                   else f"ray_knn_nf_kernel<{rn.group(1)} {rn.group(2)}>" if rn
                   else f"{rk.group(1)}<"
@@ -3424,6 +3464,545 @@ def phase_mls(dev, pts, qc, policy, card):
     log(f"[mls] phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# slice 14: the remaining geometries
+# ---------------------------------------------------------------------------
+
+GEO_CELLS = 56            # the mesh: 56^3 unit cells of 6 Kuhn tetrahedra
+GEO_RADIUS = 0.005        # intersects(Spheres) over triangles and segments
+GEO_SEGMENT = 0.01        # the segments' length
+GEO_BOX = 0.01            # intersects(Boxes) over the k-DOPs
+GEO_TWIN = 1 << 12        # queries the callback kernel is held to its twin on
+# queries of the main path's own 2^20-value indexes the fine kNN walk is
+# held to its twin on, at each k the path runs: the twin's host loop steps
+# once per node of the longest rope walk, about 10,800 visits a query at
+# 2^20 triangles and k = 10, and a step of the triangle distance costs
+# some 900 PyTorch operations, so it runs on the host CPU, in
+# GEO_TWIN_WORKERS spawned processes, while the card goes on with the
+# later phases
+GEO_KNN_TWIN = 1 << 8
+GEO_TWIN_WORKERS = 4
+GEO_ORACLE = 1 << 10      # queries held against the float64 oracles
+# The oracles' absolute tolerance on a distance: the float32 result
+# carries the rounding of the vertices' differences and of the projection
+# point, about ulp(1) / 2 = 6e-8 each in the unit cube (a simulation of
+# the soup's shapes saw 8.1e-8 at most), so 2^-21 (4 ulp(1)) bounds it
+# with room; a relative bound does not hold at the scenes' distances of
+# a few 1e-3 and below.
+GEO_ATOL = 2.0 ** -21
+KUHN = ((0, 1, 2), (0, 2, 1), (1, 0, 2), (1, 2, 0), (2, 0, 1), (2, 1, 0))
+# operations of one triangle leaf test, counted from csrc/point_tests.cuh
+# (distance_point_triangle: the barycentric coordinates, then the
+# projection or three segments), and the bytes of its value record
+# (pack_values: three 16-byte vertices)
+TRI_LEAF_OPS = 134
+TRI_RECORD_BYTES = 48
+
+
+def kuhn_mesh(dev, m):
+    """The cube [0, m]^3 cut into m^3 unit cubes of 6 Kuhn tetrahedra each
+    (the paths 0 -> e_s0 -> e_s0 + e_s1 -> (1, 1, 1) over the permutations
+    s of the axes, KUHN): tetrahedron 6 cell + s of cell (i, j, k) =
+    i m^2 + j m + k, vertices the integer corners in float32."""
+    import torch
+    ar = torch.arange(m, device=dev)
+    ijk = torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"),
+                      -1).reshape(-1, 3)
+    perms = torch.tensor(KUHN, device=dev)
+    eye = torch.eye(3, dtype=torch.int64, device=dev)
+    v = ijk[:, None, :].expand(-1, 6, -1)
+    verts = [v]
+    for j in range(3):
+        v = v + eye[perms[:, j]]
+        verts.append(v)
+    return [x.reshape(-1, 3).to(torch.float32) for x in verts]
+
+
+def kuhn_own(p, m):
+    """(own tetrahedron, near a face) of each point of [0, m)^3: the cell
+    floor(x) and the order of the fractional parts (exact in float64);
+    near when a coordinate lies within 1e-6 of a cell face or two
+    fractional parts lie within 1e-6 of each other."""
+    import torch
+    x = p.double()
+    cell = torch.floor(x).clamp(0, m - 1)
+    f = x - cell
+    order = torch.argsort(-f, dim=1, stable=True)
+    code = order[:, 0] * 9 + order[:, 1] * 3 + order[:, 2]
+    table = torch.full((27,), -1, dtype=torch.int64, device=p.device)
+    for s, (a, b, c) in enumerate(KUHN):
+        table[a * 9 + b * 3 + c] = s
+    ci = cell.to(torch.int64)
+    cell_id = ci[:, 0] * m * m + ci[:, 1] * m + ci[:, 2]
+    fs = torch.sort(f, dim=1).values
+    near = ((torch.minimum(f, 1 - f) < 1e-6).any(1)
+            | ((fs[:, 1:] - fs[:, :-1]) < 1e-6).any(1))
+    return cell_id * 6 + table[code], near
+
+
+def _segment64(p, a, b):
+    """(Q, M) float64 distances from points to segments (clamped
+    projection), independent of the port's formula."""
+    import torch
+    ab = b - a
+    t = ((p[:, None] - a[None]) * ab[None]).sum(-1) / (ab * ab).sum(-1)
+    t = t.clamp(0.0, 1.0)
+    return (p[:, None] - (a[None] + t[..., None] * ab[None])).norm(dim=-1)
+
+
+def _triangle64(p, a, b, c):
+    """(Q, M) float64 distances from points to triangles (Ericson, Real-
+    Time Collision Detection 5.1.5: the Voronoi regions of the vertices,
+    the edges and the face), independent of the port's formula."""
+    import torch
+    P = p[:, None]
+    ab, ac = (b - a)[None], (c - a)[None]
+    ap, bp, cp = P - a[None], P - b[None], P - c[None]
+    d1, d2 = (ab * ap).sum(-1), (ac * ap).sum(-1)
+    d3, d4 = (ab * bp).sum(-1), (ac * bp).sum(-1)
+    d5, d6 = (ab * cp).sum(-1), (ac * cp).sum(-1)
+    va, vb, vc = d3 * d6 - d5 * d4, d5 * d2 - d1 * d6, d1 * d4 - d3 * d2
+    den = va + vb + vc
+    out = a[None] + ab * (vb / den)[..., None] + ac * (vc / den)[..., None]
+
+    def put(mask, val):
+        nonlocal out, done
+        m = (mask & ~done)[..., None]
+        out = torch.where(m, val, out)
+        done = done | mask
+
+    done = torch.zeros(d1.shape, dtype=torch.bool, device=p.device)
+    safe = lambda x: torch.where(x == 0, torch.ones_like(x), x)  # noqa: E731
+    put((d1 <= 0) & (d2 <= 0), a[None].expand_as(out))
+    put((d3 >= 0) & (d4 <= d3), b[None].expand_as(out))
+    put((vc <= 0) & (d1 >= 0) & (d3 <= 0),
+        a[None] + (d1 / safe(d1 - d3))[..., None] * ab)
+    put((d6 >= 0) & (d5 <= d6), c[None].expand_as(out))
+    put((vb <= 0) & (d2 >= 0) & (d6 <= 0),
+        a[None] + (d2 / safe(d2 - d6))[..., None] * ac)
+    e = (d4 - d3) / safe((d4 - d3) + (d5 - d6))
+    put((va <= 0) & (d4 - d3 >= 0) & (d5 - d6 >= 0),
+        b[None] + e[..., None] * (c - b)[None])
+    return (P - out).norm(dim=-1)
+
+
+def _oracle_rows(fn, queries, values, block):
+    """fn(queries block, *values) over blocks of queries, float64."""
+    import torch
+    vals = [v.double() for v in values]
+    return torch.cat([fn(queries[s:s + block].double(), *vals)
+                      for s in range(0, queries.shape[0], block)])
+
+
+def _check_knn_oracle(res, d64, k, label):
+    """kNN distances within GEO_ATOL of the float64 oracle's k smallest,
+    indices the oracle's except where its distances tie within 2 GEO_ATOL;
+    returns (largest error, rows with an index swap at a near tie)."""
+    import torch
+    nq = d64.shape[0]
+    od, oi = torch.topk(d64, k + 1, dim=1, largest=False)
+    d = res.distances[:nq].double()
+    err = float((d - od[:, :k]).abs().max())
+    check(err <= GEO_ATOL, f"{label}: kNN distances off the float64 oracle "
+          f"by {err:.3g} (tolerance {GEO_ATOL:.3g})")
+    got = res.indices[:nq].to(torch.int64)
+    gap = torch.cat([od[:, 1:] - od[:, :-1]], 1)
+    near = torch.zeros_like(got, dtype=torch.bool)
+    near |= gap[:, :k] <= 2 * GEO_ATOL
+    near[:, 1:] |= gap[:, :k - 1] <= 2 * GEO_ATOL
+    bad = (got != oi[:, :k]) & ~near
+    check(not bool(bad.any()), f"{label}: {int(bad.sum())} kNN indices "
+          f"differ from the float64 oracle away from a near tie")
+    return err, int(((got != oi[:, :k]) & near).any(1).sum())
+
+
+def _check_csr_oracle(res, d64, r, label):
+    """CSR sets against {d64 <= r}: pairs may differ only where d64 lies
+    within GEO_ATOL of r; returns the count of such pairs."""
+    import torch
+    nq, n = d64.shape
+    mine = torch.zeros((nq, n), dtype=torch.bool, device=d64.device)
+    off = res.offsets[:nq + 1].to(torch.int64)
+    rows = torch.repeat_interleave(torch.arange(nq, device=d64.device),
+                                   off[1:] - off[:-1])
+    mine[rows, res.indices[:int(off[-1])].to(torch.int64)] = True
+    want = d64 <= r
+    diff = mine != want
+    near = (d64 - r).abs() <= GEO_ATOL
+    check(bool((~diff | near).all()), f"{label}: {int((diff & ~near).sum())} "
+          f"pairs differ from the float64 oracle away from the radius")
+    return int(want.sum()), int(diff.sum())
+
+
+def _fine_knn_twin(tree, kind, fields, queries, k):
+    """The fine kNN walk's twin (bvh_traverse_fine_knn_ref) on the host
+    CPU, in a spawned worker: `tree` (node_lo, node_hi, rope, left_child,
+    leaf_perm) and `fields` (the values of class `kind`) are a main-path
+    index's arrays and `queries` (Q, 3) points, all numpy. Returns
+    (dists, idxs, seconds, node visits of all queries)."""
+    import torch
+    from repro_torch.core import geometry as G
+    from repro_torch.kernels import bvh_traverse as T
+    torch.set_num_threads(1)
+    values = getattr(G, kind)(*map(torch.from_numpy, fields))
+    stats = {}
+    t0 = time.perf_counter()
+    d, i = T.bvh_traverse_fine_knn_ref(
+        *map(torch.from_numpy, tree), values,
+        G.Points(torch.from_numpy(queries)), k=k, stats=stats)
+    return d.numpy(), i.numpy(), time.perf_counter() - t0, stats["visits"]
+
+
+GEO_FIELDS = {"Triangles": ("a", "b", "c"), "Segments": ("a", "b"),
+              "Spheres": ("center", "radius")}
+
+
+def phase_geometry(dev, policy, card):
+    """Slice 14 end to end: BVH over the tetrahedral mesh, the triangle
+    soup, segments, k-DOPs and the ray phase's spheres, answering
+    intersects (point location, spheres, boxes) and nearest (k = 1, 10)
+    with the counters zeroed just before and read just after; then the
+    callback kernel against its twin on the first GEO_TWIN queries (bit
+    for bit), the results against float64 oracles on the first
+    GEO_ORACLE, and each query's time. Starts the fine kNN twin over the
+    first GEO_KNN_TWIN queries of every nearest query in worker processes
+    (phase_geometry_twins collects them). Returns (launches, callback
+    record, pending twin work)."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.core import geometry as G
+    from repro_torch.core import predicates as P
+    from repro_torch.core import traversal as TW
+    from repro_torch.core.index import _bcast_state
+    from repro_torch.kernels import bvh_callback as KC
+    from repro_torch.kernels import bvh_traverse as T
+
+    t_phase = time.perf_counter()
+    a, b, c, _, _ = make_soup(dev)
+    soup = G.Triangles(a, b, c)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    spheres = G.Spheres(torch.rand((N, 3), generator=gen, device=dev),
+                        torch.full((N,), SPHERE_RADIUS, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    sa = torch.rand((N, 3), generator=gen, device=dev)
+    u = torch.randn((N, 3), generator=gen, device=dev)
+    segs = G.Segments(sa, sa + GEO_SEGMENT * u / u.norm(dim=1, keepdim=True))
+    pq = torch.rand((Q, 3), generator=gen, device=dev)
+    mesh = G.Tetrahedra(*kuhn_mesh(dev, GEO_CELLS))
+    dirs = G.kdop_directions(3, 14, device=dev)
+    support = torch.stack([a, b, c], 1) @ dirs.T
+    kdops = G.KDOPs(support.amin(1), support.amax(1), dirs)
+    del support
+    points = G.Points(pq)
+    mesh_points = G.Points(pq * GEO_CELLS)
+    balls = G.Spheres(pq, torch.full((Q,), GEO_RADIUS, device=dev))
+    boxes = G.Boxes(pq, pq + GEO_BOX)
+    n_tet = len(mesh)
+    check(n_tet == 6 * GEO_CELLS ** 3, f"the mesh holds {n_tet} tetrahedra")
+
+    # -- the main path, counters zeroed just before and read just after ---
+    engine = rt.QueryEngine()
+    pol = policy.override(engine=engine)
+    counters = {"bvh_traverse_callback": KC.bvh_traverse_callback,
+                "bvh_traverse_fine_knn": T.bvh_traverse_fine_knn,
+                "bvh_traverse_knn": T.bvh_traverse_knn,
+                "bvh_traverse_spatial": T.bvh_traverse_spatial}
+    for f in counters.values():
+        f.launches = 0
+    walks = TW.knn_walk.calls
+    t1 = time.perf_counter()
+    idx = {"tetrahedra": rt.BVH(mesh, policy=pol),
+           "triangles": rt.BVH(soup, policy=pol),
+           "segments": rt.BVH(segs, policy=pol),
+           "kdops": rt.BVH(kdops, policy=pol),
+           "spheres": rt.BVH(spheres, policy=pol)}
+    queries = {"tetrahedra": ("intersects", P.intersects(mesh_points)),
+               "triangles": ("intersects", P.intersects(balls)),
+               "segments": ("intersects", P.intersects(balls)),
+               "kdops": ("intersects", P.intersects(boxes))}
+    knn_keys = (("triangles", 10), ("triangles", 1), ("segments", 10),
+                ("spheres", 10), ("segments", 1))
+    res, ms_once = {}, {}
+    for kind, (_, pred) in queries.items():
+        res[kind], ms_once[kind] = timed_once(lambda: idx[kind].query(pred))
+    for kind, k in knn_keys:
+        res[kind, k], ms_once[kind, k] = timed_once(
+            lambda: idx[kind].query(P.nearest(points, k)))
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    batches = dict(engine.callback_batches)
+    path_s = time.perf_counter() - t1
+    check(launches["bvh_traverse_callback"] == 8 and batches == {
+        "kernel": 8, "loop": 0}, "the four intersects queries did not launch "
+          f"the callback kernel twice each: {json.dumps(launches)}, "
+          f"batches {json.dumps(batches)}")
+    check(launches["bvh_traverse_fine_knn"] == 5
+          and launches["bvh_traverse_knn"] == 0
+          and launches["bvh_traverse_spatial"] == 0
+          and TW.knn_walk.calls == walks,
+          "the five nearest queries did not launch the fine kNN kernel once "
+          f"each (or a loop walk ran): {json.dumps(launches)}")
+    for kind, r in res.items():
+        if isinstance(kind, tuple):
+            k = kind[1]
+            check(r.distances.shape == (Q, k)
+                  and bool(torch.isfinite(r.distances).all())
+                  and bool((r.indices >= 0).all())
+                  and bool((r.distances[:, 1:] >= r.distances[:, :-1]).all()),
+                  f"nearest {kind}: shape, padding or order")
+        else:
+            check(r.offsets.shape == (Q + 1,)
+                  and bool((r.offsets[1:] >= r.offsets[:-1]).all()),
+                  f"intersects {kind}: offsets")
+    log(f"[geometry] main path {path_s:.1f} s: BVH over {n_tet} tetrahedra "
+        f"({GEO_CELLS}^3 Kuhn cells of side 1), {N} triangles (the soup), "
+        f"{N} segments (length {GEO_SEGMENT}), {N} 14-DOPs (the soup's), {N} "
+        f"spheres (the ray phase's); Q={Q}; launches {json.dumps(launches)}, "
+        f"callback batches {json.dumps(batches)}, no loop walk")
+
+    # -- the fine kNN twin on the first GEO_KNN_TWIN queries of each
+    # nearest query, over the main path's own indexes, on the host CPU in
+    # worker processes (the longest first) while the card goes on ------
+    pool = multiprocessing.get_context("spawn").Pool(GEO_TWIN_WORKERS)
+    atexit.register(pool.terminate)
+    qn = pq[:GEO_KNN_TWIN].cpu().numpy()
+    host = {}
+    for kind in ("triangles", "segments", "spheres"):
+        t_, v = idx[kind].tree, idx[kind].values
+        host[kind] = ([x.cpu().numpy() for x in (
+            t_.node_lo, t_.node_hi, t_.rope, t_.left_child, t_.leaf_perm)],
+            type(v).__name__,
+            [getattr(v, f).cpu().numpy() for f in GEO_FIELDS[type(v).__name__]])
+    jobs = {key: pool.apply_async(_fine_knn_twin,
+                                  (*host[key[0]], qn, key[1]))
+            for key in knn_keys}
+    pool.close()
+    del host
+    rows = {key: (res[key].distances[:GEO_KNN_TWIN].cpu(),
+                  res[key].indices[:GEO_KNN_TWIN].cpu()) for key in knn_keys}
+    # the wrapper on those queries alone: the same rows, and the kernel's
+    # time at the twin's shape
+    sub_points = points.index(slice(0, GEO_KNN_TWIN))
+    kernel_sub_ms = {}
+    for kind, k in knn_keys:
+        index = idx[kind]
+        t_ = index.tree
+        call = (lambda: T.bvh_traverse_fine_knn(
+            t_.node_lo, t_.node_hi, t_.rope, t_.left_child, t_.leaf_perm,
+            index.values, sub_points, k=k, records=t_.records,
+            value_records=index.value_records))
+        gd, gi = call()
+        check(torch.equal(gd.cpu(), rows[kind, k][0])
+              and torch.equal(gi.cpu(), rows[kind, k][1]),
+              f"fine kNN {kind} k={k}: the first {GEO_KNN_TWIN} queries alone "
+              "differ from the main path's rows")
+        kernel_sub_ms[kind, k] = time_ms(call, reps=3)
+
+    # -- times (CUDA events; the first call above, then the mean of 3) ----
+    times = {}
+    for kind, (_, pred) in queries.items():
+        times[kind] = time_ms(lambda: idx[kind].query(pred), reps=3)
+    for key in knn_keys:
+        times[key] = time_ms(lambda: idx[key[0]].query(
+            P.nearest(points, key[1])), reps=3)
+    build_ms = {kind: time_ms(lambda: rt.BVH(index.values, policy=policy),
+                              reps=2) for kind, index in idx.items()}
+    for key, ms in times.items():
+        r = res[key]
+        what = (f"nearest(Points, k={key[1]}) over {key[0]}"
+                if isinstance(key, tuple) else
+                f"{queries[key][0]}({type(P.geometry_of(queries[key][1])).__name__}) "
+                f"over {key}, {int(r.offsets[-1])} pairs")
+        log(f"[geometry] {what}: {ms:.3f} ms a query (first call "
+            f"{ms_once[key]:.3f} ms), Q={Q}  [{card}]")
+    log(f"[geometry] builds: " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in build_ms.items()) + f"  [{card}]")
+
+    # -- the tetrahedral mesh: analytic point location --------------------
+    own, near = kuhn_own(mesh_points.coords, GEO_CELLS)
+    rt_ = res["tetrahedra"]
+    off = rt_.offsets.to(torch.int64)
+    counts = off[1:] - off[:-1]
+    rows_ = torch.repeat_interleave(torch.arange(Q, device=dev), counts)
+    hit_own = torch.zeros((Q,), dtype=torch.bool, device=dev)
+    hit_own[rows_[rt_.indices.to(torch.int64) == own[rows_]]] = True
+    check(bool(hit_own.all()), f"point location: {int((~hit_own).sum())} "
+          "points miss their own tetrahedron")
+    inner = ~near
+    check(bool((counts[inner] == 1).all()),
+          f"point location: {int((counts[inner] != 1).sum())} inner points "
+          "match more than their own tetrahedron")
+    log(f"[geometry] point location over {n_tet} tetrahedra of [0, "
+        f"{GEO_CELLS}]^3, Q={Q}: every point holds its own tetrahedron (cell "
+        f"floor(x), the order of the fractional parts); the "
+        f"{int(inner.sum())} points farther than 1e-6 from a cell face or a "
+        f"fractional tie match it alone; {int(near.sum())} near points, "
+        f"{int(counts[near].sum())} matches among them, counted")
+
+    # -- the callback kernel against its twin on the first GEO_TWIN queries
+    twin_ms, kernel_ms_, cb_err = {}, {}, 0.0
+    sub = {"points": mesh_points.index(slice(0, GEO_TWIN)),
+           "balls": P.intersects(balls.index(slice(0, GEO_TWIN))),
+           "boxes": P.intersects(boxes.index(slice(0, GEO_TWIN)))}
+    twin_preds = {"tetrahedra": P.intersects(sub["points"]),
+                  "triangles": sub["balls"], "segments": sub["balls"],
+                  "kdops": sub["boxes"]}
+    for kind, pred in twin_preds.items():
+        index = idx[kind]
+        t_ = index.tree
+        tree = (t_.node_lo, t_.node_hi, t_.rope, t_.left_child,
+                t_.range_last, t_.leaf_perm)
+        kept = dict(records=t_.records, value_records=index.value_records)
+        for name in ("counting", "collect_hits"):
+            cb, s0 = (rt.callbacks.counting() if name == "counting"
+                      else rt.callbacks.collect_hits(64))
+            s0q = _bcast_state(s0, GEO_TWIN, dev)
+            got = KC.bvh_traverse_callback(*tree, index.values, pred, cb, s0q,
+                                           **kept)
+            want, plain = timed_once(lambda: KC.bvh_traverse_callback_ref(
+                *tree, index.values, pred, cb, s0q))
+            cb_err = max(cb_err, check_state(
+                got, want, f"bvh_traverse_callback {kind}/{name}"))
+            twin_ms[kind, name] = plain
+            kernel_ms_[kind, name] = time_ms(lambda: KC.bvh_traverse_callback(
+                *tree, index.values, pred, cb, s0q, **kept), reps=3)
+            if name == "counting":
+                check(torch.equal(got, (res[kind].offsets[1:GEO_TWIN + 1]
+                                        - res[kind].offsets[:GEO_TWIN])),
+                      f"{kind}: the counting walk differs from the CSR "
+                      "query's counts")
+        del want, got
+    for (kind, name), plain in twin_ms.items():
+        log(f"[geometry] callback {kind}/{name}: the first {GEO_TWIN} "
+            f"queries identical to the twin (tolerance 0), twin "
+            f"{plain:.1f} ms, kernel on those queries "
+            f"{kernel_ms_[kind, name]:.3f} ms  [{card}]")
+    log(f"[geometry] shaped_kernel3<Counting> "
+        f"({_registers('bvh_callback', 'shaped_kernel3<Counting>')}), "
+        f"shaped_kernel3<Collect<0>> "
+        f"({_registers('bvh_callback', 'shaped_kernel3<Collect<0>>')}), "
+        f"callback_kernel3<Counting> "
+        f"({_registers('bvh_callback', 'callback_kernel3<Counting>')}); "
+        f"fine_knn_kernel<Records3, KeyList 16> "
+        f"({_registers('fine_knn', 'fine_knn_kernel<Records3, KeyList 16>')}), "
+        f"<Records3, KeyList 1> "
+        f"({_registers('fine_knn', 'fine_knn_kernel<Records3, KeyList 1>')})")
+
+    # -- float64 oracles on the first GEO_ORACLE queries -------------------
+    po = pq[:GEO_ORACLE]
+    for kind, fn, verts in (("triangles", _triangle64, (a, b, c)),
+                            ("segments", _segment64, (segs.a, segs.b))):
+        d64 = _oracle_rows(fn, po, verts, 8)
+        pairs, ndiff = _check_csr_oracle(res[kind], d64, GEO_RADIUS,
+                                         f"intersects over {kind}")
+        errs = []
+        for k in (1, 10):
+            err, swaps = _check_knn_oracle(res[kind, k], d64, k,
+                                           f"nearest over {kind}")
+            rel = float((res[kind, k].distances[:GEO_ORACLE].double()
+                         - torch.topk(d64, k, dim=1, largest=False).values)
+                        .abs().div(torch.topk(d64, k, dim=1, largest=False)
+                                   .values.clamp_min(1e-30)).max())
+            errs.append(f"k={k}: largest error {err:.3g} ({rel:.3g} relative), "
+                        f"{swaps} rows with an index swap at a near tie")
+        log(f"[geometry] {kind} vs a float64 oracle on {GEO_ORACLE} queries: "
+            f"spheres r={GEO_RADIUS} {pairs} pairs, {ndiff} differ, all "
+            f"within {GEO_ATOL:.3g} of r; {'; '.join(errs)}")
+        del d64
+    sc, sr = spheres.center.double(), spheres.radius.double()
+    d64 = torch.cat([((po[s:s + 8].double()[:, None] - sc[None]).norm(dim=-1)
+                      - sr[None]).clamp_min(0.0)
+                     for s in range(0, GEO_ORACLE, 8)])
+    err, swaps = _check_knn_oracle(res["spheres", 10], d64, 10,
+                                   "nearest over spheres")
+    log(f"[geometry] spheres k=10 vs a float64 oracle on {GEO_ORACLE} "
+        f"queries: largest error {err:.3g}, {swaps} rows with a swap at a "
+        f"near tie")
+    del d64
+    bf = rt.BruteForce(kdops, policy=policy).query(
+        P.intersects(boxes.index(slice(0, GEO_ORACLE))))
+    check_csr(res["kdops"], bf, GEO_ORACLE, "intersects(Boxes) over kdops")
+    log(f"[geometry] k-DOPs: {GEO_ORACLE} boxes' CSR sets equal "
+        f"BruteForce's ({int(bf.offsets[-1])} pairs)")
+
+    # -- records for the kernels line --------------------------------------
+    # bytes: the queries, the tree and the value records once, the output
+    # state; operations: one leaf test per match (callback) or per
+    # returned neighbour (kNN)
+    pairs = int(res["triangles"].offsets[-1])
+    cb_bound, cb_by = bound(Q * 16 + tree_bytes(N, 3, True)
+                            + N * TRI_RECORD_BYTES + Q * 4,
+                            pairs * TRI_LEAF_OPS)
+    t_ = idx["triangles"].tree
+    cb, s0 = rt.callbacks.counting()
+    s0q = _bcast_state(s0, Q, dev)
+    cb_full = time_ms(lambda: KC.bvh_traverse_callback(
+        t_.node_lo, t_.node_hi, t_.rope, t_.left_child, t_.range_last,
+        t_.leaf_perm, soup, P.intersects(balls), cb, s0q, records=t_.records,
+        value_records=idx["triangles"].value_records), reps=3)
+    cb_record = dict(source="src/repro_torch/csrc/bvh_callback.cu",
+                     replaces="src/repro/kernels/bvh_callback.py:251",
+                     max_abs_err=cb_err, ms=cb_full,
+                     plain_ms=twin_ms["triangles", "counting"],
+                     bound_ms=cb_bound, bound_by=cb_by)
+    knn_bound, knn_by = bound(Q * 12 + tree_bytes(N, 3, False)
+                              + N * TRI_RECORD_BYTES + Q * 10 * 8,
+                              Q * 10 * TRI_LEAF_OPS)
+    # max_abs_err and plain_ms come from the twin (phase_geometry_twins)
+    knn_record = dict(source="src/repro_torch/csrc/fine_knn.cu",
+                      replaces="src/repro/core/bvh.py:215",
+                      ms=times["triangles", 10], bound_ms=knn_bound,
+                      bound_by=knn_by)
+    log(f"[geometry] kernels line: callback (shaped_kernel3<Counting>, "
+        f"spheres over the soup) {cb_full:.3f} ms at Q={Q} ({pairs} matches; "
+        f"bound {cb_bound:.4f} ms, {cb_by}; twin {twin_ms['triangles', 'counting']:.1f} "
+        f"ms on the card over the first {GEO_TWIN} queries, a smaller shape); "
+        f"fine kNN (triangles k=10) {times['triangles', 10]:.3f} ms a query "
+        f"at Q={Q} (bound {knn_bound:.4f} ms, {knn_by}), "
+        f"{kernel_sub_ms['triangles', 10]:.3f} ms on the first "
+        f"{GEO_KNN_TWIN} queries, the twin's shape  [{card}]; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del idx, res
+    return ({"bvh_traverse_callback": launches["bvh_traverse_callback"],
+             "bvh_traverse_fine_knn": launches["bvh_traverse_fine_knn"]},
+            cb_record, dict(pool=pool, jobs=jobs, rows=rows,
+                            kernel_sub_ms=kernel_sub_ms, record=knn_record))
+
+
+def phase_geometry_twins(pending, card):
+    """The fine kNN walk's main-path rows against the twin's lists from
+    phase_geometry's workers, bit for bit (ties, order); returns the
+    walk's record for the kernels line, its plain_ms the twin's host-CPU
+    time over the first GEO_KNN_TWIN queries (triangles, k = 10)."""
+    import torch
+    t0 = time.perf_counter()
+    err, twin_s = 0.0, {}
+    for (kind, k), job in pending["jobs"].items():
+        wd, wi, secs, visits = job.get(timeout=900)
+        wd, wi = torch.from_numpy(wd), torch.from_numpy(wi)
+        gd, gi = pending["rows"][kind, k]
+        bad = ~((gd == wd) & (gi == wi)).all(1)
+        check(not bool(bad.any()), f"fine kNN {kind} k={k}: the main path "
+              f"differs from the twin on {int(bad.sum())} of the first "
+              f"{GEO_KNN_TWIN} queries")
+        fin = torch.isfinite(wd)
+        err = max(err, float((gd[fin] - wd[fin]).abs().max()) if bool(
+            fin.any()) else 0.0)
+        twin_s[kind, k] = secs
+        log(f"[geometry] fine kNN {kind} k={k} over the main path's {N} "
+            f"values: the first {GEO_KNN_TWIN} queries identical to the twin "
+            f"(tolerance 0, ties and order); twin {secs:.1f} s on the host "
+            f"CPU, one thread ({visits / GEO_KNN_TWIN:.1f} node visits a "
+            f"query); the kernel on those queries "
+            f"{pending['kernel_sub_ms'][kind, k]:.3f} ms  [{card}]")
+    pool = pending["pool"]
+    pool.join()
+    atexit.unregister(pool.terminate)
+    log(f"[geometry] the twins' wait {time.perf_counter() - t0:.1f} s")
+    return dict(pending["record"], max_abs_err=err,
+                plain_ms=twin_s["triangles", 10] * 1e3)
+
+
 def main():
     name, count, card = phase_device()
     import torch
@@ -3440,6 +4019,13 @@ def main():
     phase_profile(pts, spheres, knn, policy, card)
     records["lbvh_tail"] = phase_build_path(dev, pts, box_lo, box_hi, policy,
                                             card)
+    # early, so that the fine kNN twin's host workers overlap the later
+    # phases
+    geo_launches, records["bvh_traverse_callback_shapes"], geo_twins = \
+        phase_geometry(dev, policy, card)
+    launches["bvh_traverse_callback_shapes"] = \
+        geo_launches["bvh_traverse_callback"]
+    launches["bvh_traverse_fine_knn"] = geo_launches["bvh_traverse_fine_knn"]
     cb_err = phase_callback_kernel(dev, pts, box_lo, box_hi, qc, policy, card)
     db_launches, record = phase_dbscan(dev, policy, card)
     # the walk the DBSCAN path launches most, with the largest difference
@@ -3474,11 +4060,13 @@ def main():
     phase_sanitized(dev, policy)
     records["flash_attention"] = phase_flash(dev, card)
     launches.update(phase_lm(dev, card))
+    records["bvh_traverse_fine_knn"] = phase_geometry_twins(geo_twins, card)
     kernels = []
     for kname in ("karras_ranges", "lbvh_tail", "bvh_traverse_spatial",
                   "bvh_traverse_knn", "bvh_traverse_knn_exclude",
-                  "bvh_traverse_ray_knn", "bvh_traverse_callback",
-                  "bvh_traverse_callback_rays",
+                  "bvh_traverse_ray_knn", "bvh_traverse_fine_knn",
+                  "bvh_traverse_callback", "bvh_traverse_callback_rays",
+                  "bvh_traverse_callback_shapes",
                   "ray_box_nearest", "morton64", "bruteforce_knn",
                   "flash_attention"):
         r = records[kname]

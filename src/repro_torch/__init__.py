@@ -1,8 +1,9 @@
 """ArborX 2.0 in PyTorch with hand-written CUDA kernels for Hopper: the
 port of the JAX package ``repro`` (which stays the reference).
 
-The main path builds an LBVH over points, boxes, spheres or triangles,
-then answers batched spatial (CSR) and k-nearest queries through
+The main path builds an LBVH over points, boxes, spheres, triangles,
+segments, tetrahedra or k-DOPs, then answers batched spatial (CSR) and
+k-nearest queries through
 ``BVH(...).query()``, callback queries (``query(callback=)``,
 ``query(out=)``), DBSCAN (``dbscan``), the Euclidean minimum spanning
 tree (``emst``, over ``nearest(..., exclude=)``), MLS interpolation
@@ -25,12 +26,14 @@ from .core import (BVH, BruteForce, EngineConfig, ExecutionPolicy, LBVH,
                    callbacks, dbscan, emst, intersects, mls_interpolate,
                    nearest, raytracing, refit, sah_cost)
 from .configs import get_config
-from .core.geometry import Boxes, Points, Rays, Spheres, Triangles
+from .core.geometry import (Boxes, KDOPs, Points, Rays, Segments, Spheres,
+                            Tetrahedra, Triangles, kdop_directions)
 from .models import LM, ModelConfig
 
 __all__ = ["BVH", "BruteForce", "EngineConfig", "ExecutionPolicy", "LBVH",
            "QueryEngine", "QueryResult", "RouteRule", "RouteTable", "build",
            "callbacks", "dbscan", "emst", "mls_interpolate", "intersects",
            "nearest", "raytracing", "refit", "sah_cost", "Points", "Boxes",
-           "Spheres", "Triangles", "Rays", "RayNearest", "RayIntersect",
+           "Spheres", "Triangles", "Segments", "Tetrahedra", "KDOPs",
+           "kdop_directions", "Rays", "RayNearest", "RayIntersect",
            "RayOrderedIntersect", "LM", "ModelConfig", "get_config"]

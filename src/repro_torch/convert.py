@@ -25,6 +25,9 @@ _KINDS = {
     "boxes": (G.Boxes, ("lo", "hi")),
     "spheres": (G.Spheres, ("center", "radius")),
     "triangles": (G.Triangles, ("a", "b", "c")),
+    "segments": (G.Segments, ("a", "b")),
+    "tetrahedra": (G.Tetrahedra, ("a", "b", "c", "d")),
+    "kdops": (G.KDOPs, ("lo", "hi", "directions")),
     "rays": (G.Rays, ("origin", "direction")),
 }
 
@@ -50,9 +53,10 @@ def lbvh_to_numpy(tree: LBVH) -> dict:
 
 
 def geometry_from_numpy(kind: str, arrays, device=None):
-    """Points / Boxes / Spheres / Triangles / Rays from numpy arrays:
-    `arrays` is a dict of the field names or a sequence in field order
-    (coords; lo, hi; center, radius; a, b, c; origin, direction)."""
+    """Points / Boxes / Spheres / Triangles / Segments / Tetrahedra /
+    KDOPs / Rays from numpy arrays: `arrays` is a dict of the field names
+    or a sequence in field order (coords; lo, hi; center, radius; a, b, c;
+    a, b; a, b, c, d; lo, hi, directions; origin, direction)."""
     try:
         cls, names = _KINDS[kind.lower()]
     except KeyError:

@@ -170,8 +170,7 @@ class BruteForce(Index):
                 lambda blk: P.leaf_ray_hit(P.lift(blk), self.values, order),
                 predicates)
         return self._blocks(
-            lambda blk: P.leaf_match_test(P.lift(blk), self.values,
-                                          fused=order != "eager"),
+            lambda blk: P.leaf_match_test(P.lift(blk), self.values, order),
             predicates), None
 
     def _match_matrix(self, predicates):

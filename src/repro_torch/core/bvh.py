@@ -7,7 +7,11 @@ kNN and callbacks routed by the QueryEngine to brute force, the
 traversal kernels or the general walk, plus the N < 2 linear-scan paths.
 On the loop route, count and fill run the ``counting`` and
 ``collect_hits`` callbacks, which the callback kernel serves where it
-can (Spheres values, and every ray predicate, for two). ``RayNearest``
+can (Intersects over Spheres, Triangles, Segments, Tetrahedra and KDOPs
+values, and every ray predicate, for two). ``Nearest`` over Spheres,
+Triangles, Segments, Tetrahedra or KDOPs values takes the fine kNN
+kernel where the engine routes it there (the default getter, k <=
+``KNN_MAX_K``), else the general k-nearest walk. ``RayNearest``
 takes the ray kNN kernel where the engine routes it there (Points,
 Boxes, Spheres or 3-D Triangles values, k <= ``KNN_MAX_K``), else the
 general k-nearest walk; both give the same (t, idx) bit for bit. The
@@ -72,13 +76,14 @@ class BVH(Index):
         self._n = len(self._boxes)
         # the spatial and kNN kernels' leaf test is the box test: exact only
         # for values whose fine test is their bounding-box test; the
-        # callback kernel tests each value geometry exactly, but its node
-        # boxes must still be the values' own bounding boxes
+        # callback and fine kNN kernels test each value geometry exactly,
+        # but their node boxes must still be the values' own bounding
+        # boxes
         default = indexable_getter is default_indexable_getter
         self.kernel_values_ok = default and isinstance(
             self.values, (G.Points, G.Boxes))
-        self.kernel_callback_ok = default and isinstance(
-            self.values, (G.Points, G.Boxes, G.Spheres, G.Triangles))
+        self.kernel_callback_ok = default and not isinstance(self.values,
+                                                             G.Rays)
         self._bf = None
 
     def _brute(self):
@@ -90,10 +95,11 @@ class BVH(Index):
 
     @functools.cached_property
     def value_records(self):
-        """The 16-byte value records of Spheres or Triangles values in the
-        tree's sorted-leaf order that the 3-D ray walks read
-        (``kernels.bvh_traverse.pack_values``), made at first use and kept
-        with the index; None for other values, other dims and N < 2."""
+        """The 16-byte value records of Spheres, Segments, Triangles or
+        Tetrahedra values in the tree's sorted-leaf order that the 3-D
+        walks read (``kernels.bvh_traverse.pack_values``), made at first
+        use and kept with the index; None for other values, other dims and
+        N < 2."""
         from ..kernels.bvh_traverse import pack_values
         if self.tree is None:
             return None

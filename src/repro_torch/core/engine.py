@@ -7,8 +7,9 @@ bruteforce, pallas and loop.
   * ``kernel``: the hand-written traversal kernels
     (``kernels.bvh_traverse``, ``kernels.bvh_callback``; their plain
     twins on the CPU). This is the reference's ``pallas`` route, and for
-    ``RayNearest`` the ray kNN kernel, the counterpart of the compiled
-    walk the reference runs there.
+    ``RayNearest`` the ray kNN kernel, and for ``Nearest`` over Spheres,
+    Triangles, Segments, Tetrahedra and KDOPs values the fine kNN kernel:
+    the counterparts of the compiled walk the reference runs there.
   * ``loop``: the batched walks of ``core.traversal`` for what the
     kernels cannot express: callbacks that are not epilogues (any Python
     callable), other value geometries, custom indexable getters, more
@@ -41,9 +42,11 @@ import threading
 import torch
 
 from ..kernels.bvh_callback import (bvh_traverse_callback, expressible,
-                                    query_order)
-from ..kernels.bvh_traverse import (KNN_MAX_K, MAX_DIM, RAY_TARGETS,
-                                    bvh_traverse_knn, bvh_traverse_ray_knn,
+                                    query_order, reads_value_records)
+from ..kernels.bvh_traverse import (FINE_KNN_RECORDS, FINE_KNN_VALUES,
+                                    KNN_MAX_K, MAX_DIM, RAY_TARGETS,
+                                    bvh_traverse_fine_knn, bvh_traverse_knn,
+                                    bvh_traverse_ray_knn,
                                     bvh_traverse_spatial, knn_order)
 from ..telemetry import MetricsRegistry
 from ..telemetry import tracer as TEL
@@ -211,13 +214,16 @@ class QueryEngine:
         return self._pick(bvh.size(), q, bf_ok, k_ok, rule)
 
     def route_knn(self, bvh, predicates, *, policy=None) -> str:
-        """Route a Nearest or RayNearest batch. A RayNearest batch takes
-        the ray kNN kernel when the tree exists, Q > 0, k <= KNN_MAX_K,
-        dim <= MAX_DIM and the values are Points, Boxes, Spheres or 3-D
-        Triangles under the default getter, else the loop walk; never
+        """Route a Nearest or RayNearest batch. A Nearest batch takes the kNN
+        kernel (Points or Boxes values) or the fine kNN kernel (Spheres,
+        Triangles, Segments, Tetrahedra or KDOPs values) under the default
+        getter, and a RayNearest batch the ray kNN kernel (Points, Boxes,
+        Spheres or 3-D Triangles values), when the tree exists, Q > 0, k <=
+        KNN_MAX_K and dim <= MAX_DIM; else the loop walk, or for a Nearest
+        batch brute force below the crossover; a RayNearest batch never takes
         brute force. A ``Nearest.exclude`` batch is not routed: ``BVH``
-        answers it with the exclusion walk, and no cached entry is keyed
-        on it, so this raises."""
+        answers it with the exclusion walk, and no cached entry is keyed on
+        it, so this raises."""
         if getattr(predicates, "exclude", None) is not None:
             raise ValueError(
                 "Nearest.exclude takes no engine route: BVH.query answers it "
@@ -226,7 +232,10 @@ class QueryEngine:
         q = len(predicates)
         bf_ok = isinstance(predicates, P.Nearest)
         if bf_ok:
-            values_ok = bvh.kernel_values_ok
+            values_ok = (bvh.kernel_values_ok
+                         or (bvh.kernel_callback_ok
+                             and isinstance(bvh.values, FINE_KNN_VALUES)
+                             and not isinstance(predicates.geom, G.Rays)))
         else:
             values_ok = (bvh.kernel_callback_ok
                          and type(bvh.values) in RAY_TARGETS
@@ -239,8 +248,9 @@ class QueryEngine:
 
     def route_callback(self, bvh, predicates, callback) -> str:
         """Route a callback batch: the fused kernel when it can run the
-        callback (an epilogue; Intersects over Points/Boxes/Spheres values
-        of those, or a ray predicate over values of those or 3-D
+        callback (an epilogue; Intersects of Points, Boxes, Spheres,
+        Triangles, Segments or Tetrahedra over values of any geometry but
+        Rays, or a ray predicate over Points, Boxes, Spheres or 3-D
         Triangles, under the default getter; dim <= MAX_DIM; Q > 0), else
         the loop. Brute force never runs callbacks, and no crossover puts a
         batch the kernel can run on the loop, so no route rule is read. A
@@ -305,13 +315,14 @@ class QueryEngine:
 
     def kernel_callback(self, bvh, predicates, callback, state0):
         """Per-query final states through the fused callback kernel; on
-        the card a 3-D tree's kept node records and, for ray batches, the
-        index's kept value records."""
+        the card a 3-D tree's kept node records and the index's kept value
+        records where the walk reads them (ray batches over Spheres or
+        Triangles, Intersects over Triangles, Segments or Tetrahedra)."""
         t = bvh.tree
         records = value_records = None
         if t.node_lo.is_cuda:
             records = t.records
-            if not isinstance(predicates, P.Intersects):
+            if reads_value_records(bvh.values, predicates):
                 value_records = bvh.value_records
         return bvh_traverse_callback(
             t.node_lo, t.node_hi, t.rope, t.left_child, t.range_last,
@@ -322,8 +333,10 @@ class QueryEngine:
         """(dists, idxs) (Q, k) through the kNN kernel, from the query
         centroids (what ``predicates.leaf_distance`` measures from); on
         the card a 3-D tree's kept node records, and the leaf order when
-        the queries are the indexed points. A RayNearest batch takes the
-        ray kNN kernel: (t, idxs), the first k hits."""
+        the queries are the indexed points. Spheres, Triangles, Segments,
+        Tetrahedra and KDOPs values take the fine kNN kernel (on the card
+        the index's kept value records of the first three). A RayNearest
+        batch takes the ray kNN kernel: (t, idxs), the first k hits."""
         t = bvh.tree
         if isinstance(predicates, P.RayNearest):
             records = value_records = None
@@ -332,6 +345,16 @@ class QueryEngine:
             return bvh_traverse_ray_knn(
                 t.node_lo, t.node_hi, t.rope, t.left_child, t.leaf_perm,
                 bvh.values, predicates.rays, k=predicates.k, records=records,
+                value_records=value_records)
+        if isinstance(bvh.values, FINE_KNN_VALUES):
+            records = value_records = None
+            if t.node_lo.is_cuda:
+                records = t.records
+                if isinstance(bvh.values, FINE_KNN_RECORDS):
+                    value_records = bvh.value_records
+            return bvh_traverse_fine_knn(
+                t.node_lo, t.node_hi, t.rope, t.left_child, t.leaf_perm,
+                bvh.values, predicates.geom, k=predicates.k, records=records,
                 value_records=value_records)
         queries = G.centroid(predicates.geom).to(torch.float32)
         records = order = None

@@ -1,8 +1,10 @@
-"""Geometries: points, boxes, spheres, triangles and rays,
-dimension-generic (triangles: 3-D), as batched float32 tensors.
+"""Geometries: points, boxes, spheres, triangles, segments,
+tetrahedra (3-D), k-DOPs and rays, dimension-generic (ray tests against
+triangles: 3-D), as batched float32 tensors.
 
-A geometry array holds N geometries with coordinate tensors shaped
-(N, dim). The formulas below repeat ``repro.core.geometry`` in the same
+A geometry array holds N geometries with coordinate tensors shaped (N,
+dim) (a k-DOP's slabs (N, k/2), with one (k/2, dim) direction set shared
+by all). The formulas below repeat ``repro.core.geometry`` in the same
 float32 operation order, so leaf tests agree bit for bit. A squared
 distance sums its per-dimension terms in one of two fixed orders, because
 the reference itself shows two on XLA:CPU: op by op (its brute force and
@@ -17,9 +19,14 @@ order (each product after the first fused into the running sum) or its
 op-by-op order, and ``cross`` fuses as ``jnp.cross`` does in both (it
 is jitted itself). ``ray_sphere`` takes one of three orders, because
 XLA:CPU compiles the reference's three sphere contexts three ways (see
-:func:`ray_sphere`). Segments, tetrahedra and k-DOPs are not ported;
-spatial predicates over triangles (``point_in_triangle``,
-``distance_point_triangle``) come in a later slice.
+:func:`ray_sphere`).
+
+The point tests of segments, triangles and tetrahedra
+(``distance_point_segment``, ``distance_point_triangle``,
+``point_in_triangle``, ``point_in_tetrahedron``) take an ``order`` of
+``ORDERS``, one per way XLA:CPU compiles the reference's contexts (see
+:data:`ORDERS`). Bounding boxes order -0 below +0, as XLA's minimum and
+maximum do (:func:`min_zeros`).
 """
 from __future__ import annotations
 
@@ -28,11 +35,14 @@ import dataclasses
 import torch
 
 __all__ = [
-    "Points", "Boxes", "Spheres", "Triangles", "Rays", "to_boxes", "centroid", "merge_boxes",
+    "Points", "Boxes", "Spheres", "Triangles", "Segments", "Tetrahedra", "KDOPs",
+    "Rays", "kdop_directions", "to_boxes", "centroid", "merge_boxes",
+    "min_zeros", "max_zeros", "ORDERS", "distance_point_segment",
+    "distance_point_triangle", "point_in_triangle", "point_in_tetrahedron",
     "expand", "box_union", "fma", "sum_sq", "sum_sq_fused", "sqrt", "distance_point_point",
     "distance_point_box", "distance_point_box_sq", "distance_point_sphere",
     "intersects_box_box", "intersects_box_sphere", "intersects_box_point",
-    "cross", "dot", "ray_box", "ray_sphere", "ray_triangle", "SPHERE_ORDERS",
+    "cross", "dot", "ray_box", "ray_sphere", "ray_triangle",
 ]
 
 
@@ -118,6 +128,94 @@ class Triangles:
 
 
 @dataclasses.dataclass(frozen=True)
+class Segments:
+    """Line segments: endpoints a/b (N, dim)."""
+    a: torch.Tensor
+    b: torch.Tensor
+
+    @property
+    def dim(self):
+        return self.a.shape[-1]
+
+    def __len__(self):
+        return self.a.shape[0]
+
+    def to(self, device) -> "Segments":
+        return Segments(self.a.to(device), self.b.to(device))
+
+    def index(self, i) -> "Segments":
+        return Segments(self.a[i], self.b[i])
+
+
+@dataclasses.dataclass(frozen=True)
+class Tetrahedra:
+    """Tetrahedra: vertices a/b/c/d (N, 3)."""
+    a: torch.Tensor
+    b: torch.Tensor
+    c: torch.Tensor
+    d: torch.Tensor
+
+    @property
+    def dim(self):
+        return self.a.shape[-1]
+
+    def __len__(self):
+        return self.a.shape[0]
+
+    def to(self, device) -> "Tetrahedra":
+        return Tetrahedra(self.a.to(device), self.b.to(device),
+                          self.c.to(device), self.d.to(device))
+
+    def index(self, i) -> "Tetrahedra":
+        return Tetrahedra(self.a[i], self.b[i], self.c[i], self.d[i])
+
+
+def kdop_directions(dim: int, k: int, dtype=torch.float32,
+                    device=None) -> torch.Tensor:
+    """Slab directions of k-DOPs (Klosowski et al. 1998): 2-D k in {4, 8},
+    3-D k in {6, 14, 18, 26}. (k/2, dim) integer (unnormalized)
+    directions, the axes first; a k-DOP holds the min / max support along
+    each."""
+    if dim == 2:
+        sets = {4: [(1, 0), (0, 1)], 8: [(1, 0), (0, 1), (1, 1), (1, -1)]}
+    elif dim == 3:
+        axes = [(1, 0, 0), (0, 1, 0), (0, 0, 1)]
+        diag = [(1, 1, 1), (1, -1, 1), (1, 1, -1), (1, -1, -1)]
+        edge = [(1, 1, 0), (1, -1, 0), (1, 0, 1), (1, 0, -1), (0, 1, 1),
+                (0, 1, -1)]
+        sets = {6: axes, 14: axes + diag, 18: axes + edge,
+                26: axes + diag + edge}
+    else:
+        raise ValueError(f"kDOP only defined for dim 2/3, got {dim}")
+    if k not in sets:
+        raise ValueError(f"unsupported {dim}D kDOP k={k}")
+    return torch.tensor(sets[k], dtype=dtype, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class KDOPs:
+    """k-DOPs: support intervals lo/hi (N, k/2) along the shared
+    `directions` (k/2, dim), which ``index`` keeps whole."""
+    lo: torch.Tensor
+    hi: torch.Tensor
+    directions: torch.Tensor
+
+    @property
+    def dim(self):
+        return self.directions.shape[-1]
+
+    def __len__(self):
+        return self.lo.shape[0]
+
+    def to(self, device) -> "KDOPs":
+        return KDOPs(self.lo.to(device), self.hi.to(device),
+                     self.directions.to(device))
+
+    def index(self, i) -> "KDOPs":
+        return KDOPs(self.lo[i], self.hi[i], self.directions)
+
+
+@dataclasses.dataclass(frozen=True)
 class Rays:
     """Rays: origin (N, dim), direction (N, dim) (need not be normalized)."""
     origin: torch.Tensor
@@ -137,24 +235,38 @@ class Rays:
         return Rays(self.origin[i], self.direction[i])
 
 
-GEOMETRIES = (Points, Boxes, Spheres, Triangles, Rays)
-
-
-def _check(geom):
-    if not isinstance(geom, GEOMETRIES):
-        raise NotImplementedError(
-            f"{type(geom).__name__} is not ported yet: the PyTorch port "
-            "handles Points, Boxes, Spheres, Triangles and Rays; Segments, "
-            "Tetrahedra and KDOPs are not ported")
+GEOMETRIES = (Points, Boxes, Spheres, Triangles, Segments, Tetrahedra, KDOPs,
+              Rays)
 
 
 # ---------------------------------------------------------------------------
 # bounding boxes
 # ---------------------------------------------------------------------------
 
+def min_zeros(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """torch.minimum with -0 below +0, as XLA's minimum (``torch.minimum``
+    returns its first operand when they are zeros of two signs); NaN
+    propagates."""
+    tie = (a.view(torch.int32) | b.view(torch.int32)).view(torch.float32)
+    return torch.where(a == b, tie, torch.minimum(a, b))
+
+
+def max_zeros(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """torch.maximum with +0 above -0, as XLA's maximum; NaN propagates."""
+    tie = (a.view(torch.int32) & b.view(torch.int32)).view(torch.float32)
+    return torch.where(a == b, tie, torch.maximum(a, b))
+
+
+def _vertex_box(*vs) -> Boxes:
+    lo, hi = vs[0], vs[0]
+    for v in vs[1:]:
+        lo, hi = min_zeros(lo, v), max_zeros(hi, v)
+    return Boxes(lo, hi)
+
+
 def to_boxes(geom) -> Boxes:
-    """Axis-aligned bounding boxes of a geometry array."""
-    _check(geom)
+    """Axis-aligned bounding boxes of a geometry array: a k-DOP's is its
+    first `dim` slabs (the axes of every direction set)."""
     if isinstance(geom, Boxes):
         return geom
     if isinstance(geom, Points):
@@ -163,14 +275,18 @@ def to_boxes(geom) -> Boxes:
         r = geom.radius[..., None]
         return Boxes(geom.center - r, geom.center + r)
     if isinstance(geom, Triangles):
-        return Boxes(torch.minimum(torch.minimum(geom.a, geom.b), geom.c),
-                     torch.maximum(torch.maximum(geom.a, geom.b), geom.c))
+        return _vertex_box(geom.a, geom.b, geom.c)
+    if isinstance(geom, Segments):
+        return _vertex_box(geom.a, geom.b)
+    if isinstance(geom, Tetrahedra):
+        return _vertex_box(geom.a, geom.b, geom.c, geom.d)
+    if isinstance(geom, KDOPs):
+        return Boxes(geom.lo[..., :geom.dim], geom.hi[..., :geom.dim])
     raise TypeError(f"no bounding box rule for {type(geom).__name__}")
 
 
 def centroid(geom) -> torch.Tensor:
     """(N, dim) centroids of a geometry array."""
-    _check(geom)
     if isinstance(geom, Points):
         return geom.coords
     if isinstance(geom, Spheres):
@@ -288,12 +404,123 @@ def intersects_box_point(lo, hi, p):
 
 
 # ---------------------------------------------------------------------------
-# ray tests (ArborX 2.0 section 2.5): (hit, t) with t = inf on a miss
+# point tests of segments, triangles and tetrahedra
 # ---------------------------------------------------------------------------
 
-#: float orders of ray_sphere, one per way XLA:CPU compiles the reference
-SPHERE_ORDERS = ("eager", "walk", "loop")
+#: float orders of the point tests, one per way XLA:CPU compiles the
+#: reference's contexts (found bit for bit by tests/test_torch_geometry.py):
+#:
+#:   * "eager": op by op (brute force's match and distance matrices, the
+#:     N < 2 scans): every product rounded, dot products from dimension 0;
+#:   * "walk": the jitted walks (``traverse``, ``traverse_knn``) and the
+#:     callback kernel, whose dot products fuse each later product into the
+#:     sum (:func:`dot` with ``fused``), except where a segment's own
+#:     difference vectors are made in the same loop as the product: a
+#:     segment's p.ab and ab.ab stay unfused, as do those of a triangle's
+#:     edge (b, c) (its edges (a, b) and (a, c) reuse the triangle's own
+#:     fused dot products, which XLA shares); a difference of products
+#:     x * y - z * w fuses as fma(x, y, -(z * w)), a projection a + t ab
+#:     as fma(t, ab, a);
+#:     ``point_in_triangle`` rounds its five dot products product by
+#:     product in "walk" (and fuses its differences);
+#:   * "loop": the brute-force callback loop (``fori_loop``): every dot
+#:     product fused, a segment's p.ab and ab.ab (a triangle's edge (b, c)
+#:     too) and ``point_in_triangle``'s.
+ORDERS = ("eager", "walk", "loop")
 
+
+def _check_order(order):
+    if order not in ORDERS:
+        raise ValueError(f"order {order!r} is not one of {ORDERS}")
+
+
+def _segment(p, a, b, dots_fused, fused):
+    """|p - proj(p, [a, b])| in one float order: `dots_fused` for p.ab
+    and ab.ab, `fused` for the rest."""
+    ab = b - a
+    den = torch.clamp_min(dot(ab, ab, dots_fused), 1e-30)
+    t = torch.clamp(dot(p - a, ab, dots_fused) / den, 0.0, 1.0)
+    proj = fma(t[..., None], ab, a) if fused else a + t[..., None] * ab
+    return sqrt(_ss(p - proj, fused))
+
+
+def distance_point_segment(p, a, b, order: str = "eager"):
+    """Distance from p to the segment [a, b] (any dim), in the float order
+    `order` (:data:`ORDERS`)."""
+    _check_order(order)
+    fused = order != "eager"
+    return _segment(p, a, b, order == "loop", fused)
+
+
+def _diff(x, y, z, w, fused):
+    """x * y - z * w, fused as fma(x, y, -(z * w))."""
+    return fma(x, y, -(z * w)) if fused else x * y - z * w
+
+
+def _barycentric(p, a, b, c, dots_fused, fused):
+    """(ab, ac, v, w): the projection of p on the triangle's plane is
+    a + v ab + w ac; `dots_fused` for the five dot products, `fused` for
+    the differences of products."""
+    ab, ac, ap = b - a, c - a, p - a
+    d1, d2 = dot(ab, ap, dots_fused), dot(ac, ap, dots_fused)
+    d00, d01 = dot(ab, ab, dots_fused), dot(ab, ac, dots_fused)
+    d11 = dot(ac, ac, dots_fused)
+    denom = torch.clamp_min(_diff(d00, d11, d01, d01, fused), 1e-30)
+    v = _diff(d11, d1, d01, d2, fused) / denom
+    w = _diff(d00, d2, d01, d1, fused) / denom
+    return ab, ac, v, w
+
+
+def distance_point_triangle(p, a, b, c, order: str = "eager"):
+    """Distance from p to the triangle (a, b, c) (any dim; exact in 2-D and
+    3-D): to the projection on its plane where that falls inside, else to
+    the nearest edge; in the float order `order` (:data:`ORDERS`)."""
+    _check_order(order)
+    fused, loop = order != "eager", order == "loop"
+    ab, ac, v, w = _barycentric(p, a, b, c, fused, fused)
+    inside = (v >= 0) & (w >= 0) & (v + w <= 1)
+    if fused:
+        proj = fma(w[..., None], ac, fma(v[..., None], ab, a))
+    else:
+        proj = a + v[..., None] * ab + w[..., None] * ac
+    d_plane = sqrt(_ss(p - proj, fused))
+    d_edges = torch.minimum(
+        _segment(p, a, b, fused, fused),
+        torch.minimum(_segment(p, b, c, loop, fused),
+                      _segment(p, a, c, fused, fused)))
+    return torch.where(inside, d_plane, d_edges)
+
+
+def point_in_triangle(p, a, b, c, order: str = "eager"):
+    """Does the projection of p on the triangle's plane fall inside it
+    (barycentric coordinates within 1e-7)? Any dim. Its "walk" order
+    rounds the five dot products one product at a time (XLA:CPU makes
+    them apart from the differences, which it fuses), unlike
+    :func:`distance_point_triangle`'s."""
+    _check_order(order)
+    _, _, v, w = _barycentric(p, a, b, c, order == "loop",
+                                 order != "eager")
+    return (v >= -1e-7) & (w >= -1e-7) & (v + w <= 1 + 1e-7)
+
+
+def point_in_tetrahedron(p, a, b, c, d, order: str = "eager"):
+    """Is p inside the tetrahedron (a, b, c, d) (3-D)? For each face, p and
+    the opposite vertex lie on the same side: the product of their dot
+    products with the face normal (``cross``) is >= -1e-9."""
+    _check_order(order)
+    fused = order != "eager"
+
+    def same_side(v0, v1, v2, v3):
+        n = cross(v1 - v0, v2 - v0)
+        return dot(n, v3 - v0, fused) * dot(n, p - v0, fused) >= -1e-9
+
+    return (same_side(a, b, c, d) & same_side(b, c, d, a)
+            & same_side(c, d, a, b) & same_side(d, a, b, c))
+
+
+# ---------------------------------------------------------------------------
+# ray tests (ArborX 2.0 section 2.5): (hit, t) with t = inf on a miss
+# ---------------------------------------------------------------------------
 
 def dot(x: torch.Tensor, y: torch.Tensor, fused: bool) -> torch.Tensor:
     """Dot product over the last axis, dimension 0 first. The first
@@ -359,8 +586,7 @@ def ray_sphere(origin, direction, center, radius, order: str = "eager"):
       * "loop": the brute-force callback loop (``fori_loop``): all three
         dots fused, c = |o-c|^2 - r*r unfused, disc as "walk".
     """
-    if order not in SPHERE_ORDERS:
-        raise ValueError(f"order {order!r} is not one of {SPHERE_ORDERS}")
+    _check_order(order)
     fused = order != "eager"
     d2 = dot(direction, direction, fused)
     oc = origin - center

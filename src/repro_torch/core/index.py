@@ -42,6 +42,7 @@ from typing import Any, NamedTuple
 import torch
 
 from . import callbacks as CB
+from . import geometry as G
 from . import predicates as P
 from .traversal import value_at
 
@@ -306,9 +307,13 @@ class Index:
 
 
 def _reshape_values(vals, lead):
-    """Give every tensor of a gathered values container the (Q, k) lead."""
+    """Give every tensor of a gathered values container the (Q, k) lead
+    (a k-DOP's shared directions keep their shape)."""
     if isinstance(vals, torch.Tensor):
         return vals.reshape(lead + vals.shape[1:])
+    if isinstance(vals, G.KDOPs):
+        return G.KDOPs(_reshape_values(vals.lo, lead),
+                       _reshape_values(vals.hi, lead), vals.directions)
     if dataclasses.is_dataclass(vals):
         return type(vals)(*(_reshape_values(getattr(vals, f.name), lead)
                             for f in dataclasses.fields(vals)))

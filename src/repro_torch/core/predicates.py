@@ -1,5 +1,5 @@
-"""Predicates: ``intersects`` and ``nearest`` over Points, Boxes and
-Spheres, and the ray predicates (``RayNearest``, ``RayIntersect``,
+"""Predicates: ``intersects`` and ``nearest`` over every geometry, and
+the ray predicates (``RayNearest``, ``RayIntersect``,
 ``RayOrderedIntersect``) over Rays, with the node tests the traversal
 walks prune with and the fine leaf tests.
 
@@ -8,12 +8,11 @@ give the predicate geometry a (Q, 1, ...) shape and the values (N, ...)
 to get a (Q, N) result, or give both A rows to test lane by lane. The
 node tests run in the jitted walks of the reference, so their squared
 sums take the fused order (``geometry.sum_sq_fused``); the leaf tests
-take it when ``fused`` is set. A ray predicate's node test is the slab
+take the float order of their context, one of ``geometry.ORDERS``
+("eager", "walk" or "loop"). A ray predicate's node test is the slab
 test (``geometry.ray_box``), its "distance" the ray parameter t, and its
 leaf test :func:`leaf_ray_hit`, whose float order is one of
-``geometry.SPHERE_ORDERS`` ("eager", "walk" or "loop": see
-``geometry.ray_sphere``). Spatial predicates over Triangles values come
-in a later slice.
+``geometry.ORDERS`` too (see ``geometry.ray_sphere``).
 
 ``Nearest.exclude = (query_labels (Q,), leaf_labels (N,))``, two int32
 tensors, leaf labels in original index order, is Borůvka's "nearest
@@ -178,54 +177,45 @@ def lift(pred):
     """The predicate with its geometry given a (Q, 1, ...) shape, so the
     leaf tests broadcast against (N, ...) values into (Q, N)."""
     g = geometry_of(pred)
-    G._check(g)
-    if isinstance(g, G.Points):
-        g = G.Points(g.coords[:, None, :])
-    elif isinstance(g, G.Boxes):
-        g = G.Boxes(g.lo[:, None, :], g.hi[:, None, :])
-    elif isinstance(g, G.Spheres):
-        g = G.Spheres(g.center[:, None, :], g.radius[:, None])
-    elif isinstance(g, G.Rays):
-        g = G.Rays(g.origin[:, None, :], g.direction[:, None, :])
+    if isinstance(g, G.KDOPs):
+        g = G.KDOPs(g.lo[:, None, :], g.hi[:, None, :], g.directions)
     else:
-        _spatial_refusal(g)
+        g = type(g)(*(t[:, None] for t in vars(g).values()))
     return dataclasses.replace(pred, **{_field(pred): g})
-
-
-def _spatial_refusal(geom):
-    raise NotImplementedError(
-        f"spatial predicates with {type(geom).__name__} are not ported: "
-        "point_in_triangle and distance_point_triangle come in a later slice")
 
 
 def node_overlap_test(pred, lo, hi):
     """May the subtree under box [lo, hi] hold matches of `pred`
-    (Intersects, or a ray predicate: the slab test)?"""
+    (Intersects, or a ray predicate: the slab test)? A Triangles,
+    Segments or Tetrahedra query is its bounding box; a KDOPs query has
+    no node test, as in the reference (brute force answers it)."""
     if isinstance(pred, RAY_KINDS):
         hit, _ = G.ray_box(pred.rays.origin, pred.rays.direction, lo, hi)
         return hit
     if not isinstance(pred, Intersects):
         raise TypeError(f"no overlap test for predicate {type(pred).__name__}")
     g = pred.geom
-    G._check(g)
     if isinstance(g, G.Points):
         return G.intersects_box_point(lo, hi, g.coords)
     if isinstance(g, G.Boxes):
         return G.intersects_box_box(g.lo, g.hi, lo, hi)
     if isinstance(g, G.Spheres):
         return G.intersects_box_sphere(lo, hi, g.center, g.radius, fused=True)
-    _spatial_refusal(g)
+    if isinstance(g, (G.Triangles, G.Segments, G.Tetrahedra)):
+        b = G.to_boxes(g)
+        return G.intersects_box_box(b.lo, b.hi, lo, hi)
+    raise TypeError(f"no overlap test for {type(g).__name__}")
 
 
 def node_min_distance(pred, lo, hi):
-    """Lower bound of the distance from the query to box [lo, hi]; for a
-    ray predicate the ray parameter t at box entry (inf on a miss), so
+    """Lower bound of the distance from the query to box [lo, hi] (from
+    the centroid of a Triangles, Segments, Tetrahedra or KDOPs query); for
+    a ray predicate the ray parameter t at box entry (inf on a miss), so
     the k-nearest walk serves the first k hits."""
     if isinstance(pred, RAY_KINDS):
         _, t_enter = G.ray_box(pred.rays.origin, pred.rays.direction, lo, hi)
         return t_enter
     g = pred.geom
-    G._check(g)
     if isinstance(g, G.Points):
         return G.distance_point_box(g.coords, lo, hi, fused=True)
     if isinstance(g, G.Spheres):
@@ -234,68 +224,86 @@ def node_min_distance(pred, lo, hi):
     if isinstance(g, G.Boxes):
         d = torch.clamp_min(torch.maximum(lo - g.hi, g.lo - hi), 0.0)
         return G.sqrt(G.sum_sq_fused(d))
-    _spatial_refusal(g)
+    return G.distance_point_box(G.centroid(g), lo, hi, fused=True)
 
 
-def leaf_match_test(pred, values, fused: bool = False):
-    """Exact (fine) Intersects test of `pred.geom` against `values`.
-    Spheres over Points take the sqrt form, spheres over Boxes the
-    squared form, as in the reference."""
+def leaf_match_test(pred, values, order: str = "eager"):
+    """Exact (fine) Intersects test of `pred.geom` against `values` in the
+    float order `order` (``geometry.ORDERS``: sums of squares fused but in
+    "eager"). Spheres over Points take the sqrt form, spheres over Boxes
+    the squared form, as in the reference. A point is tested against
+    triangles by its projection (``point_in_triangle``) and against
+    tetrahedra exactly; a sphere against triangles and segments by
+    distance; every other pair (points over segments or k-DOPs, spheres
+    over tetrahedra or k-DOPs, any Triangles, Segments, Tetrahedra or
+    KDOPs query) by bounding boxes, as the reference falls back."""
     if not isinstance(pred, Intersects):
         raise TypeError(f"no leaf test for {type(pred).__name__}")
+    fused = order != "eager"
     g = pred.geom
-    G._check(g)
-    G._check(values)
-    if isinstance(values, (G.Triangles, G.Rays)):
-        _spatial_refusal(values)
     if isinstance(g, G.Points):
+        p = g.coords
         if isinstance(values, G.Boxes):
-            return G.intersects_box_point(values.lo, values.hi, g.coords)
+            return G.intersects_box_point(values.lo, values.hi, p)
         if isinstance(values, G.Points):
-            return (values.coords == g.coords).all(dim=-1)
-        return (G.distance_point_point(g.coords, values.center, fused)
-                <= values.radius)
+            return (values.coords == p).all(dim=-1)
+        if isinstance(values, G.Spheres):
+            return (G.distance_point_point(p, values.center, fused)
+                    <= values.radius)
+        if isinstance(values, G.Triangles):
+            return G.point_in_triangle(p, values.a, values.b, values.c, order)
+        if isinstance(values, G.Tetrahedra):
+            return G.point_in_tetrahedron(p, values.a, values.b, values.c,
+                                          values.d, order)
     if isinstance(g, G.Spheres):
+        c, r = g.center, g.radius
         if isinstance(values, G.Points):
-            return (G.distance_point_point(g.center, values.coords, fused)
-                    <= g.radius)
+            return G.distance_point_point(c, values.coords, fused) <= r
         if isinstance(values, G.Boxes):
-            return G.intersects_box_sphere(values.lo, values.hi, g.center,
-                                           g.radius, fused)
-        return (G.distance_point_point(g.center, values.center, fused)
-                <= g.radius + values.radius)
-    if not isinstance(g, G.Boxes):
-        _spatial_refusal(g)
+            return G.intersects_box_sphere(values.lo, values.hi, c, r, fused)
+        if isinstance(values, G.Spheres):
+            return (G.distance_point_point(c, values.center, fused)
+                    <= r + values.radius)
+        if isinstance(values, G.Triangles):
+            return G.distance_point_triangle(c, values.a, values.b, values.c,
+                                             order) <= r
+        if isinstance(values, G.Segments):
+            return G.distance_point_segment(c, values.a, values.b, order) <= r
     vb = G.to_boxes(values)
-    return G.intersects_box_box(g.lo, g.hi, vb.lo, vb.hi)
+    gb = G.to_boxes(g)
+    return G.intersects_box_box(gb.lo, gb.hi, vb.lo, vb.hi)
 
 
-def leaf_distance(pred, values, fused: bool = False):
-    """Fine distance from the query centroid to the leaf values; for a
-    ray predicate the hit parameter t (inf on a miss), in the walk's float
-    order when ``fused`` is set, else the op-by-op one."""
+def leaf_distance(pred, values, order: str = "eager"):
+    """Fine distance from the query centroid to the leaf values (Tetrahedra
+    and KDOPs: to their bounding boxes), in the float order `order`
+    (``geometry.ORDERS``); for a ray predicate the hit parameter t (inf on
+    a miss)."""
     if isinstance(pred, RAY_KINDS):
-        _, t = leaf_ray_hit(pred, values, "walk" if fused else "eager")
+        _, t = leaf_ray_hit(pred, values, order)
         return t
-    if isinstance(pred.geom, (G.Triangles, G.Rays)):
-        _spatial_refusal(pred.geom)
+    fused = order != "eager"
     q = G.centroid(pred.geom)
-    G._check(values)
-    if isinstance(values, (G.Triangles, G.Rays)):
-        _spatial_refusal(values)
     if isinstance(values, G.Points):
         return G.distance_point_point(q, values.coords, fused)
-    if isinstance(values, G.Boxes):
-        return G.distance_point_box(q, values.lo, values.hi, fused)
-    return G.distance_point_sphere(q, values.center, values.radius, fused)
+    if isinstance(values, G.Spheres):
+        return G.distance_point_sphere(q, values.center, values.radius, fused)
+    if isinstance(values, G.Triangles):
+        return G.distance_point_triangle(q, values.a, values.b, values.c,
+                                         order)
+    if isinstance(values, G.Segments):
+        return G.distance_point_segment(q, values.a, values.b, order)
+    vb = G.to_boxes(values)
+    return G.distance_point_box(q, vb.lo, vb.hi, fused)
 
 
 def leaf_ray_hit(pred, values, order: str = "eager"):
     """(hit, t) of a ray predicate against leaf values: the slab test for
     Boxes and for Points (zero-extent boxes), the quadratic for Spheres,
     Moller-Trumbore for Triangles, in the float order `order` (one of
-    ``geometry.SPHERE_ORDERS``; triangles fuse in every order but
-    "eager")."""
+    ``geometry.ORDERS``; triangles fuse in every order but
+    "eager"). Segments, Tetrahedra and KDOPs take no ray, as in the
+    reference."""
     r = pred.rays
     if isinstance(values, G.Boxes):
         return G.ray_box(r.origin, r.direction, values.lo, values.hi)
@@ -307,17 +315,16 @@ def leaf_ray_hit(pred, values, order: str = "eager"):
     if isinstance(values, G.Triangles):
         return G.ray_triangle(r.origin, r.direction, values.a, values.b,
                               values.c, fused=order != "eager")
-    G._check(values)
-    raise TypeError(f"ray tracing takes Boxes, Points, Spheres or Triangles "
-                    f"values, not {type(values).__name__}")
+    raise TypeError(f"ray tracing unsupported for {type(values).__name__} "
+                    "(section 2.5: box, triangle, sphere)")
 
 
 def leaf_test(pred, values, order: str = "eager"):
     """(match, t) of any predicate against leaf values: the ray hit and
     its parameter for ray predicates, the fine Intersects test and t = 0
-    otherwise (fused unless `order` is "eager")."""
+    otherwise, in the float order `order`."""
     if isinstance(pred, RAY_KINDS):
         return leaf_ray_hit(pred, values, order)
-    fine = leaf_match_test(pred, values, fused=order != "eager")
+    fine = leaf_match_test(pred, values, order)
     return fine, torch.zeros(fine.shape, dtype=torch.float32,
                              device=fine.device)

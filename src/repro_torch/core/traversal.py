@@ -179,7 +179,7 @@ def knn_walk(node_lo, node_hi, rope, left_child, leaf_perm, values,
         is_leaf = nd >= n - 1
         orig = perm[torch.clamp(nd - (n - 1), 0, n - 1)]
         promising = P.node_min_distance(pred, node_lo[nd], node_hi[nd]) < tau
-        d = P.leaf_distance(pred, value_at(values, orig), fused=True)
+        d = P.leaf_distance(pred, value_at(values, orig), "walk")
         ok = is_leaf & promising & (d < tau)
         if leaf_labels is not None:
             ok = ok & (leaf_labels[orig] != ex[act])

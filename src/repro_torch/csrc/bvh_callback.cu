@@ -2,8 +2,10 @@
 // exit by `done`.
 //
 // Replaces: src/repro/kernels/bvh_callback.py::bvh_traverse_callback (body
-//   _callback_kernel), for Intersects predicates over Points, Boxes and
-//   Spheres values, and for the ray predicates (RayIntersect,
+//   _callback_kernel), for Intersects predicates (Points, Boxes, Spheres,
+//   and Triangles, Segments or Tetrahedra queries by their bounding
+//   boxes) over Points, Boxes, Spheres, Triangles, Segments, Tetrahedra
+//   and KDOPs values, and for the ray predicates (RayIntersect,
 //   RayOrderedIntersect, RayNearest) over Points, Boxes, Spheres and 3-D
 //   Triangles values. The TPU kernel traced the user's callback into a
 //   block of lockstep cursors with the tree staged in VMEM; here each
@@ -38,32 +40,59 @@
 //   the value's own box, so the node test already computed the leaf test
 //   (a point over a point: p <= q <= p is p == q; a sphere over a point:
 //   max(max(p - q, q - p), 0)^2 is (q - p)^2 bit for bit, so sqrt(d2) <= r
-//   needs no gather). Ray walks (ray_kernel3 in 3-D, ray_kernel in the
-//   other dims, where there are no triangles; their own instances, so the
-//   spatial ones keep their registers): thread i walks ray i; the origin
-//   and 1/d sit in registers with a bit per zero direction component (the
-//   3-D instance keeps the direction there too; the other reads it at a
-//   sphere leaf); node test the slab test of geometry.ray_box, leaf test
-//   predicates.leaf_ray_hit in the "walk" order (ray_tests.cuh, shared
-//   with the ray kNN walk of ray_knn.cu); the hit's t goes to the
-//   epilogue. The walk stays the rope walk: collect_* fill their slots in
-//   walk order, which the twin and cast_intersect's CSR order fix. The
-//   3-D instance reads the node records as callback_kernel3 does and, for
-//   Spheres and Triangles, the leaf's value records in sorted-leaf order
-//   (one or three 16-byte loads, no leaf_perm gather); a Points or Boxes
-//   leaf takes its hit and t from the node test at the leaf (the same
-//   slab over the same box); range_last only where a min_pos filter is
-//   set, which no ray call does. States equal the twin's bit for bit.
+//   needs no gather). Triangles, Segments, Tetrahedra and KDOPs values
+//   (shaped_test) take predicates.leaf_match_test's branches in the
+//   "walk" order of point_tests.cuh: a point in a triangle (by its
+//   projection) or a tetrahedron, a sphere's centre within r of a
+//   triangle or a segment, and the reference's box fallbacks, whose
+//   value box is the leaf's node box (a point over a segment or a k-DOP,
+//   any box query: the node test at the leaf; a sphere over a tetrahedron
+//   or a k-DOP: its box [c - r, c + r]). In 3-D they walk their own
+//   instance (shaped_kernel3), which reads a leaf's vertices from its
+//   value records in sorted-leaf order and only where the test needs
+//   them, so callback_kernel3 keeps its registers. Ray walks (ray_kernel3
+//   in 3-D, ray_kernel in the other dims, where there are no triangles;
+//   their own instances, so the spatial ones keep their registers): thread
+//   i walks ray i; the origin and 1/d sit in registers with a bit per zero
+//   direction component (the 3-D instance keeps the direction there too;
+//   the other reads it at a sphere leaf); node test the slab test of
+//   geometry.ray_box, leaf test predicates.leaf_ray_hit in the "walk" order
+//   (ray_tests.cuh, shared with the ray kNN walk of ray_knn.cu); the hit's
+//   t goes to the epilogue. The walk stays the rope walk: collect_* fill
+//   their slots in walk order, which the twin and cast_intersect's CSR
+//   order fix. The 3-D instance reads the node records as callback_kernel3
+//   does and, for Spheres and Triangles, the leaf's value records in
+//   sorted-leaf order (one or three 16-byte loads, no leaf_perm gather); a
+//   Points or Boxes leaf takes its hit and t from the node test at the leaf
+//   (the same slab over the same box); range_last only where a min_pos
+//   filter is set, which no ray call does. States equal the twin's bit for
+//   bit.
 #include <cmath>
 
 #include "common.cuh"
+#include "point_tests.cuh"
 #include "ray_tests.cuh"
 
 namespace {
 
 constexpr int kMaxDim = 16;
 constexpr int kThreads = 256;
-enum Kind { kPoints = 0, kBoxes = 1, kSpheres = 2, kTriangles = 3, kRays = 4 };
+enum Kind {
+  kPoints = 0,
+  kBoxes = 1,
+  kSpheres = 2,
+  kTriangles = 3,
+  kRays = 4,
+  kSegments = 5,
+  kTetrahedra = 6,
+  kKDOPs = 7
+};
+
+// values whose fine test is not one of the box and centre-distance tests
+// of Points, Boxes and Spheres
+__host__ __device__ __forceinline__ bool shaped(int kind) {
+  return kind == kTriangles || kind >= kSegments;
+}
 
 struct Tree {
   const float* __restrict__ lo;          // (2n-1, dim)
@@ -77,15 +106,55 @@ struct Tree {
 };
 
 // A geometry array: Points (a = coords), Boxes (a = lo, b = hi), Spheres
-// (a = center, r = radius), Triangles (a, b, c) or Rays (a = origin,
-// b = direction).
+// (a = center, r = radius), Triangles (a, b, c), Segments (a, b),
+// Tetrahedra (a, b, c, d), KDOPs (none: a k-DOP's test is its bounding
+// box, the leaf's node box) or Rays (a = origin, b = direction).
 struct Geom {
   const float* __restrict__ a;
   const float* __restrict__ b;
   const float* __restrict__ c;
+  const float* __restrict__ d;
   const float* __restrict__ r;
   int kind;
 };
+
+// the fine test of a Points or Spheres query (centre q, radius qr) against
+// a Triangles, Segments, Tetrahedra or KDOPs value, in the "walk" order of
+// point_tests.cuh: a point in a triangle (by projection) or tetrahedron;
+// a sphere's centre within qr of a triangle or segment; else the bounding
+// boxes (the value's is the leaf's node box [lo, hi], the sphere's
+// [q - qr, q + qr]), which for a point is the node test at the leaf.
+// vert(j, c) gives component c of the value's vertex j.
+template <int N, class Q, class Lo, class Hi, class V>
+__device__ __forceinline__ bool shaped_test(int pkind, int vkind, Q q,
+                                            float qr, Lo lo, Hi hi, V vert,
+                                            int dim) {
+  auto a = [&](int c) { return vert(0, c); };
+  auto b = [&](int c) { return vert(1, c); };
+  auto cc = [&](int c) { return vert(2, c); };
+  if (pkind == kPoints) {
+    if (vkind == kTriangles) return pt::in_triangle<N>(q, a, b, cc, dim);
+    if (vkind == kTetrahedra) {
+      float p3[3], v[4][3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        p3[c] = q(c);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j][c] = vert(j, c);
+      }
+      return pt::in_tetrahedron(p3, v[0], v[1], v[2], v[3]);
+    }
+    return true;
+  }
+  if (vkind == kTriangles) return pt::triangle<N>(q, a, b, cc, dim) <= qr;
+  if (vkind == kSegments) return pt::segment<false, N>(q, a, b, dim) <= qr;
+  bool fine = true;
+#pragma unroll
+  for (int c = 0; c < N; ++c) {
+    if (c < dim) fine = fine && q(c) - qr <= hi(c) && lo(c) <= q(c) + qr;
+  }
+  return fine;
+}
 
 // ---------------------------------------------------------------------------
 // epilogues: load the state, apply one hit (returns done), store
@@ -225,7 +294,19 @@ __global__ void callback_kernel(Tree t, Geom pg, Geom vg,
       const int orig = __ldg(t.perm + pos);
       const long long vo = static_cast<long long>(orig) * dim;
       bool fine = true;
-      if (pg.kind == kBoxes || (pg.kind == kPoints && vg.kind != kSpheres)) {
+      if (shaped(vg.kind)) {
+        // a Boxes query (or a Triangles, Segments or Tetrahedra one, by
+        // its box) meets the value's box: the node test at the leaf
+        if (pg.kind != kBoxes) {
+          const float* verts[4] = {vg.a, vg.b, vg.c, vg.d};
+          fine = shaped_test<kMaxDim>(
+              pg.kind, vg.kind, [&](int c) { return qa[c]; }, qr,
+              [&](int c) { return __ldg(lo + c); },
+              [&](int c) { return __ldg(hi + c); },
+              [&](int j, int c) { return __ldg(verts[j] + vo + c); }, dim);
+        }
+      } else if (pg.kind == kBoxes ||
+                 (pg.kind == kPoints && vg.kind != kSpheres)) {
         // box overlap with the value's bounding box (to_boxes); a point
         // predicate is the box [p, p] and a point value the box [v, v]
         const float vr = vg.kind == kSpheres ? __ldg(vg.r + orig) : 0.0f;
@@ -394,6 +475,102 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// the spatial walk in 3-D over Triangles, Segments, Tetrahedra and KDOPs
+// ---------------------------------------------------------------------------
+
+// records as callback_kernel3's; vrec the value records of Triangles,
+// Segments or Tetrahedra in sorted-leaf order (three, two or four 16-byte
+// records a leaf, ray_tests.cuh's layout), null for KDOPs, whose test is
+// the leaf's node box. The query is a point, a box (Boxes, and the
+// Triangles, Segments and Tetrahedra queries by their bounding boxes) or
+// a sphere. Its own instance, so that callback_kernel3 keeps its
+// registers.
+template <class Ep>
+__global__ void __launch_bounds__(kThreads)
+    shaped_kernel3(const int4* __restrict__ records,
+                   const int4* __restrict__ vrec,
+                   const int* __restrict__ range_last, int n, Geom pg,
+                   int val_kind, const int* __restrict__ min_pos, int q,
+                   const Ep ep0) {
+  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
+  if (qi >= q) return;
+  const long long qo = static_cast<long long>(qi) * 3;
+  float qa[3], qb[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    qa[c] = __ldg(pg.a + qo + c);
+    qb[c] = pg.kind == kBoxes ? __ldg(pg.b + qo + c) : qa[c];
+  }
+  const float qr = pg.kind == kSpheres ? __ldg(pg.r + qi) : 0.0f;
+  const float qr2 = qr * qr;
+  const int mp = __ldg(min_pos + qi);
+  const int stride = val_kind == kTriangles ? 3 : val_kind == kSegments ? 2
+                                                                        : 4;
+  // the tests that read the value's vertices: a point in a triangle or a
+  // tetrahedron, a sphere over a triangle or a segment
+  const bool verts =
+      pg.kind == kPoints ? val_kind == kTriangles || val_kind == kTetrahedra
+                         : pg.kind == kSpheres && (val_kind == kTriangles ||
+                                                   val_kind == kSegments);
+  Ep ep = ep0;
+  ep.load(qi);
+
+  int node = 0;
+  bool done = false;
+  while (node != -1 && !done) {
+    const int4 ra = __ldg(records + 2 * static_cast<long long>(node));
+    const int4 rb = __ldg(records + 2 * static_cast<long long>(node) + 1);
+    float lo[3], hi[3];
+    xyz_of(ra, lo);
+    xyz_of(rb, hi);
+    bool overlap = true;
+    if (pg.kind == kSpheres) {
+      float d2 = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float g = max_nan(max_nan(lo[c] - qa[c], qa[c] - hi[c]), 0.0f);
+        d2 = c == 0 ? g * g : __fmaf_rn(g, g, d2);
+      }
+      overlap = d2 <= qr2;
+    } else {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        overlap = overlap && lo[c] <= qb[c] && qa[c] <= hi[c];
+      }
+    }
+    if (node < n - 1) {
+      node = overlap && (mp < 0 || __ldg(range_last + node) > mp) ? rb.w
+                                                                  : ra.w;
+      continue;
+    }
+    const int pos = node - (n - 1);
+    if (overlap && pos > mp) {
+      bool fine = true;
+      if (verts) {
+        float v[4][3];
+        const long long at = static_cast<long long>(stride) * pos;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (j < stride) xyz_of(__ldg(vrec + at + j), v[j]);
+        }
+        fine = shaped_test<3>(
+            pg.kind, val_kind, [&](int c) { return qa[c]; }, qr,
+            [&](int c) { return lo[c]; }, [&](int c) { return hi[c]; },
+            [&](int j, int c) { return v[j][c]; }, 3);
+      } else if (pg.kind == kSpheres) {
+        fine = shaped_test<3>(
+            pg.kind, val_kind, [&](int c) { return qa[c]; }, qr,
+            [&](int c) { return lo[c]; }, [&](int c) { return hi[c]; },
+            [&](int, int) { return 0.0f; }, 3);
+      }
+      if (fine) done = ep.hit(qi, rb.w, 0.0f);
+    }
+    node = ra.w;
+  }
+  ep.store(qi);
+}
+
+// ---------------------------------------------------------------------------
 // the ray walk
 // ---------------------------------------------------------------------------
 
@@ -528,6 +705,11 @@ void launch(const Call& c, const Ep& ep) {
     const int blocks = (c.q + kThreads - 1) / kThreads;
     ray_kernel<Ep><<<blocks, kThreads, 0, c.stream>>>(c.t, c.pg, c.vg, c.mp,
                                                       c.q, ep);
+  } else if (c.records != nullptr && shaped(c.vg.kind)) {
+    const int blocks = (c.q + kThreads - 1) / kThreads;
+    shaped_kernel3<Ep><<<blocks, kThreads, 0, c.stream>>>(
+        c.records, c.vrec, c.t.range_last, c.t.n, c.pg, c.vg.kind, c.mp, c.q,
+        ep);
   } else if (c.records != nullptr) {
     const int blocks = (c.q + kThreads - 1) / kThreads;
     callback_kernel3<Ep><<<blocks, kThreads, 0, c.stream>>>(
@@ -553,32 +735,44 @@ enum Epilogue {
 // state0 / state1 / state2: the state leaves in place (filled with the
 // initial state): int32 counts or float32 minima (Q,), then for collect_*
 // int32 indices and float32 t (Q, param). param: the limit, k or capacity.
-// pred_kind: Points, Boxes or Spheres (Intersects) or Rays; val_kind:
-// Points, Boxes or Spheres, or Triangles (3-D) under Rays. records: the
-// (2n-1, 8) int32 node records of a 3-D tree (the dim = 3 instances; every
-// 3-D ray call gives them), or null (the generic ones, from node_lo ...
-// perm). vrec: with records under Rays, the value records of Spheres or
-// Triangles values (ray_tests.cuh), else null. order: (q,) int32, the
-// Intersects query each thread walks, or null (rays: null). weights:
-// min_where's (n,) int32 where(flags, weights, big).
+// pred_kind: Points, Boxes or Spheres (Intersects; the wrapper gives a
+// Triangles, Segments or Tetrahedra query as its bounding boxes) or Rays;
+// val_kind: Points, Boxes, Spheres, Triangles, Segments, Tetrahedra (3-D)
+// or KDOPs under Intersects, and Points, Boxes, Spheres or Triangles (3-D)
+// under Rays. val_a .. val_d: the value arrays (Kind's comment), val_r the
+// radii. records: the (2n-1, 8) int32 node records of a 3-D tree (the
+// dim = 3 instances; every 3-D ray call gives them), or null (the generic
+// ones, from node_lo ... perm). vrec: with records, the value records of
+// Spheres or Triangles values under Rays, and of Triangles, Segments or
+// Tetrahedra values under Intersects (ray_tests.cuh's layout), else null.
+// order: (q,) int32, the Intersects query each thread walks over Points,
+// Boxes or Spheres values, or null. weights: min_where's (n,) int32
+// where(flags, weights, big).
 REPRO_EXPORT int bvh_callback_launch(
     const void* node_lo, const void* node_hi, const void* rope,
     const void* left, const void* range_last, const void* perm,
     const void* records, const void* vrec, const void* order,
     const void* pred_a,
     const void* pred_b, const void* pred_r, const void* val_a,
-    const void* val_b, const void* val_c, const void* val_r,
-    const void* min_pos, int n, int q, int dim, int pred_kind, int val_kind,
-    int epilogue, int param, int early_exit, void* state0, void* state1,
-    void* state2, const void* weights, void* stream) {
+    const void* val_b, const void* val_c, const void* val_d,
+    const void* val_r, const void* min_pos, int n, int q, int dim,
+    int pred_kind, int val_kind, int epilogue, int param, int early_exit,
+    void* state0, void* state1, void* state2, const void* weights,
+    void* stream) {
   const bool ray = pred_kind == kRays;
+  const bool shaped_v =
+      val_kind == kTriangles || (val_kind >= kSegments && val_kind <= kKDOPs);
   if (dim < 1 || dim > kMaxDim || n < 2 || pred_kind < 0 ||
       (pred_kind > kSpheres && !ray) || val_kind < 0 ||
-      val_kind > (ray ? kTriangles : kSpheres) ||
-      (val_kind == kTriangles && dim != 3) ||
+      (ray ? val_kind > kTriangles : val_kind == kRays || val_kind > kKDOPs) ||
+      (ray && val_kind == kTriangles && dim != 3) ||
+      (val_kind == kTetrahedra && dim != 3) ||
       (records != nullptr && dim != 3) ||
       (ray && ((dim == 3) != (records != nullptr) || order != nullptr)) ||
-      (ray && records != nullptr && val_kind >= kSpheres && vrec == nullptr)) {
+      (ray && records != nullptr && val_kind >= kSpheres && vrec == nullptr) ||
+      (!ray && shaped_v && order != nullptr) ||
+      (!ray && records != nullptr && shaped_v && val_kind != kKDOPs &&
+       vrec == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Call c{Tree{static_cast<const float*>(node_lo),
@@ -587,11 +781,11 @@ REPRO_EXPORT int bvh_callback_launch(
               static_cast<const int*>(range_last),
               static_cast<const int*>(perm), n, dim},
          Geom{static_cast<const float*>(pred_a),
-              static_cast<const float*>(pred_b), nullptr,
+              static_cast<const float*>(pred_b), nullptr, nullptr,
               static_cast<const float*>(pred_r), pred_kind},
          Geom{static_cast<const float*>(val_a), static_cast<const float*>(val_b),
-              static_cast<const float*>(val_c), static_cast<const float*>(val_r),
-              val_kind},
+              static_cast<const float*>(val_c), static_cast<const float*>(val_d),
+              static_cast<const float*>(val_r), val_kind},
          static_cast<const int4*>(records), static_cast<const int4*>(vrec),
          static_cast<const int*>(order),
          static_cast<const int*>(min_pos), q, static_cast<cudaStream_t>(stream)};

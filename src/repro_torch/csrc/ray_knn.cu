@@ -19,8 +19,9 @@
 //   operations per visit.
 // Design: one thread walks one ray. Over Spheres and 3-D Triangles, and
 //   in dims other than 3, the thread walks the twin's node sequence with
-//   the twin's running k-th best (knn_list.cuh: KeyList in registers up
-//   to k = 32, KeyHeap in local memory up to KNN_MAX_K = 256). The list
+//   the twin's running k-th best: rope_knn.cuh's rope walk, shared with
+//   the fine kNN walk (knn_list.cuh: KeyList in registers up to k = 32,
+//   KeyHeap in local memory up to KNN_MAX_K = 256). The list
 //   orders entries by (t, sorted-leaf position descending): the walk
 //   reaches leaves in ascending position, so that key places a new leaf
 //   before the equal entries, as the twin's insert does, and the lists
@@ -51,9 +52,9 @@
 //   read the flat node arrays and gather a sphere through leaf_perm.
 //   Thread i walks ray i.
 #include "common.cuh"
-#include "knn_list.cuh"
 #include "knn_walk.cuh"
 #include "ray_tests.cuh"
+#include "rope_knn.cuh"
 
 namespace {
 
@@ -62,38 +63,26 @@ constexpr int kThreads = 256;   // rays per block
 constexpr int kMaxK = 256;      // the largest k (KNN_MAX_K)
 enum Kind { kPoints = 0, kBoxes = 1, kSpheres = 2, kTriangles = 3 };
 
-// 3-D node records: node m is rec[2m] = (lo.xyz, rope) and rec[2m + 1] =
-// (hi.xyz, left child of an internal node | leaf_perm of a leaf)
-struct Records3 {
+// rope_knn.cuh's node loaders with the ray's key
+struct Records3 : knn::NodeRecords3 {
   using Ray = Ray3;
-  const int4* __restrict__ rec;
 
   // node m's slab-entry t (+inf on a miss); its link and rope
   __device__ __forceinline__ float key(const RayReg<3>& ray, int m, int,
                                        int& link, int& rope) const {
-    const int4 a = __ldg(rec + 2 * static_cast<long long>(m));
-    const int4 b = __ldg(rec + 2 * static_cast<long long>(m) + 1);
     float lo[3], hi[3];
-    xyz_of(a, lo);
-    xyz_of(b, hi);
+    load(m, 3, lo, hi, link, rope);
     float t;
     const bool hit = ray_slab(ray.o, ray.inv, ray.zero, lo, hi, 3,
                               LoadPlain(), t);
-    link = b.w;
-    rope = a.w;
     return hit ? t : INFINITY;
   }
 };
 
-// any dim up to kMaxDim: the flat arrays
-struct Flat {
+// any dim up to kMaxDim: the flat arrays, the slab test reading the box
+// in place (registers for a 16-float box cost the walk its occupancy)
+struct Flat : knn::NodeFlat<kMaxDim> {
   using Ray = RayReg<kMaxDim>;
-  const float* __restrict__ lo;     // (2n-1, dim)
-  const float* __restrict__ hi;     // (2n-1, dim)
-  const int* __restrict__ rope;     // (2n-1,)
-  const int* __restrict__ left;     // (n-1,)
-  const int* __restrict__ perm;     // (n,)
-  int n;
 
   __device__ __forceinline__ float key(const RayReg<kMaxDim>& ray, int m,
                                        int dim, int& link, int& rp) const {
@@ -102,8 +91,7 @@ struct Flat {
                               lo + static_cast<long long>(m) * dim,
                               hi + static_cast<long long>(m) * dim, dim,
                               LoadLdg(), t);
-    link = m < n - 1 ? __ldg(left + m) : __ldg(perm + (m - (n - 1)));
-    rp = __ldg(rope + m);
+    links(m, link, rp);
     return hit ? t : INFINITY;
   }
 };
@@ -147,6 +135,23 @@ struct LeafFlat {
   }
 };
 
+// one ray's walk for rope_knn.cuh: the node key is the slab-entry t, the
+// leaf key the hit t
+template <class Nodes, class Leaf>
+struct RayWalk {
+  const Nodes& nodes;
+  const Leaf& hits;
+  const typename Nodes::Ray& ray;
+  int dim;
+
+  __device__ __forceinline__ float key(int m, int& link, int& rope) const {
+    return nodes.key(ray, m, dim, link, rope);
+  }
+  __device__ __forceinline__ float leaf(int pos, int link, float kb) const {
+    return hits.hit_t(ray, pos, link, kb, dim);
+  }
+};
+
 template <class Nodes, class Leaf, class List>
 __global__ void __launch_bounds__(kThreads)
     ray_knn_kernel(Nodes nodes, Leaf leaf, const int* __restrict__ perm,
@@ -158,48 +163,11 @@ __global__ void __launch_bounds__(kThreads)
   typename Nodes::Ray ray;
   ray.load(origin + static_cast<long long>(qi) * dim,
            direction + static_cast<long long>(qi) * dim, dim);
+  RayWalk<Nodes, Leaf> walk{nodes, leaf, ray, dim};
   List best;
-  best.init(k);
-  const int leaf0 = n - 1;   // node id of sorted-leaf position 0
-
-  int node = 0;
-  while (node != -1) {
-    int link, rope;
-    const float kb = nodes.key(ray, node, dim, link, rope);
-    const bool promising = best.admits_strict(kb);
-    if (node < leaf0) {
-      node = promising ? link : rope;
-      continue;
-    }
-    if (promising) {
-      const int pos = node - leaf0;
-      const float t = leaf.hit_t(ray, pos, link, kb, dim);
-      // ascending positions: the key (t, position descending) places the
-      // leaf before the equal entries
-      if (best.admits_strict(t)) best.insert(t, pos, k);
-    }
-    node = rope;
-  }
-  best.finish(k);
-
-  float* ot = ts + static_cast<long long>(qi) * k;
-  int* oi = idxs + static_cast<long long>(qi) * k;
-  if constexpr (List::kInRegisters) {
-#pragma unroll
-    for (int j = 0; j < List::kSlots; ++j) {
-      if (j < k) {
-        const int p = best.pos(j);
-        ot[j] = best.dist(j);
-        oi[j] = p < 0 ? -1 : __ldg(perm + p);
-      }
-    }
-  } else {
-    for (int j = 0; j < k; ++j) {
-      const int p = best.pos(j);
-      ot[j] = best.dist(j);
-      oi[j] = p < 0 ? -1 : __ldg(perm + p);
-    }
-  }
+  knn::rope_walk(walk, n, k, best);
+  knn::put_list(best, k, perm, ts + static_cast<long long>(qi) * k,
+                idxs + static_cast<long long>(qi) * k);
 }
 
 // ---------------------------------------------------------------------------
@@ -250,46 +218,24 @@ struct Call {
   cudaStream_t stream;
 };
 
-template <class Nodes, class Leaf, class List>
-void launch(const Nodes& nodes, const Leaf& leaf, const Call& c) {
-  const int blocks = (c.q + kThreads - 1) / kThreads;
-  ray_knn_kernel<Nodes, Leaf, List><<<blocks, kThreads, 0, c.stream>>>(
-      nodes, leaf, c.perm, c.n, c.dim, c.origin, c.direction, c.q, c.k, c.ts,
-      c.idxs);
-}
-
-template <class List>
-void launch_nf(const Records3& nodes, const Call& c) {
-  const int blocks = (c.q + kThreads - 1) / kThreads;
-  ray_knn_nf_kernel<List><<<blocks, kThreads, 0, c.stream>>>(
-      nodes, c.perm, c.n, c.origin, c.direction, c.q, c.k, c.ts, c.idxs);
-}
-
 cudaError_t launch_nf_k(const Records3& nodes, const Call& c) {
-  using knn::KeyHeap;
-  using knn::KeyList;
-  if (c.k <= 1) launch_nf<KeyList<1, true>>(nodes, c);
-  else if (c.k <= 4) launch_nf<KeyList<4, true>>(nodes, c);
-  else if (c.k <= 8) launch_nf<KeyList<8, true>>(nodes, c);
-  else if (c.k <= 16) launch_nf<KeyList<16, true>>(nodes, c);
-  else if (c.k <= 32) launch_nf<KeyList<32, true>>(nodes, c);
-  else if (c.k <= kMaxK) launch_nf<KeyHeap<kMaxK, true>>(nodes, c);
-  else return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  return knn::with_list<kMaxK>(c.k, [&](auto tag) {
+    using List = typename decltype(tag)::type;
+    const int blocks = (c.q + kThreads - 1) / kThreads;
+    ray_knn_nf_kernel<List><<<blocks, kThreads, 0, c.stream>>>(
+        nodes, c.perm, c.n, c.origin, c.direction, c.q, c.k, c.ts, c.idxs);
+  });
 }
 
 template <class Nodes, class Leaf>
 cudaError_t launch_k(const Nodes& nodes, const Leaf& leaf, const Call& c) {
-  using knn::KeyHeap;
-  using knn::KeyList;
-  if (c.k <= 1) launch<Nodes, Leaf, KeyList<1, true>>(nodes, leaf, c);
-  else if (c.k <= 4) launch<Nodes, Leaf, KeyList<4, true>>(nodes, leaf, c);
-  else if (c.k <= 8) launch<Nodes, Leaf, KeyList<8, true>>(nodes, leaf, c);
-  else if (c.k <= 16) launch<Nodes, Leaf, KeyList<16, true>>(nodes, leaf, c);
-  else if (c.k <= 32) launch<Nodes, Leaf, KeyList<32, true>>(nodes, leaf, c);
-  else if (c.k <= kMaxK) launch<Nodes, Leaf, KeyHeap<kMaxK, true>>(nodes, leaf, c);
-  else return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  return knn::with_list<kMaxK>(c.k, [&](auto tag) {
+    using List = typename decltype(tag)::type;
+    const int blocks = (c.q + kThreads - 1) / kThreads;
+    ray_knn_kernel<Nodes, Leaf, List><<<blocks, kThreads, 0, c.stream>>>(
+        nodes, leaf, c.perm, c.n, c.dim, c.origin, c.direction, c.q, c.k,
+        c.ts, c.idxs);
+  });
 }
 
 }  // namespace
@@ -323,7 +269,7 @@ REPRO_EXPORT int ray_knn_launch(const void* node_lo, const void* node_hi,
          static_cast<const float*>(direction), q, k, static_cast<float*>(ts),
          static_cast<int*>(idxs), static_cast<cudaStream_t>(stream)};
   if (records != nullptr) {
-    const Records3 nodes{static_cast<const int4*>(records)};
+    const Records3 nodes{{static_cast<const int4*>(records)}};
     const auto v = static_cast<const int4*>(vrec);
     if (val_kind == kSpheres) {
       return static_cast<int>(launch_k(nodes, LeafSphere3{v}, c));
@@ -333,10 +279,11 @@ REPRO_EXPORT int ray_knn_launch(const void* node_lo, const void* node_hi,
     }
     return static_cast<int>(launch_nf_k(nodes, c));
   }
-  const Flat nodes{static_cast<const float*>(node_lo),
-                   static_cast<const float*>(node_hi),
-                   static_cast<const int*>(rope), static_cast<const int*>(left),
-                   static_cast<const int*>(perm), n};
+  const Flat nodes{{static_cast<const float*>(node_lo),
+                    static_cast<const float*>(node_hi),
+                    static_cast<const int*>(rope),
+                    static_cast<const int*>(left),
+                    static_cast<const int*>(perm), n}};
   return static_cast<int>(launch_k(
       nodes, LeafFlat{static_cast<const float*>(center),
                       static_cast<const float*>(radius), val_kind},

@@ -109,9 +109,10 @@ __device__ __forceinline__ bool ray_triangle(const float (&o)[3],
 }
 
 // Value records of a 3-D tree in sorted-leaf order (pack_values): a
-// sphere is one record (c.xyz, r); a triangle three, (a.xyz, original
-// index), (b.xyz, 0), (c.xyz, 0). The floats are bit-cast to int32. The
-// original index of a leaf also sits in its node record (leaf_perm).
+// sphere is one record (c.xyz, r); a segment, a triangle or a
+// tetrahedron one a vertex, (a.xyz, original index), (b.xyz, 0), ...
+// The floats are bit-cast to int32. The original index of a leaf also
+// sits in its node record (leaf_perm).
 __device__ __forceinline__ void xyz_of(const int4 v, float (&p)[3]) {
   p[0] = __int_as_float(v.x);
   p[1] = __int_as_float(v.y);

@@ -4,17 +4,18 @@
 The kernel (``csrc/bvh_callback.cu``) runs the epilogues of
 ``core.callbacks`` (counting, count_with_limit, min_distance,
 collect_first_k, collect_hits, and DBSCAN's min_where) for Intersects
-predicates over Points, Boxes or Spheres against values of those three
-geometries, and for the ray predicates (RayIntersect,
-RayOrderedIntersect, RayNearest) against Points, Boxes, Spheres or 3-D
-Triangles values, up to ``MAX_DIM`` dimensions; :func:`expressible` says
-whether a call is one of those, and the wrapper raises on a geometry that
-is not float32 or a state that is not the epilogue's layout. A ray hit
-hands the epilogue its parameter t (``collect_*`` store it,
-``min_distance`` reduces it). Its per-query final states equal the
-twin's bit for bit. The twin is ``core.traversal.walk`` with the
-epilogue's torch body: the reference pins its kernel bit-identical to
-that walk.
+predicates of Points, Boxes, Spheres, Triangles, Segments or Tetrahedra
+(the last three by their bounding boxes, as the reference tests them)
+against values of any geometry but Rays, and for the ray predicates
+(RayIntersect, RayOrderedIntersect, RayNearest) against Points, Boxes,
+Spheres or 3-D Triangles values, up to ``MAX_DIM`` dimensions;
+:func:`expressible` says whether a call is one of those, and the wrapper
+raises on a geometry that is not float32 or a state that is not the
+epilogue's layout. A ray hit hands the epilogue its parameter t
+(``collect_*`` store it, ``min_distance`` reduces it). Its per-query final
+states equal the twin's bit for bit. The twin is ``core.traversal.walk``
+with the epilogue's torch body: the reference pins its kernel
+bit-identical to that walk.
 
 A CPU tensor takes the twin; a CUDA tensor launches the kernel (one
 thread per query, the state held in registers or written straight to the
@@ -28,8 +29,9 @@ tree's leaf order, which is their Morton order (:func:`query_order`), so
 a warp walks 32 neighbouring queries through the same nodes; the packed
 node records of a 3-D tree (:func:`pack_nodes`, read by the ``dim = 3``
 instances, spatial and ray; ``LBVH.records`` keeps them with the tree);
-for a 3-D ray call over Spheres or Triangles, the leaves' value records
-in sorted-leaf order (``bvh_traverse.pack_values``; ``BVH.value_records``
+for a 3-D ray call over Spheres or Triangles, and a 3-D Intersects call
+over Triangles, Segments or Tetrahedra, the leaves' value records in
+sorted-leaf order (``bvh_traverse.pack_values``; ``BVH.value_records``
 keeps them with the index); and min_where's one weight per value
 (:func:`min_where_weights`). None of them changes a state: each query's
 node sequence and arithmetic stay the twin's.
@@ -49,10 +51,18 @@ from .bvh_traverse import (MAX_DIM, RAY_TARGETS, _check_tree, _device_of,
                            _kept_records, _ptr, _stream, pack_nodes)
 
 __all__ = ["bvh_traverse_callback", "bvh_traverse_callback_ref",
-           "expressible", "query_order", "pack_nodes", "min_where_weights"]
+           "expressible", "reads_value_records", "query_order", "pack_nodes",
+           "min_where_weights"]
 
-_KIND = {G.Points: 0, G.Boxes: 1, G.Spheres: 2, G.Triangles: 3, G.Rays: 4}
-_SPATIAL = (G.Points, G.Boxes, G.Spheres)
+_KIND = {G.Points: 0, G.Boxes: 1, G.Spheres: 2, G.Triangles: 3, G.Rays: 4,
+         G.Segments: 5, G.Tetrahedra: 6, G.KDOPs: 7}
+#: Intersects query geometries the kernel takes: Triangles, Segments and
+#: Tetrahedra queries are their bounding boxes (predicates.leaf_match_test)
+_QUERIES = (G.Points, G.Boxes, G.Spheres, G.Triangles, G.Segments,
+            G.Tetrahedra)
+#: value geometries of an Intersects call
+_VALUES = (G.Points, G.Boxes, G.Spheres, G.Triangles, G.Segments,
+           G.Tetrahedra, G.KDOPs)
 _EPILOGUE = {"counting": 0, "count_with_limit": 1, "min_distance": 2,
              "collect_first_k": 3, "collect_hits": 4, "min_where": 5}
 
@@ -63,15 +73,17 @@ def _state_leaves(state0):
 
 def expressible(values, predicates, callback) -> bool:
     """Is this a call the kernel runs: an epilogue callback, and either
-    Intersects over Points/Boxes/Spheres against values of those, or a ray
-    predicate against Points/Boxes/Spheres/Triangles values, in at most
-    MAX_DIM dimensions (triangles: 3)? Dtypes and the state's layout are
-    not asked here: the wrapper raises on those."""
+    Intersects of a Points, Boxes, Spheres, Triangles, Segments or
+    Tetrahedra query against values of any geometry but Rays (an
+    Intersects(KDOPs) query has no node test, as in the reference), or a
+    ray predicate against Points/Boxes/Spheres/Triangles values, in at
+    most MAX_DIM dimensions (ray over triangles: 3)? Dtypes and the
+    state's layout are not asked here: the wrapper raises on those."""
     if not isinstance(callback, CB.Epilogue):
         return False
     if isinstance(predicates, P.Intersects):
-        kinds_ok = (type(predicates.geom) in _SPATIAL
-                    and type(values) in _SPATIAL)
+        kinds_ok = (type(predicates.geom) in _QUERIES
+                    and type(values) in _VALUES)
     elif isinstance(predicates, P.RAY_KINDS):
         kinds_ok = (type(predicates.rays) is G.Rays
                     and type(values) in RAY_TARGETS
@@ -81,22 +93,33 @@ def expressible(values, predicates, callback) -> bool:
     return kinds_ok and 1 <= values.dim <= MAX_DIM
 
 
+def reads_value_records(values, predicates) -> bool:
+    """Does the 3-D walk of this call read the values' records
+    (``bvh_traverse.pack_values``): a ray walk over Spheres or Triangles,
+    an Intersects walk over Triangles, Segments or Tetrahedra (whose
+    tests need the vertices)?"""
+    if isinstance(predicates, P.RAY_KINDS):
+        return isinstance(values, (G.Spheres, G.Triangles))
+    return isinstance(values, (G.Triangles, G.Segments, G.Tetrahedra))
+
+
 def _check_call(what, n, values, predicates, callback, state0):
     """Raise ValueError unless the kernel can run the call on these dtypes
     and this state layout."""
     if not expressible(values, predicates, callback):
         raise ValueError(f"{what}: the kernel runs the epilogues of "
-                         "core.callbacks for Intersects over Points/Boxes/"
-                         "Spheres values and for ray predicates over "
-                         "Points/Boxes/Spheres/Triangles (3-D) values, in "
-                         f"at most {MAX_DIM} dimensions")
+                         "core.callbacks for Intersects of Points/Boxes/"
+                         "Spheres/Triangles/Segments/Tetrahedra queries "
+                         "over any values but Rays and for ray predicates "
+                         "over Points/Boxes/Spheres/Triangles (3-D) values, "
+                         f"in at most {MAX_DIM} dimensions")
     geom = P.geometry_of(predicates)
     if geom.dim != values.dim:
         raise ValueError(f"{what}: predicates in {geom.dim} "
                          f"dimensions against values in {values.dim}")
     for name, g in (("values", values), ("predicates", geom)):
         for field, a in vars(g).items():
-            if a.dtype != torch.float32:
+            if field != "directions" and a.dtype != torch.float32:
                 raise ValueError(f"{what}: {name}.{field} must be float32, "
                                  f"got {a.dtype}")
     leaves = _state_leaves(state0)
@@ -152,16 +175,20 @@ def min_where_weights(callback):
 
 
 def _geom_ptrs(g, dev, what):
-    """(a, b, c, r) contiguous tensors of a geometry array on `dev` (None
-    where the kind has no such field): coords; lo, hi; center, radius;
-    a, b, c; origin, direction."""
-    arrays = {G.Points: lambda: (g.coords, None, None, None),
-              G.Boxes: lambda: (g.lo, g.hi, None, None),
-              G.Spheres: lambda: (g.center, None, None, g.radius),
-              G.Triangles: lambda: (g.a, g.b, g.c, None),
-              G.Rays: lambda: (g.origin, g.direction, None, None)}[type(g)]()
+    """(a, b, c, d, r) contiguous tensors of a geometry array on `dev`
+    (None where the kind has no such field): coords; lo, hi; center,
+    radius; a, b, c (and d) of Triangles, Segments and Tetrahedra; origin,
+    direction; none for KDOPs, whose test is the leaf's node box."""
+    arrays = {G.Points: lambda: (g.coords,),
+              G.Boxes: lambda: (g.lo, g.hi),
+              G.Spheres: lambda: (g.center, None, None, None, g.radius),
+              G.Triangles: lambda: (g.a, g.b, g.c),
+              G.Segments: lambda: (g.a, g.b),
+              G.Tetrahedra: lambda: (g.a, g.b, g.c, g.d),
+              G.KDOPs: lambda: (),
+              G.Rays: lambda: (g.origin, g.direction)}[type(g)]()
     out = []
-    for a in arrays:
+    for a in arrays + (None,) * (5 - len(arrays)):
         if a is not None:
             if a.device != dev:
                 raise ValueError(f"{what}: geometry is on {a.device}, "
@@ -171,7 +198,7 @@ def _geom_ptrs(g, dev, what):
     return out
 
 
-_ARGS = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 8
+_ARGS = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 8
          + [ctypes.c_void_p] * 5)
 
 
@@ -181,12 +208,13 @@ def bvh_traverse_callback(node_lo, node_hi, rope, left_child, range_last,
     """Per-query final states (the structure of `state0`, batched (Q, ...))
     of an epilogue callback over the matches of `predicates` in the tree.
     `records`: the tree's :func:`pack_nodes` records where the caller
-    keeps them (``LBVH.records``); `value_records`: a ray call's
-    :func:`~.bvh_traverse.pack_values` records of Spheres or Triangles
-    values (``BVH.value_records``); a 3-D call on the card makes them
-    otherwise; neither changes a state. Raises when :func:`expressible`
-    does not hold, on a geometry that is not float32, or on a state that
-    is not the epilogue's layout."""
+    keeps them (``LBVH.records``); `value_records`: the
+    :func:`~.bvh_traverse.pack_values` records of a ray call's Spheres or
+    Triangles values, or an Intersects call's Triangles, Segments or
+    Tetrahedra values (``BVH.value_records``); a 3-D call on the card makes
+    them otherwise; neither changes a state. Raises when
+    :func:`expressible` does not hold, on a geometry that is not float32,
+    or on a state that is not the epilogue's layout."""
     what = "bvh_traverse_callback"
     _check_call(what, leaf_perm.shape[0], values, predicates, callback, state0)
     if _device_of(node_lo, what) == "cpu":
@@ -221,8 +249,10 @@ def _callback_launch(what, node_lo, node_hi, rope, left_child, range_last,
         raise ValueError(f"{what}: range_last and values must match the "
                          f"tree's {n} leaves")
     pgeom = P.geometry_of(predicates)
-    pa, pb, _, pr = _geom_ptrs(pgeom, dev, what)
-    va, vb, vc, vr = _geom_ptrs(values, dev, what)
+    if isinstance(pgeom, (G.Triangles, G.Segments, G.Tetrahedra)):
+        pgeom = G.to_boxes(pgeom)   # its node and leaf tests are its box's
+    pa, pb, _, _, pr = _geom_ptrs(pgeom, dev, what)
+    va, vb, vc, vd, vr = _geom_ptrs(values, dev, what)
     mp = (torch.full((q,), -1, dtype=torch.int32, device=dev)
           if min_pos is None else min_pos.to(device=dev, dtype=torch.int32)
           .contiguous())
@@ -250,7 +280,7 @@ def _callback_launch(what, node_lo, node_hi, rope, left_child, range_last,
     if dim == 3:
         records, value_records = _kept_records(
             what, tree[:4] + tree[5:], values, records, value_records, dev,
-            not spatial)
+            reads_value_records(values, predicates))
     else:
         records = value_records = None
     if q:
@@ -258,7 +288,8 @@ def _callback_launch(what, node_lo, node_hi, rope, left_child, range_last,
         with torch.cuda.device(dev):
             err = fn(*(t.data_ptr() for t in tree), _ptr(records),
                      _ptr(value_records), _ptr(order), _ptr(pa), _ptr(pb),
-                     _ptr(pr), _ptr(va), _ptr(vb), _ptr(vc), _ptr(vr),
+                     _ptr(pr), _ptr(va), _ptr(vb), _ptr(vc), _ptr(vd),
+                     _ptr(vr),
                      mp.data_ptr(), n, q, dim,
                      _KIND[type(pgeom)], _KIND[type(values)], _EPILOGUE[kind],
                      param, early_exit,

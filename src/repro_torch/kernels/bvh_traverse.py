@@ -22,6 +22,13 @@ The kernels, each with its plain PyTorch twin beside it:
     Boxes, Spheres or 3-D Triangles values. Its twin is
     ``core.traversal.knn_walk``, the reference's ``traverse_knn``, which
     the reference compiles for ``RayNearest`` with no kernel of its own.
+  * ``bvh_traverse_fine_knn``: k nearest Spheres, Triangles, Segments,
+    Tetrahedra or KDOPs values by their FINE distance from the query
+    centroids (``predicates.leaf_distance`` in the "walk" order), keyed
+    at a node by ``predicates.node_min_distance``: the rope walk of the
+    reference's compiled ``traverse_knn`` (``core.traversal.knn_walk``,
+    its twin), which the reference runs for these values with no kernel
+    of its own.
   * ``bvh_traverse_knn_exclude``: k nearest Points queries over Points or
     Boxes values outside the query's label (``Nearest.exclude``, EMST's
     component exclusion), keyed like the reference's loop walk
@@ -55,14 +62,18 @@ other dims), so its lists are the twin's by construction, and over
 Points and Boxes in 3-D walks nearest first with the point kNN kernel's
 stack and tie pass; in 3-D it reads the node records and, for Spheres
 and Triangles, the leaves' value records (:func:`pack_values`, kept as
-``BVH.value_records``). The twins and the kernels sum the per-dimension
-squares in the same fixed order (``geometry.sum_sq_fused``: the first
-square, then one fused multiply-add per further dimension, as XLA:CPU
-runs the reference kernels) and the kernels allow no other contraction,
-so counts, buffers and distances agree bit for bit; ray t too, the leaf
-tests taking the "walk" float order (``csrc/ray_tests.cuh``). Under
-``REPRO_SANITIZE`` each wrapper checks its output contract
-(``sanitize.check_spatial`` / ``check_knn``).
+``BVH.value_records``). The fine kNN kernel (``csrc/fine_knn.cu``) walks
+the twin's node sequence, one thread a query, with the same list key, so
+its lists are the twin's by construction; in 3-D it reads the node
+records and the value records of Spheres, Triangles and Segments (a
+Tetrahedra or KDOPs leaf's distance is its node box's). The twins and the
+kernels sum the per-dimension squares in the same fixed order
+(``geometry.sum_sq_fused``: the first square, then one fused multiply-add
+per further dimension, as XLA:CPU runs the reference kernels) and the
+kernels allow no other contraction, so counts, buffers and distances
+agree bit for bit; ray t too, the leaf tests taking the "walk" float
+order (``csrc/ray_tests.cuh``). Under ``REPRO_SANITIZE`` each wrapper
+checks its output contract (``sanitize.check_spatial`` / ``check_knn``).
 """
 from __future__ import annotations
 
@@ -77,11 +88,13 @@ from ..core.geometry import sqrt, sum_sq_fused
 from . import _build, sanitize
 
 __all__ = ["bvh_traverse_spatial", "bvh_traverse_knn", "bvh_traverse_ray_knn",
-           "bvh_traverse_knn_exclude", "bvh_traverse_spatial_ref",
-           "bvh_traverse_knn_ref", "bvh_traverse_ray_knn_ref",
-           "bvh_traverse_knn_exclude_ref", "node_labels", "pack_nodes",
-           "pack_values", "knn_order", "RAY_TARGETS", "KNN_MAX_K", "MAX_DIM",
-           "STACK_DEPTH", "MIXED"]
+           "bvh_traverse_knn_exclude", "bvh_traverse_fine_knn",
+           "bvh_traverse_spatial_ref", "bvh_traverse_knn_ref",
+           "bvh_traverse_ray_knn_ref", "bvh_traverse_knn_exclude_ref",
+           "bvh_traverse_fine_knn_ref", "node_labels", "pack_nodes",
+           "pack_values", "knn_order", "RAY_TARGETS", "FINE_KNN_VALUES",
+           "FINE_KNN_RECORDS",
+           "KNN_MAX_K", "MAX_DIM", "STACK_DEPTH", "MIXED"]
 
 #: largest k the kNN kernel takes (its largest template bucket)
 KNN_MAX_K = 256
@@ -93,6 +106,13 @@ MAX_DIM = 16
 STACK_DEPTH = 96
 #: value geometries the ray walks take (Triangles in 3-D only)
 RAY_TARGETS = (G.Points, G.Boxes, G.Spheres, G.Triangles)
+#: value geometries of the fine kNN walk (the kNN kernel takes Points and
+#: Boxes, whose fine distance is their box distance)
+FINE_KNN_VALUES = (G.Spheres, G.Triangles, G.Segments, G.Tetrahedra,
+                   G.KDOPs)
+#: those whose value records the fine kNN walk reads in 3-D (a
+#: tetrahedron's or a k-DOP's distance is its node box's)
+FINE_KNN_RECORDS = (G.Spheres, G.Triangles, G.Segments)
 #: the tree arrays the kNN kernels take, in their C entries' order
 _TREE = ("node_lo", "node_hi", "rope", "left_child", "leaf_perm")
 #: node_labels' label of an internal node whose leaves carry more than one
@@ -263,6 +283,17 @@ def bvh_traverse_ray_knn_ref(node_lo, node_hi, rope, left_child, leaf_perm,
                               values, P.RayNearest(rays, k), k, stats=stats)
 
 
+def bvh_traverse_fine_knn_ref(node_lo, node_hi, rope, left_child, leaf_perm,
+                              values, queries, *, k: int,
+                              stats: dict | None = None):
+    """The fine kNN kernel's plain twin: the batched k-nearest walk of
+    ``Nearest(queries, k)`` (``core.traversal.knn_walk``); (dists, idxs)
+    (Q, k) ascending, (inf, -1) padded. `stats`, when given, receives
+    ``visits``: the node visits of all queries together."""
+    return traversal.knn_walk(node_lo, node_hi, rope, left_child, leaf_perm,
+                              values, P.Nearest(queries, k), k, stats=stats)
+
+
 # ---------------------------------------------------------------------------
 # what the kNN kernels read besides the tree
 # ---------------------------------------------------------------------------
@@ -276,15 +307,22 @@ def pack_nodes(node_lo, node_hi, rope, left_child, leaf_perm):
                       node_hi.view(torch.int32), link[:, None]], 1)
 
 
+#: int32 columns of a value record row (pack_values): four per vertex or
+#: sphere, the first vertex's fourth the original index
+_RECORD_COLS = {G.Spheres: 4, G.Segments: 8, G.Triangles: 12,
+                G.Tetrahedra: 16}
+
+
 def pack_values(values, leaf_perm):
     """The 16-byte value records of a 3-D tree's leaves in sorted-leaf
-    order, which the 3-D ray walks read in place of a ``leaf_perm``
-    gather, as int32 (the floats bit-cast): Spheres (N, 4), (c.xyz, r)
-    per leaf; Triangles (N, 12), (a.xyz, original index), (b.xyz, 0),
-    (c.xyz, 0) per leaf. None for Points and Boxes, whose leaf test is the
-    node test at the leaf, and in other dims. One gather of the values
-    and one concatenation: 16 (spheres) or 48 (triangles) bytes a leaf."""
-    if values.dim != 3 or not isinstance(values, (G.Spheres, G.Triangles)):
+    order, which the 3-D walks read in place of a ``leaf_perm`` gather, as
+    int32 (the floats bit-cast): Spheres (N, 4), (c.xyz, r) per leaf;
+    Segments (N, 8), Triangles (N, 12) and Tetrahedra (N, 16), one record
+    (v.xyz, 0) per vertex, the first holding the original index in place of
+    the 0. None for Points, Boxes and KDOPs, whose leaf test is their box,
+    the node test at the leaf, and in other dims. One gather of the values
+    and one concatenation: 16 bytes a sphere or vertex."""
+    if values.dim != 3 or type(values) not in _RECORD_COLS:
         return None
     perm = leaf_perm.to(torch.int64)
     if isinstance(values, G.Spheres):
@@ -292,10 +330,13 @@ def pack_values(values, leaf_perm):
                           values.radius[perm].view(torch.int32)[:, None]], 1)
     zero = torch.zeros((perm.shape[0], 1), dtype=torch.int32,
                        device=perm.device)
-    return torch.cat([values.a[perm].view(torch.int32),
-                      leaf_perm.to(torch.int32)[:, None],
-                      values.b[perm].view(torch.int32), zero,
-                      values.c[perm].view(torch.int32), zero], 1)
+    verts = [getattr(values, f) for f in ("a", "b", "c", "d")
+             if hasattr(values, f)]
+    cols = []
+    for j, v in enumerate(verts):
+        cols += [v[perm].view(torch.int32),
+                 leaf_perm.to(torch.int32)[:, None] if j == 0 else zero]
+    return torch.cat(cols, 1)
 
 
 def knn_order(queries, values_coords, leaf_perm):
@@ -584,6 +625,111 @@ def bvh_traverse_ray_knn(node_lo, node_hi, rope, left_child, leaf_perm,
     return t, idxs
 
 
+_FINE_KIND = {G.Spheres: 2, G.Triangles: 3, G.Segments: 5, G.Tetrahedra: 6,
+              G.KDOPs: 7}
+_FINE_KNN_ARGS = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+                  + [ctypes.c_void_p] * 3)
+
+
+def bvh_traverse_fine_knn(node_lo, node_hi, rope, left_child, leaf_perm,
+                          values, queries, *, k: int, records=None,
+                          value_records=None):
+    """(dists, idxs) (Q, k) float32/int32, ascending, (inf, -1) padded: the
+    k nearest of `values` (Spheres, Triangles, Segments, Tetrahedra or
+    KDOPs, the tree's leaves) by their FINE distance from the centroids of
+    `queries` (any geometry but Rays), the lists of the reference's loop
+    walk (``traversal.traverse_knn``) bit for bit, ties included.
+    `records` (:func:`pack_nodes`, ``LBVH.records``) and `value_records`
+    (:func:`pack_values`, ``BVH.value_records``): kept by the caller, else
+    a 3-D call on the card makes them; neither changes a result."""
+    what = "bvh_traverse_fine_knn"
+    if k < 1:
+        raise ValueError(f"{what}: k must be >= 1, got {k}")
+    if (type(values) not in FINE_KNN_VALUES
+            or type(queries) not in G.GEOMETRIES or type(queries) is G.Rays
+            or queries.dim != values.dim):
+        raise ValueError(f"{what}: queries of any geometry but Rays against "
+                         "Spheres, Triangles, Segments, Tetrahedra or KDOPs "
+                         "values of the queries' dimension")
+    if _device_of(leaf_perm, what) == "cpu":
+        dists, idxs = bvh_traverse_fine_knn_ref(
+            node_lo, node_hi, rope, left_child, leaf_perm, values, queries,
+            k=k)
+    else:
+        dists, idxs = _fine_knn_launch(what, node_lo, node_hi, rope,
+                                       left_child, leaf_perm, values, queries,
+                                       k, records, value_records)
+    sanitize.check_knn(dists, idxs, n=leaf_perm.shape[0], kernel=what)
+    return dists, idxs
+
+
+def _fine_query(queries):
+    """(q_lo, q_hi, center, radius) of the node key and the leaf distance:
+    a Boxes query's box, a Spheres query's centre and radius, any other
+    query's centroid (``predicates.node_min_distance``); radius None but
+    for Spheres."""
+    center = G.centroid(queries)
+    if isinstance(queries, G.Boxes):
+        return queries.lo, queries.hi, center, None
+    if isinstance(queries, G.Spheres):
+        return center, center, center, queries.radius
+    return center, center, center, None
+
+
+def _fine_knn_launch(what, node_lo, node_hi, rope, left_child, leaf_perm,
+                     values, queries, k, records, value_records):
+    if k > KNN_MAX_K:
+        raise ValueError(f"{what}: k={k} above the kernel's cap {KNN_MAX_K}")
+    dev = leaf_perm.device
+    n = leaf_perm.shape[0]
+    dim = values.dim
+    a = _args(dev, what, node_lo=node_lo, node_hi=node_hi, rope=rope,
+              left_child=left_child, leaf_perm=leaf_perm)
+    _check_tree(what, n, dim, a["node_lo"], a["node_hi"], a["rope"],
+                a["left_child"], a["leaf_perm"])
+    q_lo, q_hi, center, radius = _fine_query(queries)
+    q = len(queries)
+    geo = {}
+    for name, t in (("q_lo", q_lo), ("q_hi", q_hi), ("center", center),
+                    ("radius", radius)):
+        if t is not None:
+            if t.device != dev or t.dtype != torch.float32:
+                raise ValueError(f"{what}: queries must be float32 on {dev}")
+            geo[name] = t.contiguous()
+    vals = [t for f, t in vars(values).items() if f != "directions"]
+    if len(values) != n or any(t.device != dev or t.dtype != torch.float32
+                               for t in vals):
+        raise ValueError(f"{what}: {n} float32 values on {dev} expected")
+    va = vb = vc = vr = None
+    if dim == 3:
+        records, value_records = _kept_records(
+            what, [a[f] for f in _TREE], values, records, value_records, dev,
+            isinstance(values, FINE_KNN_RECORDS))
+    else:
+        records = value_records = None
+        if isinstance(values, G.Spheres):
+            va, vr = values.center.contiguous(), values.radius.contiguous()
+        elif isinstance(values, (G.Triangles, G.Segments)):
+            va, vb = values.a.contiguous(), values.b.contiguous()
+            vc = getattr(values, "c", None)
+            vc = None if vc is None else vc.contiguous()
+    dists = torch.empty((q, k), dtype=torch.float32, device=dev)
+    idxs = torch.empty((q, k), dtype=torch.int32, device=dev)
+    if q == 0:
+        return dists, idxs
+    fn = _build.function("fine_knn", "fine_knn_launch", _FINE_KNN_ARGS)
+    with torch.cuda.device(dev):
+        err = fn(*(a[f].data_ptr() for f in _TREE), _ptr(records),
+                 _ptr(value_records), _ptr(va), _ptr(vb), _ptr(vc), _ptr(vr),
+                 geo["q_lo"].data_ptr(), geo["q_hi"].data_ptr(),
+                 geo["center"].data_ptr(), _ptr(geo.get("radius")), n, q, dim,
+                 _FINE_KIND[type(values)], k, dists.data_ptr(),
+                 idxs.data_ptr(), _stream(dev))
+    _build.check("fine_knn", err, what)
+    bvh_traverse_fine_knn.launches += 1
+    return dists, idxs
+
+
 def _check_records(what, rec, rows, cols, dev):
     """Raise unless `rec` are contiguous, 16-byte aligned (rows, cols)
     int32 records on `dev` (pack_nodes', pack_values')."""
@@ -594,21 +740,20 @@ def _check_records(what, rec, rows, cols, dev):
                          f"aligned ({rows}, {cols}) int32 on {dev}")
 
 
-def _kept_records(what, tree, values, records, value_records, dev, rays):
+def _kept_records(what, tree, values, records, value_records, dev, reads):
     """(records, value records) a 3-D launch reads: the caller's kept
     ones, checked, else packed here. `tree` is (node_lo, node_hi, rope,
-    left_child, leaf_perm); value records only for a ray walk (`rays`)
-    over Spheres or Triangles, else None."""
+    left_child, leaf_perm); value records only where the call `reads`
+    them, else None."""
     n = tree[4].shape[0]
     if records is None:
         records = pack_nodes(*tree)
     _check_records(what, records, 2 * n - 1, 8, dev)
-    if not (rays and isinstance(values, (G.Spheres, G.Triangles))):
+    if not reads:
         return records, None
     if value_records is None:
         value_records = pack_values(values, tree[4])
-    _check_records(what, value_records, n,
-                   4 if isinstance(values, G.Spheres) else 12, dev)
+    _check_records(what, value_records, n, _RECORD_COLS[type(values)], dev)
     return records, value_records
 
 
@@ -636,7 +781,7 @@ def _ray_knn_launch(what, node_lo, node_hi, rope, left_child, leaf_perm,
     if dim == 3:
         records, value_records = _kept_records(
             what, [a[f] for f in _TREE], values, records, value_records, dev,
-            True)
+            isinstance(values, (G.Spheres, G.Triangles)))
     else:
         records = value_records = None
         if isinstance(values, G.Spheres):
@@ -662,3 +807,4 @@ bvh_traverse_spatial.launches = 0
 bvh_traverse_knn.launches = 0
 bvh_traverse_knn_exclude.launches = 0
 bvh_traverse_ray_knn.launches = 0
+bvh_traverse_fine_knn.launches = 0

@@ -30,6 +30,7 @@ import ctypes
 import torch
 
 from ..core import morton as M
+from ..core.geometry import min_zeros as _min_zeros
 from . import _build, sanitize
 from .bvh_traverse import _device_of, _stream, pack_nodes
 
@@ -176,14 +177,6 @@ karras_ranges.launches = 0
 # ---------------------------------------------------------------------------
 # the build's tail: plain twins
 # ---------------------------------------------------------------------------
-
-def _min_zeros(a, b):
-    """torch.minimum with -0 below +0, as XLA's minimum (``torch.minimum``
-    returns either operand when they are zeros of two signs); NaN
-    propagates."""
-    tie = (a.view(torch.int32) | b.view(torch.int32)).view(torch.float32)
-    return torch.where(a == b, tie, torch.minimum(a, b))
-
 
 def aabb_rmq(leaf_lo, leaf_hi, first, last, max_log2: int):
     """Internal-node AABBs over sorted leaf boxes: (N-1, dim) lo and hi.

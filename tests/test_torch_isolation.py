@@ -1014,7 +1014,8 @@ def test_ray_callback_entry_refuses_3d_rays_without_records(cuda_device):
                   None if order_ is None else order_.data_ptr(),
                   rays.origin.data_ptr(), rays.direction.data_ptr(), None,
                   values.a.data_ptr(), values.b.data_ptr(),
-                  values.c.data_ptr(), None, mp.data_ptr(), n, q, 3, 4, 3, 0,
+                  values.c.data_ptr(), None, None, mp.data_ptr(), n, q, 3, 4,
+                  3, 0,
                   0, 0, out.data_ptr(), None, None, None,
                   torch.cuda.current_stream(cuda_device).cuda_stream)
 
@@ -1267,3 +1268,106 @@ def test_exclusion_on_the_card_never_calls_the_twin(cuda_device, monkeypatch):
         TP.nearest(TG.Points(x), k=2, exclude=(lab, lab)))
     torch.cuda.synchronize()
     assert bool((lab[res.indices.clamp_min(0).long()] != lab[:, None]).all())
+
+
+# ---------------------------------------------------------------------------
+# the remaining geometries: Triangles, Segments, Tetrahedra and KDOPs
+# ---------------------------------------------------------------------------
+
+def test_geometry_paths_run_with_jax_blocked():
+    """Intersects, Nearest and callbacks over Segments, Tetrahedra, KDOPs
+    and Triangles values, the fine kNN walk's twin and the callback
+    kernel's twin, with JAX blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import numpy as np, torch, repro_torch as rt\n"
+        "from repro_torch.kernels import bvh_traverse as BT\n"
+        "rng = np.random.default_rng(0)\n"
+        "a = rng.uniform(0, 1, (300, 3)).astype(np.float32)\n"
+        "e = lambda: torch.from_numpy((a + rng.uniform(-.1, .1, a.shape)).astype(np.float32))\n"
+        "A = torch.from_numpy(a)\n"
+        "dirs = rt.kdop_directions(3, 14)\n"
+        "sup = torch.stack([A, e(), e()], 1) @ dirs.T\n"
+        "values = [rt.Segments(A, e()), rt.Tetrahedra(A, e(), e(), e()),\n"
+        "          rt.KDOPs(sup.amin(1), sup.amax(1), dirs), rt.Triangles(A, e(), e())]\n"
+        "table = rt.RouteTable(rules={'default': rt.RouteRule(bf_max_work=0)})\n"
+        "pol = rt.ExecutionPolicy(device='cpu', engine=rt.QueryEngine(rt.EngineConfig(route_table=table)))\n"
+        "q = torch.from_numpy(rng.uniform(0, 1, (16, 3)).astype(np.float32))\n"
+        "for v in values:\n"
+        "    idx = rt.BVH(v, policy=pol)\n"
+        "    bf = rt.BruteForce(v, policy=pol)\n"
+        "    s = rt.Spheres(q, torch.full((16,), 0.1))\n"
+        "    r = idx.query(rt.intersects(s))\n"
+        "    c = idx.query(rt.intersects(s), callback=rt.callbacks.counting())\n"
+        "    assert c.tolist() == r.offsets.diff().tolist()\n"
+        "    calls = BT.bvh_traverse_fine_knn.launches\n"
+        "    k = idx.query(rt.nearest(rt.Points(q), k=3))\n"
+        "    kb = bf.query(rt.nearest(rt.Points(q), k=3))\n"
+        "    assert k.indices.shape == (16, 3) and bool(torch.isfinite(k.distances).all())\n"
+        "    assert torch.allclose(k.distances, kb.distances, rtol=1e-5, atol=1e-6)\n"
+        "    assert BT.bvh_traverse_fine_knn.launches == calls\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules\n"
+        "               if sys.modules[m] is not None)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_fine_knn_wrapper_refuses_other_devices_and_counts_only_launches():
+    t, x = _tree_args()
+    segs = TG.Segments(x, x + 0.01)
+    meta = {f: getattr(t, f).to("meta") for f in TL.FIELDS}
+    with pytest.raises(ValueError, match="no kernel"):
+        TT.bvh_traverse_fine_knn(
+            *(meta[f] for f in ("node_lo", "node_hi", "rope", "left_child",
+                                "leaf_perm")),
+            segs.to("meta"), TG.Points(x[:4].to("meta")), k=2)
+    tree = TL.build(TG.to_boxes(segs))
+    before = TT.bvh_traverse_fine_knn.launches
+    d, i = TT.bvh_traverse_fine_knn(
+        *(getattr(tree, f) for f in ("node_lo", "node_hi", "rope",
+                                     "left_child", "leaf_perm")),
+        segs, TG.Points(x[:4]), k=2)
+    assert TT.bvh_traverse_fine_knn.launches == before
+    assert i[:, 0].tolist() == [0, 1, 2, 3] and bool((d[:, 0] == 0).all())
+    with pytest.raises(ValueError, match="Spheres, Triangles"):
+        TT.bvh_traverse_fine_knn(
+            *(getattr(tree, f) for f in ("node_lo", "node_hi", "rope",
+                                         "left_child", "leaf_perm")),
+            TG.Points(x), TG.Points(x[:4]), k=2)
+
+
+@pytest.mark.cuda
+def test_geometry_paths_on_the_card_never_call_the_twins(cuda_device,
+                                                         monkeypatch):
+    """BVH.query over Tetrahedra and Triangles on the card: the callback
+    kernel and the fine kNN kernel, never their twins nor the walks."""
+    def boom(*a, **k):
+        raise AssertionError("a twin ran for a CUDA tensor")
+
+    monkeypatch.setattr(TT, "bvh_traverse_fine_knn_ref", boom)
+    monkeypatch.setattr(TC, "bvh_traverse_callback_ref", boom)
+    from repro_torch.core import traversal as TW
+    monkeypatch.setattr(TW, "knn_walk", boom)
+    monkeypatch.setattr(TW, "walk", boom)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    a = torch.rand((2000, 3), generator=g, device=cuda_device)
+    e = lambda: a + 0.05 * torch.rand((2000, 3), generator=g,  # noqa: E731
+                                      device=cuda_device)
+    q = torch.rand((256, 3), generator=g, device=cuda_device)
+    from repro_torch import EngineConfig, QueryEngine, RouteRule, RouteTable
+    table = RouteTable(rules={"default": RouteRule(bf_max_work=0)})
+    pol = ExecutionPolicy(device=cuda_device,
+                          engine=QueryEngine(EngineConfig(route_table=table)))
+    for values in (TG.Tetrahedra(a, e(), e(), e()), TG.Triangles(a, e(), e())):
+        index = BVH(values, policy=pol)
+        res = index.query(TP.intersects(TG.Points(q)))
+        knn = index.query(TP.nearest(TG.Points(q), k=4))
+        torch.cuda.synchronize()
+        assert res.offsets.shape == (257,)
+        assert bool(torch.isfinite(knn.distances).all())

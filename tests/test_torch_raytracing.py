@@ -223,7 +223,7 @@ def test_ray_orders_differ_where_it_matters():
     assert (jh != eh).any()
     varr, o, d = _pairs("spheres")
     ts = [TG.ray_sphere(*(torch.from_numpy(a) for a in (o, d, *varr)),
-                        order)[1].numpy() for order in TG.SPHERE_ORDERS]
+                        order)[1].numpy() for order in TG.ORDERS]
     assert (ts[0] != ts[1]).any() and (ts[1] != ts[2]).any()
     with pytest.raises(ValueError, match="order"):
         TG.ray_sphere(*(torch.from_numpy(a) for a in (o, d, *varr)), "fast")
@@ -250,7 +250,7 @@ def test_sphere_orders_disagree_only_within_the_rim_bound():
     o, d, c = (x.astype(np.float32) for x in (o, d, c))
     rad = np.full(m, r, np.float32)
     hits = [TG.ray_sphere(*(torch.from_numpy(a) for a in (o, d, c, rad)),
-                          order)[0].numpy() for order in TG.SPHERE_ORDERS]
+                          order)[0].numpy() for order in TG.ORDERS]
     oc = o.astype(np.float64) - c
     d64, r2 = d.astype(np.float64), np.float64(rad[0]) ** 2
     dd, s = (d64 * d64).sum(1), (oc * oc).sum(1)
@@ -491,13 +491,24 @@ def test_degenerate_indexes(vkind, n):
 
 
 def test_triangle_spatial_queries_wait_for_a_later_slice():
-    _, _, (_, tv), (_, tr) = scene("triangles")
-    tb = BVH(tv, policy=POLICY)
-    probe = TG.Spheres(tr.origin[:2], torch.full((2,), 0.1))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tb.query(TP.intersects(probe))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tb.query(TP.nearest(TG.Points(tr.origin[:2]), k=1))
+    """The later slice came (the geometries slice): spatial queries over
+    the ray scene's triangles are answered as the reference answers them
+    (tests/test_torch_geometry_query.py holds them in full); the ray test
+    stays 3-D only."""
+    _, _, (jv, tv), (jr, tr) = scene("triangles")
+    from repro_torch import RouteRule, RouteTable
+    walk = QueryEngine(EngineConfig(route_table=RouteTable(
+        rules={"default": RouteRule(bf_max_work=0)})))
+    tb = BVH(tv, policy=ExecutionPolicy(device=CPU, engine=walk))
+    jb = JBVH(jv, engine=JQueryEngine(JEngineConfig(force="loop")))
+    probe = TG.Spheres(tr.origin[:8], torch.full((8,), 0.1))
+    jprobe = JG.Spheres(jr.origin[:8], jnp.full((8,), 0.1, jnp.float32))
+    assert_csr_sets(jb.query(JP.intersects(jprobe)),
+                    tb.query(TP.intersects(probe)))
+    want = jb.query(JP.nearest(JG.Points(jr.origin[:8]), k=1))
+    got = tb.query(TP.nearest(TG.Points(tr.origin[:8]), k=1))
+    np.testing.assert_array_equal(np.asarray(want.indices),
+                                  np_of(got.indices))
     with pytest.raises(NotImplementedError, match="3-D only"):
         TG.ray_triangle(*(torch.zeros((1, 2)),) * 5)
 

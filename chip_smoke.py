@@ -252,6 +252,41 @@ Phases (one line or more each, then the two closing lines):
      time (ms, tokens/s) and one profiled forward, with the flash
      kernel's share of device time.
 
+ 17. distributed (slice 15; run last, once the host's cores are free of
+     the twins' workers): one world of 4 gloo ranks on the one card
+     (``python3 chip_smoke.py --rank r ...``: fresh processes, a file
+     store, a 60 s timeout on every collective; collectives staged
+     through host memory), each rank holding 2^18 of the 2^20 points and
+     of the boxes and 2^15 of the 2^17 queries: ``DistributedTree``
+     builds, kNN (k = 10), count, CSR and ``min_distance`` (combine =
+     torch.minimum) of the main path's spheres, RayNearest (k = 4) of
+     2^15 seeded rays over the boxes, and ``ship_values`` over 2^10
+     queries, each rank's counters zeroed just before and read just
+     after (every kernel of the path launched on every rank: the builds'
+     morton64, karras_ranges and lbvh_tail, the kNN, callback and ray
+     kNN kernels). The parent holds the results against one BVH over
+     all the points (boxes) on the card with the kernel route: counts and
+     states bit-identical, CSR sets equal, kNN and ray distances
+     bit-identical with indices apart only among ties (rows counted), the
+     shipped values the matched points. Then an NCCL world of one rank
+     repeats the queries with device tensors, identical to the single
+     BVH, indices included. Each kind's ms per call (rank 0) and, with
+     telemetry on, per stage (``distributed.gather / local / exchange /
+     merge / ship``), beside the card's name and power limit. A failed
+     rank fails the phase; every rank is stopped at the end.
+ 18. sharded (slice 15, in the same gloo world): a ``ShardedIndexStore``
+     behind a ``QueryServer`` over each rank's blocks of "cloud" and
+     "scene", warmed as [serve] warms, then [serve]'s 1,000 requests,
+     timed with telemetry off and split by stage in a second pass with
+     telemetry on: identical on every rank, all warm, each equal to the
+     single-device QueryServer's response in [serve] (distances bit-
+     identical, indices apart only among ties, within sets equal); the
+     ms per group of each stage (``sharded.gather / local_traverse /
+     exchange / merge``) by kind; a drifted update (a refit on every
+     rank) and a scrambled one (a rebuild), versions and actions checked.
+     Both phases' launches stay on their own lines, per rank; the kernels
+     line reads each entry's launches from its own path only.
+
 The line before the last is ``{"kernels": [...]}`` (14 entries: name,
 route, source, replaced TPU kernel, launches, max_abs_err, ms, plain_ms,
 bound_ms, bound_by, library_ms); the last is
@@ -2738,7 +2773,9 @@ def phase_serve(dev, pts, card):
     """QueryServer and ServingPipeline on the card over "cloud" (the search
     points) and "scene" (the ray phase's triangles). Logs the kernel
     launches of the serving path (counters zeroed just before each part,
-    read just after), which stay out of the kernels line."""
+    read just after), which stay out of the kernels line. Returns the
+    1,000 mixed requests (in their handle() calls) and QueryServer's
+    responses, which [sharded] is held to."""
     import tempfile
     import threading
     import torch
@@ -3077,6 +3114,7 @@ def phase_serve(dev, pts, card):
     log(f"[serve] launches on the serving path (counts zeroed at each "
         f"part's start, read at its end): {json.dumps(total)}")
     log(f"[serve] phase {time.perf_counter() - t_phase:.1f} s")
+    return calls, served
 
 
 # ---------------------------------------------------------------------------
@@ -4003,6 +4041,561 @@ def phase_geometry_twins(pending, card):
                 plain_ms=twin_s["triangles", 10] * 1e3)
 
 
+# ---------------------------------------------------------------------------
+# slice 15: distributed search (DistributedTree, the sharded serving stack)
+# ---------------------------------------------------------------------------
+
+DIST_RANKS = 4            # gloo ranks sharing the one card
+DIST_RAYS = 1 << 15       # RayNearest (k = 4) over the main path's boxes
+DIST_RAY_K = 4
+DIST_SHIP = 1 << 10       # ship_values queries (the first of each block)
+DIST_REPS = 3             # timed calls of each kind
+DIST_GROUP_TIMEOUT_S = 60     # every collective of a rank's process group
+DIST_WORLD_TIMEOUT_S = 600    # a whole world, start to exit
+DIST_LABEL = ("4 gloo ranks sharing one card, collectives through host "
+              "memory")
+#: the kernels of the distributed path, with the wrappers' launch counters
+DIST_KERNELS = ("morton64", "karras_ranges", "lbvh_tail", "bvh_traverse_knn",
+                "bvh_traverse_callback", "bvh_traverse_ray_knn")
+DIST_STAGES = ("gather", "local", "exchange", "merge", "ship")
+SHARD_STAGES = ("gather", "local_traverse", "exchange", "merge")
+
+
+def _dist_counters():
+    from repro_torch.kernels import bvh_callback as KC
+    from repro_torch.kernels import bvh_traverse as T
+    from repro_torch.kernels import lbvh_build as KB
+    from repro_torch.kernels import morton as KM
+    return {"morton64": KM.morton64, "karras_ranges": KB.karras_ranges,
+            "lbvh_tail": KB.lbvh_tail, "bvh_traverse_knn": T.bvh_traverse_knn,
+            "bvh_traverse_callback": KC.bvh_traverse_callback,
+            "bvh_traverse_ray_knn": T.bvh_traverse_ray_knn}
+
+
+def _stage_ms(spans, prefix, stages, reps):
+    """Mean ms per call of each stage: the fenced spans `prefix.<stage>`
+    summed over `reps` calls."""
+    out = {}
+    for st in stages:
+        us = sum(s.dur_ns for s in spans if s.name == f"{prefix}.{st}") / 1e3
+        if us:
+            out[st] = us / 1e3 / reps
+    return out
+
+
+def _rank_distributed(dev, rank, ranks):
+    """One rank's [distributed] work: its block of the main path's points
+    (and boxes), its block of the queries; the counters zeroed just
+    before the drive and read just after; then each kind timed, wall
+    clock per call and, with telemetry on, per stage."""
+    import torch
+    import repro_torch as rt
+    from repro_torch import telemetry
+    from repro_torch.core import callbacks as CB
+    from repro_torch.core import geometry as G
+    from repro_torch.core import predicates as P
+    pts, box_lo, box_hi, qc = make_data(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    ro = torch.rand((DIST_RAYS, 3), generator=gen, device=dev)
+    rd = torch.randn((DIST_RAYS, 3), generator=gen, device=dev)
+    nl, ql, rl = N // ranks, Q // ranks, DIST_RAYS // ranks
+    blk, qb, rb = (slice(rank * n, (rank + 1) * n) for n in (nl, ql, rl))
+    counters = _dist_counters()
+    torch.cuda.synchronize()
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    dt = rt.DistributedTree(None, G.Points(pts[blk]))
+    bx = rt.DistributedTree(None, G.Boxes(box_lo[blk], box_hi[blk]))
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    sph = P.intersects(G.Spheres(qc[qb], torch.full((ql,), RADIUS,
+                                                    device=dev)))
+    ship_q = qc[qb][:DIST_SHIP // ranks]
+    ship = P.intersects(G.Spheres(ship_q, torch.full(
+        (len(ship_q),), RADIUS, device=dev)))
+    kinds = {
+        "knn": lambda: dt.query(P.nearest(G.Points(qc[qb]), k=K)),
+        "count": lambda: dt.count(sph),
+        "csr": lambda: dt.query(sph),
+        "min_distance": lambda: dt.query(
+            sph, callback=CB.min_distance(),
+            policy=dt.policy.override(combine=torch.minimum)),
+        "ray": lambda: bx.query(P.RayNearest(G.Rays(ro[rb], rd[rb]),
+                                             DIST_RAY_K)),
+        "ship": lambda: dt.query(ship, policy=dt.policy.override(
+            ship_values=True)),
+    }
+    got = {name: fn() for name, fn in kinds.items()}
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    wall, stages = {}, {}
+    for name, fn in kinds.items():
+        t0 = time.perf_counter()
+        for _ in range(DIST_REPS):
+            fn()
+        torch.cuda.synchronize()
+        wall[name] = (time.perf_counter() - t0) * 1e3 / DIST_REPS
+        tracer = telemetry.enable(capacity=1 << 16)
+        try:
+            for _ in range(DIST_REPS):
+                fn()
+            spans = tracer.drain()
+        finally:
+            telemetry.disable()
+        stages[name] = _stage_ms(spans, "distributed", DIST_STAGES, DIST_REPS)
+
+    def host(x):
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+
+    b = dt.bounds()
+    return {
+        "launches": launches, "build_ms": build_ms, "wall": wall,
+        "stages": stages, "bounds": (host(b.lo), host(b.hi)),
+        "knn": tuple(map(host, (got["knn"].distances, got["knn"].indices))),
+        "count": host(got["count"]),
+        "csr": (host(got["csr"].offsets), host(got["csr"].indices)),
+        "min_distance": host(got["min_distance"]),
+        "ray": tuple(map(host, (got["ray"].distances, got["ray"].indices))),
+        "ship": (host(got["ship"].offsets), host(got["ship"].indices),
+                 host(got["ship"].values.coords)),
+    }
+
+
+def _response_rows(resps):
+    """The arrays of a list of Responses, in order."""
+    return [(r.stats.route, r.stats.index_version, r.stats.cache_hit,
+             r.dists, r.idxs, r.counts, r.overflow) for r in resps]
+
+
+def _digest(rows):
+    import hashlib
+    h = hashlib.sha256()
+    for row in rows:
+        for x in row:
+            h.update(x.tobytes() if isinstance(x, np.ndarray)
+                     else repr(x).encode())
+    return h.hexdigest()
+
+
+def _rank_sharded(dev, rank, ranks):
+    """One rank's [sharded] work: a ShardedIndexStore behind a QueryServer
+    over its blocks of "cloud" and "scene", warmed as [serve] warms, then
+    [serve]'s 1,000 requests with telemetry off (the rate; the counters
+    zeroed just before and read just after) and again with telemetry on
+    (every stage fenced, for the split); then a drifted update and a
+    scrambled one."""
+    import torch
+    from repro_torch import telemetry
+    from repro_torch.core import geometry as G
+    from repro_torch.service import (QueryServer, ServiceConfig,
+                                     ShardedIndexStore, knn_request,
+                                     ray_request, within_request)
+    pts = make_data(dev)[0]
+    a, b, c, _, _ = make_soup(dev)
+    nl = N // ranks
+    blk = slice(rank * nl, (rank + 1) * nl)
+    srv = QueryServer(store=ShardedIndexStore(None), config=ServiceConfig(
+        capacity=SERVE_CAPACITY, min_bucket=SERVE_MIN_BUCKET,
+        max_bucket=SERVE_MAX_BUCKET))
+    v_cloud = srv.create_index("cloud", G.Points(pts[blk]))
+    srv.create_index("scene", G.Triangles(a[blk], b[blk], c[blk]))
+    t0 = time.perf_counter()
+    bkt = SERVE_MIN_BUCKET
+    while bkt <= SERVE_MAX_BUCKET:
+        z = np.zeros((bkt, 3), np.float32)
+        srv.handle([within_request(z, RADIUS, "cloud"),
+                    knn_request(z, K, "cloud")]
+                   + [ray_request(z, np.ones((bkt, 3), np.float32), k,
+                                  "scene") for k in SERVE_RAY_KS])
+        bkt *= 2
+    warm_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 41)          # [serve]'s draw
+    calls = []
+    for _ in range(SERVE_REQUESTS // SERVE_PER_CALL):
+        reqs = []
+        for _ in range(SERVE_PER_CALL):
+            kind, k = _serve_draw(rng)
+            reqs.append(_serve_request(
+                rng, kind, int(rng.integers(1, SERVE_MAX_ROWS + 1)), k))
+        calls.append(reqs)
+    # the rate from a pass with telemetry off (nothing fenced), the
+    # counters zeroed just before and read just after
+    counters = _dist_counters()
+    torch.cuda.synchronize()
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    served = [srv.handle(reqs) for reqs in calls]
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    # the per-stage split from a second pass with telemetry on
+    tracer = telemetry.enable(capacity=1 << 18)
+    try:
+        t0 = time.perf_counter()
+        fenced = [srv.handle(reqs) for reqs in calls]
+        torch.cuda.synchronize()
+        fenced_s = time.perf_counter() - t0
+        spans = tracer.drain()
+    finally:
+        telemetry.disable()
+    groups = {}
+    for sp in spans:
+        if sp.name == "sharded.execute_group":
+            groups[sp.args["kind"]] = groups.get(sp.args["kind"], 0) + 1
+    stages = {}
+    for kind, n in groups.items():
+        mine = [sp for sp in spans if sp.args.get("kind") == kind]
+        stages[kind] = _stage_ms(mine, "sharded", SHARD_STAGES + (
+            "execute_group",), n)
+        stages[kind]["assemble"] = sum(
+            sp.dur_ns for sp in mine if sp.name == "server.assemble") / 1e6 / n
+    rows = [_response_rows(resps) for resps in served]
+    check(_digest([r for call in rows for r in call]) == _digest(
+        [r for resps in fenced for r in _response_rows(resps)]),
+          f"[sharded] rank {rank}: the fenced pass answered differently")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+    drift = pts + SERVE_MOVE_SIGMA * torch.randn(pts.shape, generator=gen,
+                                                 device=dev)
+    scrambled = pts[torch.randperm(N, generator=gen, device=dev)]
+    t0 = time.perf_counter()
+    v_drift = srv.update_index("cloud", G.Points(drift[blk]))
+    refit_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    v_scr = srv.update_index("cloud", G.Points(scrambled[blk]))
+    rebuild_ms = (time.perf_counter() - t0) * 1e3
+    (after,) = srv.handle([knn_request(np.asarray(
+        drift[:4].cpu(), np.float32), K, "cloud")])
+    return {
+        "warm_s": warm_s, "load_s": load_s, "fenced_s": fenced_s,
+        "launches": launches,
+        "groups": groups, "stages": stages, "digest": _digest(
+            [r for call in rows for r in call]),
+        "rows": rows if rank == 0 else None,
+        "cold": sum(not r.stats.cache_hit for rs in served for r in rs),
+        "updates": [(v.version, v.action, v.sah, v.sah_built)
+                    for v in (v_cloud, v_drift, v_scr)],
+        "after_version": after.stats.index_version,
+        "refit_ms": refit_ms, "rebuild_ms": rebuild_ms,
+    }
+
+
+def rank_main(argv):
+    """One rank of a world that phase_distributed starts: ``--rank r
+    --ranks R --backend gloo|nccl --store FILE --out DIR --role
+    distributed|nccl``. Joins the group, runs its part on the card and
+    saves its results to DIR/rank<r>.pt."""
+    import argparse
+    import datetime
+    import torch
+    import torch.distributed as dist
+    p = argparse.ArgumentParser()
+    for flag in ("--rank", "--ranks"):
+        p.add_argument(flag, type=int, required=True)
+    for flag in ("--backend", "--store", "--out", "--role"):
+        p.add_argument(flag, required=True)
+    args = p.parse_args(argv)
+    check(torch.cuda.is_available(), "a rank found no CUDA device")
+    torch.cuda.set_device(0)
+    torch.set_num_threads(1)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group(
+        args.backend, init_method="file://" + args.store, rank=args.rank,
+        world_size=args.ranks,
+        timeout=datetime.timedelta(seconds=DIST_GROUP_TIMEOUT_S))
+    restore = _twins_raise()
+    try:
+        out = {"backend": dist.get_backend()}
+        out.update(_rank_distributed(dev, args.rank, args.ranks))
+        if args.role == "distributed":
+            out["sharded"] = _rank_sharded(dev, args.rank, args.ranks)
+        torch.save(out, os.path.join(args.out, f"rank{args.rank}.pt"))
+    finally:
+        restore()
+        dist.destroy_process_group()
+    return 0
+
+
+def _world(role, backend, ranks, tmp):
+    """Run `ranks` fresh processes of this script, one rank each, in one
+    process group; every process is stopped on a failure or after
+    DIST_WORLD_TIMEOUT_S, and a failed rank fails the phase. Returns
+    (each rank's results, the world's wall seconds)."""
+    import torch
+    out = os.path.join(tmp, role)
+    os.makedirs(out)
+    store = os.path.join(tmp, f"{role}.store")
+    logs = [open(os.path.join(tmp, f"{role}{r}.log"), "w+")
+            for r in range(ranks)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+         "--ranks", str(ranks), "--backend", backend, "--store", store,
+         "--out", out, "--role", role], stdout=lg, stderr=subprocess.STDOUT)
+        for r, lg in enumerate(logs)]
+
+    def stop():
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+
+    atexit.register(stop)
+    failed = None
+    try:
+        while any(pr.poll() is None for pr in procs):
+            bad = [r for r, pr in enumerate(procs)
+                   if pr.poll() not in (None, 0)]
+            if bad:
+                failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+                break
+            if time.perf_counter() - t0 > DIST_WORLD_TIMEOUT_S:
+                failed = f"the world outlived {DIST_WORLD_TIMEOUT_S} s"
+                break
+            time.sleep(0.2)
+        if failed is None:
+            bad = [r for r, pr in enumerate(procs) if pr.returncode != 0]
+            if bad:
+                failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+    finally:
+        stop()
+        atexit.unregister(stop)
+    texts = []
+    for lg in logs:
+        lg.seek(0)
+        texts.append(lg.read())
+        lg.close()
+    if failed is not None:
+        fail(f"[{role}] {failed}:\n" + "\n".join(
+            f"--- rank {r}\n{t[-4000:]}" for r, t in enumerate(texts)))
+    return ([torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(ranks)], time.perf_counter() - t0)
+
+
+def _tie_rows(d, gi, wi):
+    """Rows whose indices differ from `wi` only where the distance ties a
+    neighbour in its row; fails on any other difference."""
+    import torch
+    diff = gi != wi
+    tie = torch.zeros_like(diff)
+    eq = d[:, 1:] == d[:, :-1]
+    tie[:, 1:] |= eq
+    tie[:, :-1] |= eq
+    check(not bool((diff & ~tie).any()),
+          f"{int((diff & ~tie).sum())} kNN indices differ beyond ties")
+    return int(diff.any(1).sum())
+
+
+def _cat_csr(parts):
+    """(offsets, indices) of the ranks' CSR blocks, in rank order."""
+    import torch
+    offs, at = [parts[0][0][:1]], 0
+    for off, _ in parts:
+        offs.append(off[1:] + at)
+        at += int(off[-1])
+    return torch.cat(offs), torch.cat([idx for _, idx in parts])
+
+
+def _same_csr_sets(off, idx, w_off, w_idx, n, label):
+    import torch
+    check(torch.equal(off, w_off), f"{label}: CSR offsets differ")
+    q = torch.repeat_interleave(torch.arange(len(off) - 1),
+                                (off[1:] - off[:-1]).long())
+    check(torch.equal(torch.sort(q * n + idx.long())[0],
+                      torch.sort(q * n + w_idx.long())[0]),
+          f"{label}: CSR index sets differ")
+
+
+def _same_response(got, want, label):
+    """A sharded response against the single-device server's: the same
+    version and overflow, counts equal and index sets equal where a row
+    fits the capacity; distances (t for rays) bit-identical and indices
+    equal except among ties. Returns 1 when tie swaps moved indices."""
+    import torch
+    route, version, hit, d, i, counts, over = got
+    check(route == "sharded", f"{label}: served on route {route}")
+    check(version == want.stats.index_version, f"{label}: version")
+    check(over == want.overflow, f"{label}: overflow flag")
+    if counts is not None:
+        check(np.array_equal(counts, want.counts), f"{label}: counts differ")
+        for row, c, w in zip(i, counts, want.idxs):
+            if c <= SERVE_CAPACITY:
+                check(np.array_equal(np.sort(row[:c]), np.sort(w[:c]))
+                      and (row[c:] == -1).all(),
+                      f"{label}: within index set differs")
+        return 0
+    check(np.array_equal(d.view(np.int32), want.dists.view(np.int32)),
+          f"{label}: distances differ")
+    return int(_tie_rows(torch.from_numpy(d), torch.from_numpy(i),
+                         torch.from_numpy(want.idxs)) > 0)
+
+
+def phase_distributed(dev, pts, box_lo, box_hi, qc, serve_calls, serve_resps,
+                      card):
+    """[distributed] and [sharded] in one world of DIST_RANKS gloo ranks
+    on the one card, then [distributed]'s queries again in an NCCL world
+    of one rank; every result held against one port BVH over all 2^20
+    points (or boxes) on the card, and [sharded]'s responses against
+    [serve]'s single-device QueryServer. Each rank's launches are checked
+    and logged here; none goes into the kernels line."""
+    import tempfile
+    import torch
+    import repro_torch as rt
+    from repro_torch.core import callbacks as CB
+    from repro_torch.core import geometry as G
+    from repro_torch.core import predicates as P
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        gloo, gloo_s = _world("distributed", "gloo", DIST_RANKS, tmp)
+        nccl, nccl_s = _world("nccl", "nccl", 1, tmp)
+    check([r["backend"] for r in gloo] == ["gloo"] * DIST_RANKS
+          and nccl[0]["backend"] == "nccl", "a world ran on another backend")
+
+    # the single BVH over all the points (and boxes), on the card, held
+    # to the kernel route, which the ranks' local steps take
+    pol = rt.ExecutionPolicy(engine=rt.QueryEngine(rt.EngineConfig(
+        force="kernel")))
+    bvh = rt.BVH(G.Points(pts), policy=pol)
+    bvb = rt.BVH(G.Boxes(box_lo, box_hi), policy=pol)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    ro = torch.rand((DIST_RAYS, 3), generator=gen, device=dev)
+    rd = torch.randn((DIST_RAYS, 3), generator=gen, device=dev)
+    sph = P.intersects(G.Spheres(qc, torch.full((Q,), RADIUS, device=dev)))
+    w_knn = bvh.query(P.nearest(G.Points(qc), k=K))
+    w_csr = bvh.query(sph)
+    want = {
+        "knn": (w_knn.distances.cpu(), w_knn.indices.cpu()),
+        "count": bvh.count(sph).cpu(),
+        "csr": (w_csr.offsets.cpu(), w_csr.indices.cpu()),
+        "min_distance": bvh.query(sph, callback=CB.min_distance()).cpu(),
+    }
+    w_ray = bvb.query(P.RayNearest(G.Rays(ro, rd), DIST_RAY_K))
+    want["ray"] = (w_ray.distances.cpu(), w_ray.indices.cpu())
+    pts_h = pts.cpu()
+
+    def held(res, label, exact):
+        """The world's results (`res`, its ranks' blocks in order) against
+        the single BVH; returns the kNN and ray rows with tie swaps."""
+        d = torch.cat([r["knn"][0] for r in res])
+        i = torch.cat([r["knn"][1] for r in res])
+        check(torch.equal(d.view(torch.int32), want["knn"][0].view(
+            torch.int32)), f"{label}: kNN distances differ")
+        ties = {"knn": _tie_rows(d, i, want["knn"][1])}
+        for key in ("count", "min_distance"):
+            got = torch.cat([r[key] for r in res])
+            check(torch.equal(got.view(torch.int32),
+                              want[key].view(torch.int32)),
+                  f"{label}: {key} states differ")
+        off, idx = _cat_csr([r["csr"] for r in res])
+        _same_csr_sets(off, idx, *want["csr"], N, f"{label} CSR")
+        t = torch.cat([r["ray"][0] for r in res])
+        ri = torch.cat([r["ray"][1] for r in res])
+        check(torch.equal(t.view(torch.int32), want["ray"][0].view(
+            torch.int32)), f"{label}: ray t differ")
+        ties["ray"] = _tie_rows(t, ri, want["ray"][1])
+        ql = Q // len(res)          # each rank ships its block's first rows
+        ship_rows = torch.cat([torch.arange(r * ql, r * ql + DIST_SHIP
+                                            // len(res))
+                               for r in range(len(res))])
+        s_off, s_idx = _cat_csr([r["ship"][:2] for r in res])
+        s_val = torch.cat([r["ship"][2] for r in res])
+        w_off = torch.cat([torch.zeros(1, dtype=torch.int32), torch.cumsum(
+            want["count"][ship_rows], 0).to(torch.int32)])
+        check(torch.equal(s_off, w_off), f"{label}: ship offsets differ")
+        check(torch.equal(s_val.view(torch.int32),
+                          pts_h[s_idx.long()].view(torch.int32)),
+              f"{label}: shipped values are not the matched points")
+        w_off_all, w_idx_all = want["csr"]
+        w_sub = torch.cat([w_idx_all[w_off_all[q]:w_off_all[q + 1]]
+                           for q in ship_rows.tolist()])
+        _same_csr_sets(s_off, s_idx, w_off, w_sub, N, f"{label} ship")
+        if exact:
+            check(torch.equal(i, want["knn"][1])
+                  and torch.equal(ri, want["ray"][1]),
+                  f"{label}: kNN or ray indices differ from the single BVH")
+        return ties
+
+    ties = held(gloo, f"[distributed] {DIST_LABEL}", exact=False)
+    held(nccl, "[distributed] NCCL, one rank", exact=True)
+    for r, res in enumerate(gloo):
+        for k in DIST_KERNELS:
+            check(res["launches"][k] > 0,
+                  f"[distributed] rank {r}: {k} was not launched")
+    for r, res in enumerate(gloo):
+        log(f"[distributed] rank {r} launches (counts zeroed just before "
+            f"its builds and six queries, read just after): "
+            f"{json.dumps(res['launches'])}")
+    log(f"[distributed] {DIST_RANKS} ranks x {N // DIST_RANKS} points (and "
+        f"boxes of side {BOX_SIDE}) a rank, Q = {Q} ({Q // DIST_RANKS} a "
+        f"rank): kNN k={K}, count / CSR / min_distance (combine="
+        f"torch.minimum) of spheres r={RADIUS}, RayNearest k={DIST_RAY_K} "
+        f"over {DIST_RAYS} rays and the boxes, ship_values over {DIST_SHIP} "
+        f"queries; all equal to one BVH over the {N} points (boxes) on the "
+        f"card: counts and states bit-identical, CSR sets equal, kNN and "
+        f"ray distances bit-identical, indices apart only among ties in "
+        f"{ties['knn']} kNN rows and {ties['ray']} ray rows, the shipped "
+        f"values the matched points; the NCCL world (one rank, device "
+        f"tensors) identical, indices included; worlds {gloo_s:.1f} s "
+        f"(gloo) and {nccl_s:.1f} s (NCCL), start to exit  [{card}]")
+    for label, res in ((DIST_LABEL, gloo[0]), ("NCCL, one rank", nccl[0])):
+        log(f"[distributed] {label}: build of the local trees "
+            f"{res['build_ms']:.1f} ms (rank 0); ms per call (wall clock, "
+            f"rank 0, mean of {DIST_REPS}) and, with telemetry on, per "
+            f"stage: " + "; ".join(
+                f"{k} {res['wall'][k]:.2f} (" + ", ".join(
+                    f"{st} {ms:.2f}" for st, ms in res["stages"][k].items())
+                + ")" for k in res["wall"]) + f"  [{card}]")
+
+    # [sharded]
+    shard = [r["sharded"] for r in gloo]
+    check(len({s["digest"] for s in shard}) == 1,
+          "[sharded] the ranks' responses differ")
+    rows = shard[0]["rows"]
+    swaps = n_req = 0
+    for reqs, resps, got in zip(serve_calls, serve_resps, rows):
+        for req, want_r, got_r in zip(reqs, resps, got):
+            swaps += _same_response(got_r, want_r,
+                                    f"[sharded] {req.kind} m={req.m}")
+            n_req += 1
+    for r, s in enumerate(shard):
+        check(s["cold"] == 0, f"[sharded] rank {r}: a cold plan after the "
+              "warm-up")
+        for k in ("bvh_traverse_knn", "bvh_traverse_callback",
+                  "bvh_traverse_ray_knn"):
+            check(s["launches"][k] > 0, f"[sharded] rank {r}: {k} was not "
+                  "launched")
+        check(all(s["launches"][k] == 0 for k in
+                  ("morton64", "karras_ranges", "lbvh_tail")),
+              f"[sharded] rank {r}: serving launched a build kernel")
+        acts = [(v, a) for v, a, _, _ in s["updates"]]
+        check(acts == [(1, "build"), (2, "refit"), (3, "rebuild")]
+              and s["after_version"] == 3,
+              f"[sharded] rank {r}: versions and actions {acts}")
+    s0 = shard[0]
+    log(f"[sharded] ShardedIndexStore + QueryServer, {DIST_LABEL}: \"cloud\" "
+        f"and \"scene\" of {N} points / triangles ({N // DIST_RANKS} a "
+        f"rank); warm-up of buckets {SERVE_MIN_BUCKET}-{SERVE_MAX_BUCKET} "
+        f"{s0['warm_s']:.2f} s; [serve]'s {n_req} mixed requests in "
+        f"{len(rows)} handle() calls, {s0['load_s']:.3f} s "
+        f"({n_req / s0['load_s']:.0f} requests/s, telemetry off; "
+        f"{s0['fenced_s']:.3f} s with telemetry on, every stage fenced), "
+        f"identical on every rank, all warm, each equal to the "
+        f"single-device QueryServer's response (ties swapped indices in "
+        f"{swaps}); groups {json.dumps(s0['groups'])}; rank 0 launches "
+        f"{json.dumps(s0['launches'])}  [{card}]")
+    for kind, st in s0["stages"].items():
+        log(f"[sharded] {kind}: ms per group (rank 0, fenced spans): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+            + f"  [{DIST_LABEL}; {card}]")
+    log(f"[sharded] updates on every rank: a drift of N(0, "
+        f"{SERVE_MOVE_SIGMA}^2) refit {s0['refit_ms']:.1f} ms (per-rank SAH "
+        + ", ".join(f"{x:.4f}" for x in s0["updates"][1][2])
+        + f"), a scrambled cloud rebuilt {s0['rebuild_ms']:.1f} ms; "
+        f"versions 1 build, 2 refit, 3 rebuild  [{card}]")
+    log(f"[distributed] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     name, count, card = phase_device()
     import torch
@@ -4043,7 +4636,7 @@ def main():
         ray_launches["bvh_traverse_callback"]
     records["ray_box_nearest"] = box_record
     launches["ray_box_nearest"] = ray_launches["ray_box_nearest"]
-    phase_serve(dev, pts, card)
+    serve_calls, serve_resps = phase_serve(dev, pts, card)
     emst_launches, records["bvh_traverse_knn_exclude"] = phase_emst(
         dev, pts, card)
     launches["bvh_traverse_knn_exclude"] = \
@@ -4061,6 +4654,11 @@ def main():
     records["flash_attention"] = phase_flash(dev, card)
     launches.update(phase_lm(dev, card))
     records["bvh_traverse_fine_knn"] = phase_geometry_twins(geo_twins, card)
+    # last, with the host's cores free of the twins' workers: the gloo
+    # ranks stage their collectives through host memory. Their launches
+    # stay on the phase's own lines, checked per rank, as [serve]'s do.
+    phase_distributed(dev, pts, box_lo, box_hi, qc, serve_calls, serve_resps,
+                      card)
     kernels = []
     for kname in ("karras_ranges", "lbvh_tail", "bvh_traverse_spatial",
                   "bvh_traverse_knn", "bvh_traverse_knn_exclude",
@@ -4091,4 +4689,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if "--rank" in sys.argv:
+        sys.exit(rank_main(sys.argv[1:]))
     sys.exit(main())

@@ -33,6 +33,8 @@ here once:
     _knn_impl(preds, policy)             -> (dists, idxs) (Q, k)
     _csr_exact(preds, policy)            -> QueryResult | None (one pass)
     _collect_with_t(preds, cap, policy)  -> (counts, idxs, ts)
+    _gather_values(flat_idx, policy)     -> values container | None
+    _most(counts)                        -> the largest count, as an int
 """
 from __future__ import annotations
 
@@ -100,13 +102,24 @@ class ExecutionPolicy:
     capacity:      default CSR width per query; None -> exact two-pass
                    sizing (count, then fill).
     max_doublings: capacity-doubling fill retries before ``overflow``.
+    combine:       distributed only: the monoid folding the ranks' callback
+                   states, in rank order (None -> their elementwise sum,
+                   right for zero-initialized arithmetic states).
+                   Single-process indexes ignore it.
     route_table:   a RouteTable overriding the engine's thresholds.
+    ship_values:   distributed only: ship the MATCHED values to the rank
+                   that asked, so ``QueryResult.values`` is filled (the
+                   attach-data case). Off by default: callbacks reduce on
+                   the rank that owns the data, and values stay there.
+                   Single-process indexes always gather locally.
     """
     engine: Any = None
     device: Any = None
     capacity: int | None = None
     max_doublings: int = 6
+    combine: Any = None
     route_table: Any = None
+    ship_values: bool = False
 
     def resolve_engine(self):
         if self.engine is not None:
@@ -216,7 +229,6 @@ class Index:
         return QueryResult(values=vals, indices=i, distances=d)
 
     def _query_csr(self, predicates, pol) -> QueryResult:
-        nq = len(predicates)
         overflow = False
         cap = pol.capacity
         if cap is None:
@@ -224,12 +236,12 @@ class Index:
             if exact is not None:
                 return exact
             counts = self._count_impl(predicates, pol)
-            cap = max(int(counts.max()), 1) if nq else 1
+            cap = max(self._most(counts), 1)
             counts, buf = self._fill_impl(predicates, cap, pol)
         else:
             counts, buf = self._fill_impl(predicates, cap, pol)
             # counts are FULL counts, so one host sync decides the retry
-            needed = int(counts.max()) if nq else 0
+            needed = self._most(counts)
             if needed > cap:
                 retry = cap
                 for _ in range(pol.max_doublings):
@@ -253,11 +265,9 @@ class Index:
         """Every ray hit ordered by t within each ray: a ``collect_hits``
         pass, then a stable per-row sort by t (invalid slots hold inf, so
         they sort past the valid segment), then a CSR pack."""
-        nq = len(predicates)
         cap = pol.capacity
         if cap is None:
-            cap = max(int(self._count_impl(predicates, pol).max()), 1) \
-                if nq else 1
+            cap = max(self._most(self._count_impl(predicates, pol)), 1)
         count, idxs, ts = self._collect_with_t(predicates, cap, pol)
         count = torch.clamp_max(count, cap)
         ts_s, order = torch.sort(ts, dim=1, stable=True)
@@ -304,6 +314,12 @@ class Index:
 
     def _gather_values(self, flat_idx, pol=None):
         return value_at(self.values, flat_idx.to(torch.int64))
+
+    def _most(self, counts) -> int:
+        """The largest of the (Q,) counts (0 for Q = 0), which sizes the
+        CSR buffer and decides the doubling retry; a distributed index
+        takes it over every rank's queries, so all ranks decide alike."""
+        return int(counts.max()) if counts.numel() else 0
 
 
 def _reshape_values(vals, lead):

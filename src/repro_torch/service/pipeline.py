@@ -56,6 +56,12 @@ where est_service is an exponentially weighted average of measured batch
 service times per (group key, bucket). Requests without a deadline ride
 with whoever closes the bucket, capped by ``max_linger_us`` so an idle
 trickle still flows.
+
+A ``ShardedIndexStore`` is served at a world of one rank only. At more
+ranks the constructor raises: every rank's scheduler would batch by its
+own arrival times, so the ranks would form different groups and their
+collectives would not line up (a leader that forms the groups and
+followers that run them is a later item of ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -300,6 +306,13 @@ class ServingPipeline:
             self.store = IndexStore(
                 self.engine, rebuild_threshold=svc.rebuild_threshold,
                 device=device)
+        if getattr(self.store, "ranks", 1) > 1:
+            raise NotImplementedError(
+                "ServingPipeline serves a ShardedIndexStore of one rank only "
+                f"(this one spans {self.store.ranks}): each rank's scheduler "
+                "batches by its own arrival times, so the ranks' groups and "
+                "collectives would not line up; use QueryServer.handle with "
+                "the same requests on every rank")
         self.batcher = Batcher(svc.min_bucket)
         dev = self.store.device
         #: the maintenance thread's own stream on the card (None on the CPU)

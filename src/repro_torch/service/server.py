@@ -113,9 +113,10 @@ def execute_group(engine: E.QueryEngine, config: ServiceConfig,
     ``QueryServer.handle`` and the async ``ServingPipeline`` — the caller
     owns version pinning and any timing bookkeeping."""
     if getattr(entry, "sharded", False):
-        raise NotImplementedError(
-            "sharded index versions are not served by the port yet "
-            "(ROADMAP Queue 1 item 6: service/sharded.py)")
+        # a sharded version carries its group's ShardedExecutor: the
+        # collective stages replace the engine's executable cache (duck
+        # typed, so this module never imports service.sharded)
+        return entry.executor.execute_group(config, entry, group)
     bvh = entry.bvh
     with TEL.span("server.execute_group", kind=group.kind,
                   bucket=group.bucket, index=entry.name,

@@ -1371,3 +1371,77 @@ def test_geometry_paths_on_the_card_never_call_the_twins(cuda_device,
         torch.cuda.synchronize()
         assert res.offsets.shape == (257,)
         assert bool(torch.isfinite(knn.distances).all())
+
+
+# ---------------------------------------------------------------------------
+# distributed search: DistributedTree and the sharded serving stack
+# ---------------------------------------------------------------------------
+
+DISTRIBUTED_MODULES = tuple(importlib.import_module(f"repro_torch.{m}")
+                            for m in ("core.comm", "core.distributed",
+                                      "service.sharded"))
+
+
+def test_distributed_modules_are_scanned_for_imports():
+    files = {os.path.realpath(p) for p in _port_files()}
+    for mod in DISTRIBUTED_MODULES:
+        assert os.path.realpath(mod.__file__) in files, mod
+
+
+def test_distributed_runs_with_jax_blocked():
+    """A 2-rank gloo world: DistributedTree and a ShardedIndexStore behind
+    a QueryServer answer with JAX and the JAX package blocked; on the CPU
+    the default device raises on every rank, as on one process."""
+    from test_torch_parity import run_world
+    code = (
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch as rt\n"
+        "from repro_torch.service import QueryServer, ShardedIndexStore, knn_request\n"
+        "pts = np.random.default_rng(0).uniform(0, 1, (200, 3)).astype(np.float32)\n"
+        "mine = pts[RANK * 100:(RANK + 1) * 100]\n"
+        "pol = rt.ExecutionPolicy(device='cpu')\n"
+        "dt = rt.DistributedTree(None, mine, policy=pol)\n"
+        "res = dt.query(rt.nearest(rt.Points(torch.from_numpy(mine[:4])), k=1))\n"
+        "assert (res.indices[:, 0] == torch.arange(4) + 100 * RANK).all()\n"
+        "srv = QueryServer(store=ShardedIndexStore(None, device='cpu'))\n"
+        "srv.create_index('default', mine)\n"
+        "(r,) = srv.handle([knn_request(pts[[7, 150]], 1)])\n"
+        "assert r.idxs[:, 0].tolist() == [7, 150] and r.stats.route == 'sharded'\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "for make in (lambda: rt.DistributedTree(None, mine),\n"
+        "             lambda: ShardedIndexStore(None)):\n"
+        "    try:\n"
+        "        make()\n"
+        "        raise SystemExit('no raise')\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'CUDA' in str(e)\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules\n"
+        "               if sys.modules[m] is not None)\n"
+        "print('ok')\n")
+    outs = run_world(code, 2, timeout=120)
+    assert [o.strip() for o in outs] == ["ok", "ok"]
+
+
+def test_an_nccl_group_refuses_an_index_off_the_card(monkeypatch):
+    from repro_torch.core import comm
+    monkeypatch.setattr(comm, "is_nccl", lambda group: True)
+    with pytest.raises(ValueError, match="NCCL"):
+        comm.check_device(None, torch.device("cpu"))
+    comm.check_device(None, torch.device("cuda", 0))
+    with pytest.raises(ValueError, match="NCCL"):
+        comm._wire(None, torch.zeros(2))
+
+
+def test_comm_tree_map_keeps_non_tensors_and_shared_directions():
+    from repro_torch.core import comm
+    dirs = TG.kdop_directions(3, 14)
+    k = TG.KDOPs(torch.zeros((4, 7)), torch.ones((4, 7)), dirs)
+    pred = TP.nearest(k, k=3, data={"w": torch.arange(4)})
+    got = comm.tree_map(lambda t: t[:2], pred)
+    assert got.k == 3 and got.geom.directions is dirs
+    assert got.geom.lo.shape == (2, 7) and got.data["w"].tolist() == [0, 1]
+    rows = torch.arange(12.0).reshape(3, 4)
+    assert comm.fold(rows, torch.add).tolist() == rows.sum(0).tolist()
+    assert comm.fold((rows, rows), lambda a, b: (a[0] - b[0], a[1] * b[1])
+                     )[0].tolist() == (rows[0] - rows[1] - rows[2]).tolist()

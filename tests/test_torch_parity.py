@@ -10,6 +10,13 @@ fp ties (kNN).
 """
 from __future__ import annotations
 
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -58,6 +65,111 @@ def geoms(kind: str, arrays):
     jcls = {"points": JG.Points, "boxes": JG.Boxes, "spheres": JG.Spheres}[kind]
     return (jcls(*(jnp.asarray(a) for a in arrays)),
             convert.geometry_from_numpy(kind, arrays, CPU))
+
+
+#: what every rank of a ``run_world`` world runs before its code: one
+#: thread, a gloo group over a file store, RANK / RANKS / OUT, and
+#: ``save(**arrays)`` writing OUT/rank<RANK>.npz
+WORLD_PRELUDE = """
+import datetime, os, sys
+import numpy as np, torch, torch.distributed as dist
+torch.set_num_threads(1)
+RANK, RANKS = int(os.environ["REPRO_RANK"]), int(os.environ["REPRO_RANKS"])
+OUT = os.environ["REPRO_OUT"]
+dist.init_process_group(
+    "gloo", init_method="file://" + os.environ["REPRO_STORE"], rank=RANK,
+    world_size=RANKS, timeout=datetime.timedelta(seconds=60))
+
+def save(**arrays):
+    np.savez(os.path.join(OUT, f"rank{RANK}.npz"), **arrays)
+"""
+
+
+def run_world(code: str, ranks: int, timeout: float = 120.0,
+              out: str | None = None, env: dict | None = None) -> list[str]:
+    """Run `code` in `ranks` fresh processes joined in one gloo group over
+    a file store (the port's counterpart of ``conftest.run_subprocess``
+    with fake host devices); every rank runs ``WORLD_PRELUDE`` first.
+    Results go to `out` (a directory: OUT/rank<r>.npz through ``save``;
+    by default a fresh one, kept, else the work directory is removed).
+    Returns each rank's stdout; raises AssertionError when a rank fails or
+    the world outlives `timeout` (every process is killed then)."""
+    work = tempfile.mkdtemp(prefix="world-")
+    out = out or work
+    base = dict(os.environ, **(env or {}))
+    base["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "src")]
+        + [p for p in [os.environ.get("PYTHONPATH")] if p])
+    base.update(REPRO_RANKS=str(ranks), REPRO_OUT=out,
+                REPRO_STORE=os.path.join(work, "store"))
+    logs = [(open(os.path.join(work, f"out{r}"), "w+"),
+             open(os.path.join(work, f"err{r}"), "w+")) for r in range(ranks)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", WORLD_PRELUDE + code],
+        env=dict(base, REPRO_RANK=str(r)), stdout=so, stderr=se, text=True)
+        for r, (so, se) in enumerate(logs)]
+    deadline = time.monotonic() + timeout
+    failed = []
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        failed.append(f"the world outlived {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for r, (p, (so, se)) in enumerate(zip(procs, logs)):
+        so.seek(0)
+        se.seek(0)
+        outs.append(so.read())
+        if p.returncode != 0:
+            failed.append(f"rank {r} exited {p.returncode}:\n{se.read()}")
+        so.close()
+        se.close()
+    if out != work:
+        shutil.rmtree(work, ignore_errors=True)
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return outs
+
+
+def world_results(out: str, ranks: int) -> list[dict]:
+    """Each rank's saved arrays."""
+    parts = []
+    for r in range(ranks):
+        with np.load(os.path.join(out, f"rank{r}.npz")) as z:
+            parts.append({k: z[k] for k in z.files})
+    return parts
+
+
+def merge_ranks(parts: list[dict]) -> dict:
+    """The ranks' saved results as one global result: per-query arrays
+    concatenated in rank order, CSR pairs (``*_off`` with ``*_idx`` /
+    ``*_val``) with their offsets shifted, and replicated keys
+    (``rep_*``, ``err_*``) checked equal on every rank; ``rank_*`` keys
+    (each rank's own) stacked."""
+    out = {}
+    for key in parts[0]:
+        vals = [p[key] for p in parts]
+        if key.startswith("rank_"):
+            out[key] = np.stack(vals)
+        elif key.startswith(("rep_", "err_")):
+            for v in vals[1:]:
+                np.testing.assert_array_equal(v, vals[0], err_msg=key)
+            out[key] = vals[0]
+        elif key.endswith("_off"):
+            offs, at = [np.zeros(1, np.int32)], 0
+            for v in vals:
+                offs.append(v[1:] + at)
+                at += int(v[-1])
+            out[key] = np.concatenate(offs)
+        else:
+            out[key] = np.concatenate(vals)
+    return out
 
 
 def np_of(x) -> np.ndarray:
@@ -116,3 +228,29 @@ def test_csr_comparator_checks_offsets_and_sets():
         assert_csr_equal_sets(off, np.array([5, 1, 2]),
                               np.array([0, 1, 3], np.int32),
                               np.array([5, 1, 2]))
+
+
+def test_merge_ranks_shifts_csr_and_checks_replicas():
+    parts = [{"a_off": np.array([0, 2, 3], np.int32), "a_idx": np.arange(3),
+              "d": np.array([1.0, 2.0]), "rep_x": np.array(7),
+              "rank_p": np.array([r, r])} for r in range(2)]
+    got = merge_ranks(parts)
+    np.testing.assert_array_equal(got["a_off"], [0, 2, 3, 5, 6])
+    np.testing.assert_array_equal(got["a_idx"], [0, 1, 2, 0, 1, 2])
+    np.testing.assert_array_equal(got["d"], [1.0, 2.0, 1.0, 2.0])
+    np.testing.assert_array_equal(got["rank_p"], [[0, 0], [1, 1]])
+    assert got["rep_x"] == 7
+    parts[1]["rep_x"] = np.array(8)
+    with pytest.raises(AssertionError):
+        merge_ranks(parts)
+
+
+def test_run_world_fails_when_a_rank_fails(tmp_path):
+    code = ("t = torch.tensor([RANK])\n"
+            "dist.all_reduce(t)\n"
+            "assert RANK == 0, 'rank %d fails' % RANK\n"
+            "save(t=t.numpy())\n")
+    with pytest.raises(AssertionError, match="rank 1 fails"):
+        run_world(code, 2, timeout=60, out=str(tmp_path))
+    assert os.listdir(tmp_path) == ["rank0.npz"]
+    assert world_results(str(tmp_path), 1)[0]["t"].tolist() == [1]

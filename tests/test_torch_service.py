@@ -521,10 +521,22 @@ def test_engine_config_force_rejects_unknown_routes():
 
 
 def test_sharded_versions_are_refused_by_name():
+    """A version flagged ``sharded`` is kept from the engine's cache by
+    that flag alone, as the reference's execute_group does: it goes to
+    the executor it carries (``service.sharded``)."""
+    calls = []
+
+    class Executor:
+        def execute_group(self, config, entry, group):
+            calls.append((config, entry, group))
+            return {0: "served"}
+
     @dataclasses.dataclass(frozen=True)
     class Sharded:
+        executor: object
         sharded: bool = True
 
     group = Batcher().plan([TS.knn_request(_pts(2, 72), k=1)])[0]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        TS.execute_group(QueryEngine(), TS.ServiceConfig(), Sharded(), group)
+    entry, cfg = Sharded(Executor()), TS.ServiceConfig()
+    assert TS.execute_group(QueryEngine(), cfg, entry, group) == {0: "served"}
+    assert calls == [(cfg, entry, group)]

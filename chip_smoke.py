@@ -296,6 +296,7 @@ Any failed check raises and the script exits nonzero without them.
 from __future__ import annotations
 
 import atexit
+import concurrent.futures
 import json
 import math
 import multiprocessing
@@ -446,7 +447,8 @@ def _ptxas_summary(text):
                            r"LeafBox|LeafSphere3|LeafTriangle3|LeafFlat)E.*?"
                            r"(LeafBox|LeafSphere3|LeafTriangle3|LeafFlat)?E?"
                            r"N3knn\d+(KeyList|KeyHeap)ILi(\d+)E", m.group(1))
-            fk = re.search(r"fine_knn_kernelINS_\d+(Records3|Flat)EN3knn\d+"
+            fk = re.search(r"(fine_nf_kernel|fine_rope_kernel)INS_\d+"
+                           r"(Records3|Flat)EN3knn\d+"
                            r"(KeyList|KeyHeap)ILi(\d+)E", m.group(1))
             rb3 = re.search(r"ray_box3_kernelILi(\d+)EE", m.group(1))
             rb = re.search(r"ray_box_kernel|ray_box_decode|lanes_generic|"
@@ -462,8 +464,8 @@ def _ptxas_summary(text):
                            r"ILi(\d+)E", m.group(1))
             bm = re.search(r"merge_kernelIN3knn\d+(KeyList|KeyHeap)ILi(\d+)E",
                            m.group(1))
-            fn = (f"fine_knn_kernel<{fk.group(1)}, {fk.group(2)} "
-                  f"{fk.group(3)}>" if fk
+            fn = (f"{fk.group(1)}<{fk.group(2)}, {fk.group(3)} "
+                  f"{fk.group(4)}>" if fk
                   else f"{mt.group(1)}<{mt.group(2) or mt.group(3)}"
                   f"{', ' + mt.group(4) if mt.group(4) else ''}>" if mt
                   else f"ray_knn_nf_kernel<{rn.group(1)} {rn.group(2)}>" if rn
@@ -3695,27 +3697,82 @@ GEO_FIELDS = {"Triangles": ("a", "b", "c"), "Segments": ("a", "b"),
               "Spheres": ("center", "radius")}
 
 
-def phase_geometry(dev, policy, card):
-    """Slice 14 end to end: BVH over the tetrahedral mesh, the triangle
-    soup, segments, k-DOPs and the ray phase's spheres, answering
-    intersects (point location, spheres, boxes) and nearest (k = 1, 10)
-    with the counters zeroed just before and read just after; then the
-    callback kernel against its twin on the first GEO_TWIN queries (bit
-    for bit), the results against float64 oracles on the first
-    GEO_ORACLE, and each query's time. Starts the fine kNN twin over the
-    first GEO_KNN_TWIN queries of every nearest query in worker processes
-    (phase_geometry_twins collects them). Returns (launches, callback
-    record, pending twin work)."""
+#: straddles of the fine kNN walk's certificate on the card: the
+#: anomalous triangles of straddle_set at 5 scales and in the 8 octants
+STRADDLE_SCALES = (-16, -8, 0, 8, 16)
+
+
+def straddle_set():
+    """(triangles (a, b, c), points) numpy float32 of the fine kNN walk's
+    straddles (tests/test_torch_fine_knn_walk.py's straddle_instances):
+    triangle A = (c, b, a), whose box's lo corner a lies just above the
+    point q, has a fine distance below its box key (the edges' fma(1,
+    a - x, x) round the vertex toward q), and the point a, as a
+    degenerate triangle, lies at that box key from q: a nearest-first
+    list keeps A where the rope walk may keep the point. A seeded search
+    in the walk's float order on the host; each instance scaled by 2^e
+    (e in STRADDLE_SCALES) and mirrored into an octant, which keep its
+    float behaviour (exact power-of-two scalings, sign flips)."""
     import torch
-    import repro_torch as rt
     from repro_torch.core import geometry as G
     from repro_torch.core import predicates as P
-    from repro_torch.core import traversal as TW
-    from repro_torch.core.index import _bcast_state
-    from repro_torch.kernels import bvh_callback as KC
-    from repro_torch.kernels import bvh_traverse as T
+    rng = np.random.default_rng(SEED + 41)
+    m = 512
+    a = rng.uniform(0.05, 0.1, (m, 3)).astype(np.float32)
+    b = (a + rng.uniform(0.2, 0.6, (m, 3))).astype(np.float32)
+    c = (a + rng.uniform(0.2, 0.6, (m, 3))).astype(np.float32)
+    q = (a - rng.uniform(0.0005, 0.02, (m, 3))).astype(np.float32)
+    t = [torch.from_numpy(x) for x in (a, b, c, q)]
+    pred = P.nearest(G.Points(t[3]), 1)
+    tri = G.Triangles(t[2], t[1], t[0])
+    box = G.to_boxes(tri)
+    keep = ((P.leaf_distance(pred, tri, "walk")
+             < P.node_min_distance(pred, box.lo, box.hi))
+            & (P.leaf_distance(pred, G.Triangles(t[0], t[0], t[0]), "walk")
+               == P.node_min_distance(pred, box.lo, box.hi))).numpy()
+    count = 8 * len(STRADDLE_SCALES)
+    check(int(keep.sum()) >= count, "straddle_set: too few anomalous "
+          "triangles in the search")
+    a, b, c, q = (x[keep][:count] for x in (a, b, c, q))
+    octant = np.arange(count) % 8
+    sign = np.stack([np.where(octant >> j & 1, -1.0, 1.0) for j in range(3)],
+                    1)
+    scale = np.ldexp(1.0, np.repeat(STRADDLE_SCALES, 8))[:, None] * sign
+    a, b, c, q = ((x * scale).astype(np.float32) for x in (a, b, c, q))
+    return (np.concatenate([c, a]), np.concatenate([b, a]),
+            np.concatenate([a, a])), q
 
-    t_phase = time.perf_counter()
+
+def _fine_variants():
+    """scripts/fine_knn_variants.py as a module (its counting build)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "fine_knn_variants", os.path.join(ROOT, "scripts",
+                                          "fine_knn_variants.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def start_counting_build():
+    """The fine kNN walk's counting build (node visits a query;
+    scripts/fine_knn_variants.py), one nvcc in a thread beside the
+    phases: (the variants module, a future of its library)."""
+    fv = _fine_variants()
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    counting = pool.submit(fv.build_counted,
+                           os.path.join(ROOT, "build", "fine_knn_counted"))
+    pool.shutdown(wait=False)
+    return fv, counting
+
+
+def geometry_scenes(dev):
+    """(soup, spheres, segments, points) of phase_geometry's nearest
+    queries: make_soup's 2^20 triangles, 2^20 spheres of radius
+    SPHERE_RADIUS (the ray phase's), 2^20 segments of length GEO_SEGMENT,
+    and Q uniform points in the unit cube, from the seed."""
+    import torch
+    from repro_torch.core import geometry as G
     a, b, c, _, _ = make_soup(dev)
     soup = G.Triangles(a, b, c)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -3726,6 +3783,34 @@ def phase_geometry(dev, policy, card):
     u = torch.randn((N, 3), generator=gen, device=dev)
     segs = G.Segments(sa, sa + GEO_SEGMENT * u / u.norm(dim=1, keepdim=True))
     pq = torch.rand((Q, 3), generator=gen, device=dev)
+    return soup, spheres, segs, pq
+
+
+def phase_geometry(dev, policy, card, counting=None):
+    """Slice 14 end to end: BVH over the tetrahedral mesh, the triangle
+    soup, segments, k-DOPs and the ray phase's spheres, answering
+    intersects (point location, spheres, boxes) and nearest (k = 1, 10)
+    with the counters zeroed just before and read just after; then the
+    callback kernel against its twin on the first GEO_TWIN queries (bit
+    for bit), the results against float64 oracles on the first
+    GEO_ORACLE, and each query's time. Starts the fine kNN twin over the
+    first GEO_KNN_TWIN queries of every nearest query in worker processes
+    (phase_geometry_twins collects them). `counting`: the started
+    counting build (start_counting_build), else it starts here. Returns
+    (launches, callback record, pending twin work)."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.core import geometry as G
+    from repro_torch.core import predicates as P
+    from repro_torch.core import traversal as TW
+    from repro_torch.core.index import _bcast_state
+    from repro_torch.kernels import bvh_callback as KC
+    from repro_torch.kernels import bvh_traverse as T
+
+    t_phase = time.perf_counter()
+    fv, counting = counting or start_counting_build()
+    soup, spheres, segs, pq = geometry_scenes(dev)
+    a, b, c = soup.a, soup.b, soup.c
     mesh = G.Tetrahedra(*kuhn_mesh(dev, GEO_CELLS))
     dirs = G.kdop_directions(3, 14, device=dev)
     support = torch.stack([a, b, c], 1) @ dirs.T
@@ -3763,9 +3848,13 @@ def phase_geometry(dev, policy, card):
     res, ms_once = {}, {}
     for kind, (_, pred) in queries.items():
         res[kind], ms_once[kind] = timed_once(lambda: idx[kind].query(pred))
+    flag_counts = {}
     for kind, k in knn_keys:
         res[kind, k], ms_once[kind, k] = timed_once(
             lambda: idx[kind].query(P.nearest(points, k)))
+        # the device count of the queries the rope walk re-walked, read
+        # after the path
+        flag_counts[kind, k] = T.bvh_traverse_fine_knn.flagged
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in counters.items()}
     batches = dict(engine.callback_batches)
@@ -3797,6 +3886,66 @@ def phase_geometry(dev, policy, card):
         f"{N} segments (length {GEO_SEGMENT}), {N} 14-DOPs (the soup's), {N} "
         f"spheres (the ray phase's); Q={Q}; launches {json.dumps(launches)}, "
         f"callback batches {json.dumps(batches)}, no loop walk")
+
+    # -- the fine kNN walk (nearest first, the certificate, the rope walk's
+    # re-walk of the flagged queries) against the rope walk alone on all Q
+    # queries of each nearest query, bit for bit; the two timed in turns
+    # (walk, rope, rope, walk); the node visits a query from the counting
+    # build of scripts/fine_knn_variants.py -------------------------------
+    counted = counting.result()
+    fine_ms, rope_ms = {}, {}
+    for kind, k in knn_keys:
+        index = idx[kind]
+        t_ = index.tree
+        args = (t_.node_lo, t_.node_hi, t_.rope, t_.left_child, t_.leaf_perm,
+                index.values, points)
+        kept = dict(k=k, records=t_.records,
+                    value_records=index.value_records)
+        rd, ri = T.bvh_traverse_fine_knn_rope(*args, **kept)
+        r = res[kind, k]
+        bad = ~((rd == r.distances) & (ri == r.indices)).all(1)
+        check(not bool(bad.any()), f"fine kNN {kind} k={k}: the main path "
+              f"differs from the rope walk on {int(bad.sum())} of {Q} "
+              "queries")
+        del rd, ri
+        walk = lambda: T.bvh_traverse_fine_knn(*args, **kept)
+        rope = lambda: T.bvh_traverse_fine_knn_rope(*args, **kept)
+        w1, r1 = time_ms(walk, reps=3), time_ms(rope, reps=2)
+        r2, w2 = time_ms(rope, reps=2), time_ms(walk, reps=3)
+        fine_ms[kind, k], rope_ms[kind, k] = (w1 + w2) / 2, (r1 + r2) / 2
+        visits, extra, ties = fv.counted_visits(counted, walk, Q)
+        log(f"[geometry] fine kNN {kind} k={k}: all {Q} queries identical to "
+            f"the rope walk (tolerance 0); "
+            f"{int(flag_counts[kind, k].item())} flagged and re-walked on the "
+            f"main path; {visits:.1f} node visits a query ({extra:.2f} more "
+            f"in the certificate and tie pass, {ties} queries took the tie "
+            f"pass); nearest first {w1:.3f} / {w2:.3f} ms, rope walk "
+            f"{r1:.3f} / {r2:.3f} ms ({rope_ms[kind, k] / fine_ms[kind, k]:.1f}"
+            f"x)  [{card}]")
+
+    # -- the straddles: flagged on the card, the lists the twin's ---------
+    (sa_, sb_, sc_), sq = straddle_set()
+    st = G.Triangles(*(torch.from_numpy(x).to(dev) for x in (sa_, sb_, sc_)))
+    sidx = rt.BVH(st, policy=policy)
+    stree = sidx.tree
+    sargs = (stree.node_lo, stree.node_hi, stree.rope, stree.left_child,
+             stree.leaf_perm, st, G.Points(torch.from_numpy(sq).to(dev)))
+    for k in (1, 4):
+        gd, gi = T.bvh_traverse_fine_knn(*sargs, k=k, records=stree.records,
+                                         value_records=sidx.value_records)
+        flagged = int(T.bvh_traverse_fine_knn.flagged.item())
+        wd, wi = T.bvh_traverse_fine_knn_ref(
+            *(x.cpu() for x in sargs[:5]), st.to("cpu"),
+            G.Points(torch.from_numpy(sq)), k=k)
+        check(torch.equal(gd.cpu(), wd) and torch.equal(gi.cpu(), wi),
+              f"fine kNN straddles k={k}: the kernel differs from the twin")
+        check(k > 1 or flagged >= 1, "fine kNN straddles: no query flagged")
+        log(f"[geometry] fine kNN straddles ({len(sq)} anomalous triangles "
+            f"and their near vertices, scales 2^{STRADDLE_SCALES}, 8 "
+            f"octants) k={k}: {flagged} of {len(sq)} queries flagged and "
+            f"re-walked on the card; the lists identical to the twin "
+            f"(tolerance 0)")
+    del sidx, st, stree, sargs
 
     # -- the fine kNN twin on the first GEO_KNN_TWIN queries of each
     # nearest query, over the main path's own indexes, on the host CPU in
@@ -3921,10 +4070,12 @@ def phase_geometry(dev, policy, card):
         f"({_registers('bvh_callback', 'shaped_kernel3<Collect<0>>')}), "
         f"callback_kernel3<Counting> "
         f"({_registers('bvh_callback', 'callback_kernel3<Counting>')}); "
-        f"fine_knn_kernel<Records3, KeyList 16> "
-        f"({_registers('fine_knn', 'fine_knn_kernel<Records3, KeyList 16>')}), "
+        f"fine_nf_kernel<Records3, KeyList 16> "
+        f"({_registers('fine_knn', 'fine_nf_kernel<Records3, KeyList 16>')}), "
         f"<Records3, KeyList 1> "
-        f"({_registers('fine_knn', 'fine_knn_kernel<Records3, KeyList 1>')})")
+        f"({_registers('fine_knn', 'fine_nf_kernel<Records3, KeyList 1>')}), "
+        f"fine_rope_kernel<Records3, KeyList 16> "
+        f"({_registers('fine_knn', 'fine_rope_kernel<Records3, KeyList 16>')})")
 
     # -- float64 oracles on the first GEO_ORACLE queries -------------------
     po = pq[:GEO_ORACLE]
@@ -3989,14 +4140,16 @@ def phase_geometry(dev, policy, card):
     # max_abs_err and plain_ms come from the twin (phase_geometry_twins)
     knn_record = dict(source="src/repro_torch/csrc/fine_knn.cu",
                       replaces="src/repro/core/bvh.py:215",
-                      ms=times["triangles", 10], bound_ms=knn_bound,
+                      ms=fine_ms["triangles", 10], bound_ms=knn_bound,
                       bound_by=knn_by)
     log(f"[geometry] kernels line: callback (shaped_kernel3<Counting>, "
         f"spheres over the soup) {cb_full:.3f} ms at Q={Q} ({pairs} matches; "
         f"bound {cb_bound:.4f} ms, {cb_by}; twin {twin_ms['triangles', 'counting']:.1f} "
         f"ms on the card over the first {GEO_TWIN} queries, a smaller shape); "
-        f"fine kNN (triangles k=10) {times['triangles', 10]:.3f} ms a query "
-        f"at Q={Q} (bound {knn_bound:.4f} ms, {knn_by}), "
+        f"fine kNN (triangles k=10) {fine_ms['triangles', 10]:.3f} ms a "
+        f"call at Q={Q} (the rope walk alone "
+        f"{rope_ms['triangles', 10]:.3f} ms; bound {knn_bound:.4f} ms, "
+        f"{knn_by}), "
         f"{kernel_sub_ms['triangles', 10]:.3f} ms on the first "
         f"{GEO_KNN_TWIN} queries, the twin's shape  [{card}]; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
@@ -4604,6 +4757,8 @@ def main():
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     phase_build()
+    # the counting build beside the phases before [geometry]
+    counting = start_counting_build()
     pts, box_lo, box_hi, qc = make_data(dev)
     records, _ = phase_kernels(dev, pts, box_lo, box_hi, qc)
     launches, _, spheres, knn, policy = phase_main_path(dev, pts, box_lo,
@@ -4615,7 +4770,7 @@ def main():
     # early, so that the fine kNN twin's host workers overlap the later
     # phases
     geo_launches, records["bvh_traverse_callback_shapes"], geo_twins = \
-        phase_geometry(dev, policy, card)
+        phase_geometry(dev, policy, card, counting)
     launches["bvh_traverse_callback_shapes"] = \
         geo_launches["bvh_traverse_callback"]
     launches["bvh_traverse_fine_knn"] = geo_launches["bvh_traverse_fine_knn"]

@@ -29,7 +29,7 @@ import torch
 from ..kernels import lbvh_build as K
 from ..kernels import morton as KM
 from . import morton as M
-from .geometry import Boxes
+from .geometry import Boxes, fma
 
 __all__ = ["LBVH", "build", "refit", "refit_with_quality", "sah_cost",
            "FIELDS"]
@@ -131,13 +131,20 @@ def refit_with_quality(tree: LBVH, boxes: Boxes) -> tuple[LBVH, torch.Tensor]:
     return new, sah_cost(new)
 
 
-def _surface_measure(lo, hi):
+def _surface_measure(lo, hi, fused: bool = False):
     """(M,) surface measure: sum over faces of the product of the other
-    extents; the interval length in 1-D."""
+    extents; the interval length in 1-D. The rounded products are summed
+    in face order; in 3-D with `fused`, as the reference's jitted
+    ``sah_cost`` computes them beside its windowed sum (M > 32), two of
+    the three products are contracted into fused multiply-adds,
+    fma(e0, e1, fma(e1, e2, e0 * e2))."""
     e = torch.clamp_min(hi - lo, 0.0)
     d = e.shape[-1]
     if d == 1:
         return e[..., 0]
+    if d == 3 and fused:
+        e0, e1, e2 = e.unbind(-1)
+        return fma(e0, e1, fma(e1, e2, e0 * e2))
     total = torch.zeros(e.shape[:-1], dtype=e.dtype, device=e.device)
     for i in range(d):
         keep = torch.arange(d, device=e.device) != i
@@ -145,10 +152,40 @@ def _surface_measure(lo, hi):
     return total
 
 
+#: the window of XLA:CPU's tree reduction rewrite
+_XLA_WINDOW = 32
+
+
+def _xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum of a 1-d float32 tensor in XLA:CPU's order for ``jnp.sum``: up
+    to 32 elements added in sequence from 0; a longer one padded with
+    zeros (half the padding in front, the odd one behind) to whole
+    windows of 32, each window summed in sequence, and the window sums
+    summed the same way."""
+    m = x.shape[0]
+    if m <= _XLA_WINDOW:
+        s = torch.zeros((), dtype=x.dtype, device=x.device)
+        for j in range(m):
+            s = s + x[j]
+        return s
+    w = -(-m // _XLA_WINDOW)
+    pad = w * _XLA_WINDOW - m
+    cols = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+    cols = cols.reshape(w, _XLA_WINDOW)
+    s = torch.zeros((w,), dtype=x.dtype, device=x.device)
+    for j in range(_XLA_WINDOW):
+        s = s + cols[:, j]
+    return _xla_sum(s)
+
+
 def sah_cost(tree: LBVH) -> torch.Tensor:
     """SAH-style quality: sum of internal-node surface measures over the
-    root's. Lower is better; drifting leaves under refit inflate it."""
+    root's. Lower is better; drifting leaves under refit inflate it. In
+    dims 1-3 it equals the reference's jitted ``sah_cost`` bit for bit:
+    the per-node measures of its fusion, summed in XLA:CPU's order
+    (:func:`_xla_sum`)."""
     n = tree.num_leaves
-    areas = _surface_measure(tree.node_lo[:n - 1], tree.node_hi[:n - 1])
+    areas = _surface_measure(tree.node_lo[:n - 1], tree.node_hi[:n - 1],
+                             fused=n - 1 > _XLA_WINDOW)
     tiny = torch.finfo(areas.dtype).tiny
-    return areas.sum() / torch.clamp_min(areas[0], tiny)
+    return _xla_sum(areas) / torch.clamp_min(areas[0], tiny)

@@ -25,8 +25,9 @@
 //   ascending (heapsort), after which dist(j) / pos(j) read the list as
 //   KeyList's.
 // Both give `bound()`, the k-th entry's d2 (inf until k entries are in),
-// and `first_pos()`, the position of the smallest key so far (-1 when the
-// list is empty), which brute force's k > N tail reads.
+// `bound_pos()`, its position (-1 until then: the entry an insert
+// evicts), and `first_pos()`, the position of the smallest key so far
+// (-1 when the list is empty), which brute force's k > N tail reads.
 #pragma once
 
 #include <cmath>
@@ -57,6 +58,7 @@ struct KeyList {
     tp = -1;
   }
   __device__ __forceinline__ float bound() const { return td; }
+  __device__ __forceinline__ int bound_pos() const { return tp; }
   __device__ __forceinline__ bool admits(float d2, int pos) const {
     return d2 < td ||
            (d2 == td && td != INFINITY && (kLaterFirst ? pos > tp : pos < tp));
@@ -135,6 +137,7 @@ struct KeyHeap {
     lo_p = -1;
   }
   __device__ __forceinline__ float bound() const { return td; }
+  __device__ __forceinline__ int bound_pos() const { return p[0]; }
   __device__ __forceinline__ bool admits(float d2, int pos) const {
     return d2 < td || (d2 == td && td != INFINITY &&
                        (kLaterFirst ? pos > p[0] : pos < p[0]));

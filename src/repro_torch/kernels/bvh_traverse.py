@@ -63,9 +63,11 @@ Points and Boxes in 3-D walks nearest first with the point kNN kernel's
 stack and tie pass; in 3-D it reads the node records and, for Spheres
 and Triangles, the leaves' value records (:func:`pack_values`, kept as
 ``BVH.value_records``). The fine kNN kernel (``csrc/fine_knn.cu``) walks
-the twin's node sequence, one thread a query, with the same list key, so
-its lists are the twin's by construction; in 3-D it reads the node
-records and the value records of Spheres, Triangles and Segments (a
+nearest first, one thread a query, with the fine distance as the list key
+and a slack on the node keys, and proves each list equal to the twin's
+with a certificate; the rope walk re-walks the queries that fail it, on
+the card, so the lists are the twin's bit for bit; in 3-D it reads the
+node records and the value records of Spheres, Triangles and Segments (a
 Tetrahedra or KDOPs leaf's distance is its node box's). The twins and the
 kernels sum the per-dimension squares in the same fixed order
 (``geometry.sum_sq_fused``: the first square, then one fused multiply-add
@@ -89,6 +91,7 @@ from . import _build, sanitize
 
 __all__ = ["bvh_traverse_spatial", "bvh_traverse_knn", "bvh_traverse_ray_knn",
            "bvh_traverse_knn_exclude", "bvh_traverse_fine_knn",
+           "bvh_traverse_fine_knn_rope",
            "bvh_traverse_spatial_ref", "bvh_traverse_knn_ref",
            "bvh_traverse_ray_knn_ref", "bvh_traverse_knn_exclude_ref",
            "bvh_traverse_fine_knn_ref", "node_labels", "pack_nodes",
@@ -627,8 +630,10 @@ def bvh_traverse_ray_knn(node_lo, node_hi, rope, left_child, leaf_perm,
 
 _FINE_KIND = {G.Spheres: 2, G.Triangles: 3, G.Segments: 5, G.Tetrahedra: 6,
               G.KDOPs: 7}
-_FINE_KNN_ARGS = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
-                  + [ctypes.c_void_p] * 3)
+_FINE_KNN_ARGS = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
+                  + [ctypes.c_void_p] * 4)
+_FINE_ROPE_ARGS = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 3)
 
 
 def bvh_traverse_fine_knn(node_lo, node_hi, rope, left_child, leaf_perm,
@@ -641,7 +646,13 @@ def bvh_traverse_fine_knn(node_lo, node_hi, rope, left_child, leaf_perm,
     walk (``traversal.traverse_knn``) bit for bit, ties included.
     `records` (:func:`pack_nodes`, ``LBVH.records``) and `value_records`
     (:func:`pack_values`, ``BVH.value_records``): kept by the caller, else
-    a 3-D call on the card makes them; neither changes a result."""
+    a 3-D call on the card makes them; neither changes a result.
+
+    On the card the kernel walks nearest first and the rope walk re-walks
+    the queries whose certificate fails (``csrc/fine_knn.cu``); after a
+    launch ``bvh_traverse_fine_knn.flagged`` holds their count, a (1,)
+    int32 tensor on the card (None after a CPU call). Reading it
+    synchronises; the wrapper never does."""
     what = "bvh_traverse_fine_knn"
     if k < 1:
         raise ValueError(f"{what}: k must be >= 1, got {k}")
@@ -655,6 +666,7 @@ def bvh_traverse_fine_knn(node_lo, node_hi, rope, left_child, leaf_perm,
         dists, idxs = bvh_traverse_fine_knn_ref(
             node_lo, node_hi, rope, left_child, leaf_perm, values, queries,
             k=k)
+        bvh_traverse_fine_knn.flagged = None
     else:
         dists, idxs = _fine_knn_launch(what, node_lo, node_hi, rope,
                                        left_child, leaf_perm, values, queries,
@@ -676,8 +688,25 @@ def _fine_query(queries):
     return center, center, center, None
 
 
+def bvh_traverse_fine_knn_rope(node_lo, node_hi, rope, left_child,
+                               leaf_perm, values, queries, *, k: int,
+                               records=None, value_records=None):
+    """The rope walk alone on the card (``fine_rope_kernel`` over every
+    query, the twin's node sequence): the order the nearest-first walk of
+    :func:`bvh_traverse_fine_knn` is held to bit for bit on the card at
+    sizes the host twin cannot reach. CUDA tensors only; counts no launch
+    (the main path never calls it)."""
+    what = "bvh_traverse_fine_knn_rope"
+    if _device_of(leaf_perm, what) != "cuda":
+        raise ValueError(f"{what}: CUDA tensors only")
+    return _fine_knn_launch(what, node_lo, node_hi, rope, left_child,
+                            leaf_perm, values, queries, k, records,
+                            value_records, rope_walk=True)
+
+
 def _fine_knn_launch(what, node_lo, node_hi, rope, left_child, leaf_perm,
-                     values, queries, k, records, value_records):
+                     values, queries, k, records, value_records,
+                     rope_walk=False):
     if k > KNN_MAX_K:
         raise ValueError(f"{what}: k={k} above the kernel's cap {KNN_MAX_K}")
     dev = leaf_perm.device
@@ -717,16 +746,31 @@ def _fine_knn_launch(what, node_lo, node_hi, rope, left_child, leaf_perm,
     idxs = torch.empty((q, k), dtype=torch.int32, device=dev)
     if q == 0:
         return dists, idxs
+    ptrs = [*(a[f].data_ptr() for f in _TREE), _ptr(records),
+            _ptr(value_records), _ptr(va), _ptr(vb), _ptr(vc), _ptr(vr),
+            geo["q_lo"].data_ptr(), geo["q_hi"].data_ptr(),
+            geo["center"].data_ptr(), _ptr(geo.get("radius"))]
+    sizes = (n, q, dim, _FINE_KIND[type(values)], k)
+    if rope_walk:
+        fn = _build.function("fine_knn", "fine_knn_rope_launch",
+                             _FINE_ROPE_ARGS)
+        with torch.cuda.device(dev):
+            err = fn(*ptrs, *sizes, dists.data_ptr(), idxs.data_ptr(),
+                     _stream(dev))
+        _build.check("fine_knn", err, what)
+        return dists, idxs
+    # the slack's term of a negative sphere radius (csrc/fine_knn.cu's
+    # note), on the card: max(0, -min radius), NaN kept
+    rneg = (torch.clamp_min(-values.radius.amin(), 0.0).reshape(1)
+            if isinstance(values, G.Spheres) else None)
+    flagged = torch.empty((q + 1,), dtype=torch.int32, device=dev)
     fn = _build.function("fine_knn", "fine_knn_launch", _FINE_KNN_ARGS)
     with torch.cuda.device(dev):
-        err = fn(*(a[f].data_ptr() for f in _TREE), _ptr(records),
-                 _ptr(value_records), _ptr(va), _ptr(vb), _ptr(vc), _ptr(vr),
-                 geo["q_lo"].data_ptr(), geo["q_hi"].data_ptr(),
-                 geo["center"].data_ptr(), _ptr(geo.get("radius")), n, q, dim,
-                 _FINE_KIND[type(values)], k, dists.data_ptr(),
-                 idxs.data_ptr(), _stream(dev))
+        err = fn(*ptrs, _ptr(rneg), *sizes, dists.data_ptr(),
+                 idxs.data_ptr(), flagged.data_ptr(), _stream(dev))
     _build.check("fine_knn", err, what)
     bvh_traverse_fine_knn.launches += 1
+    bvh_traverse_fine_knn.flagged = flagged[:1]
     return dists, idxs
 
 
@@ -808,3 +852,4 @@ bvh_traverse_knn.launches = 0
 bvh_traverse_knn_exclude.launches = 0
 bvh_traverse_ray_knn.launches = 0
 bvh_traverse_fine_knn.launches = 0
+bvh_traverse_fine_knn.flagged = None

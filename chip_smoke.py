@@ -226,7 +226,13 @@ Phases (one line or more each, then the two closing lines):
      (Q = 1024, k = 8, N = 512, 4096, 32768) beside BVH kNN and
      ``BruteForce.query``; at k = 256, dim 64, float16 inputs and the
      k > N tail in one panel and in three, each against its twin.
- 14. sanitize: one pass of the small sizes with ``REPRO_SANITIZE=1``.
+ 14. sanitize: ``repro_torch.analysis``'s ``--strict`` pass: its sanitize
+     smoke (``analysis.smoke``: every wrapper armed with
+     ``REPRO_SANITIZE=1``, each held to an oracle, on the card, N = 2000)
+     with every C entry's guard count zeroed first, then each of the 15 C
+     entries checked to have launched through its int guard, and the
+     guard checked to refuse 2^31 in each int argument (no launch); the
+     guard's host cost a call.
  15. flash: the tensor-core kernel's registers, spills and shared memory
      (from its build log); ``flash_attention``'s kernel against its twin
      on the card at the LM's shape (B = 4, Hq = 32, Hkv = 4, S = 2048,
@@ -284,6 +290,18 @@ Phases (one line or more each, then the two closing lines):
      ms per group of each stage (``sharded.gather / local_traverse /
      exchange / merge``) by kind; a drifted update (a refit on every
      rank) and a scrambled one (a rebuild), versions and actions checked.
+     Then the pipeline over the same 4 ranks (``ServingPipeline`` at
+     R = 4: rank 0 leads, ranks 1-3 follow): a new store on the warm
+     engine, "cloud" and "scene" built through the leader's
+     ``create_index`` (the global values broadcast, each rank its
+     block), 4 client threads on the leader, 100 requests each from
+     [serve]'s mix (closed loop), every second one with a 20 ms deadline,
+     while "cloud" moves 5 times through ``update_index``. Every response
+     equal to a single-device QueryServer's at the version it was served
+     at; 0 failed tickets, 0 stalls behind maintenance, 0 maintenance
+     errors, the same versions on every rank, each rank's kernel
+     launches above 0; requests/s, p50 / p99 latency, the version
+     sequence and each rank's groups served.
      Both phases' launches stay on their own lines, per rank; the kernels
      line reads each entry's launches from its own path only.
 
@@ -2347,33 +2365,34 @@ def phase_bruteforce(dev, pts, qc, knn, policy, card):
                 bound_by=b_by, library_ms=lib)
 
 
-def phase_sanitized(dev, policy):
-    """One pass of the small sizes with REPRO_SANITIZE=1: a build, CSR, kNN
-    and a callback query, and both ops, every output checked (and the
-    Karras kernel held against its twin)."""
-    import torch
-    import repro_torch as rt
-    from repro_torch.core import geometry as G
-    from repro_torch.kernels import ops, sanitize
-    os.environ["REPRO_SANITIZE"] = "1"
-    check(sanitize.enabled(), "REPRO_SANITIZE did not arm")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
-    x = torch.rand((1 << 14, 3), generator=gen, device=dev)
-    qx = torch.rand((1 << 10, 3), generator=gen, device=dev)
-    index = rt.BVH(G.Points(x), policy=policy)
-    spheres = rt.intersects(G.Spheres(qx, torch.full((1 << 10,), 0.05,
-                                                     device=dev)))
-    index.query(spheres)
-    index.query(rt.nearest(G.Points(qx), k=K))
-    index.query(spheres, callback=rt.callbacks.min_distance())
-    ops.morton64(x)
-    ops.bruteforce_knn(qx, x, K)
-    ops.bruteforce_knn(qx, x[:5], 8)
-    torch.cuda.synchronize()
-    del os.environ["REPRO_SANITIZE"]
-    log("[sanitize] REPRO_SANITIZE=1: BVH build, CSR, kNN and callback "
-        "queries, ops.morton64 and ops.bruteforce_knn at N=2^14, Q=2^10 on "
-        "the card: every output contract held")
+def phase_sanitized(card):
+    """``python -m repro_torch.analysis --strict`` on the card: its
+    sanitize smoke (every wrapper armed with REPRO_SANITIZE, each held to
+    an oracle) with every C entry's guard count zeroed first, then each C
+    entry checked to have launched through its int guard, which must
+    refuse 2^31 in each int argument; and the guard's host cost."""
+    from repro_torch.analysis import launches as AL
+    t0 = time.perf_counter()
+    findings = AL.strict(echo=lambda line: log(f"[sanitize] {line.strip()}"))
+    check(not findings, "[sanitize] --strict: " + "; ".join(
+        f.format() for f in findings))
+    log(f"[sanitize] repro_torch.analysis --strict: the sanitize smoke "
+        f"(analysis.smoke, N=2000, Q=256) held every wrapper to its oracle "
+        f"on the card with REPRO_SANITIZE=1, and all "
+        f"{len(AL.c_entries())} C entries launched through their int "
+        f"guards, each refusing 2^31; {time.perf_counter() - t0:.1f} s")
+    # what the guard adds to a launch: its check of the widest entry's
+    # arguments, on the host
+    from repro_torch.kernels import _build
+    entry = _build.entries()[("bvh_callback", "bvh_callback_launch")]
+    args, reps = [0] * len(entry.argtypes), 20000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        entry.check_args(args)
+    log(f"[sanitize] the int guard's host cost: "
+        f"{(time.perf_counter() - t0) / reps * 1e6:.2f} us a call of "
+        f"bvh_callback_launch's {len(args)} arguments (host clock, mean of "
+        f"{reps})  [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -4420,7 +4439,7 @@ def _rank_sharded(dev, rank, ranks):
     rebuild_ms = (time.perf_counter() - t0) * 1e3
     (after,) = srv.handle([knn_request(np.asarray(
         drift[:4].cpu(), np.float32), K, "cloud")])
-    return {
+    return srv.engine, {
         "warm_s": warm_s, "load_s": load_s, "fenced_s": fenced_s,
         "launches": launches,
         "groups": groups, "stages": stages, "digest": _digest(
@@ -4432,6 +4451,131 @@ def _rank_sharded(dev, rank, ranks):
         "after_version": after.stats.index_version,
         "refit_ms": refit_ms, "rebuild_ms": rebuild_ms,
     }
+
+
+PIPE_CLIENTS = 4          # client threads on the leader
+PIPE_PER_CLIENT = 100     # closed-loop requests each
+PIPE_MOVES = 5            # update_index calls of "cloud" during the load
+PIPE_SEED = SEED + 91
+
+
+def pipe_cloud(pts, v):
+    """"cloud" at pipeline version v: the points (v = 1), then drifted
+    by N(0, SERVE_MOVE_SIGMA^2) from a seed of their own (v = 2..6)."""
+    import torch
+    if v == 1:
+        return pts
+    gen = torch.Generator(device=pts.device).manual_seed(PIPE_SEED + v)
+    return pts + SERVE_MOVE_SIGMA * torch.randn(pts.shape, generator=gen,
+                                                device=pts.device)
+
+
+def pipe_requests(client):
+    """Client `client`'s requests: [serve]'s mix from a seed of its own,
+    every second one with a 20 ms deadline."""
+    rng = np.random.default_rng(PIPE_SEED + 100 * client)
+    out = []
+    for n in range(PIPE_PER_CLIENT):
+        kind, k = _serve_draw(rng)
+        req = _serve_request(rng, kind, int(rng.integers(1, SERVE_MAX_ROWS
+                                                         + 1)), k)
+        out.append((req, SERVE_DEADLINE_US if n % 2 else None))
+    return out
+
+
+def _rank_pipeline(dev, rank, ranks, engine):
+    """One rank's pipeline pass: ``ServingPipeline`` over a new
+    ShardedIndexStore on the warm engine. Rank 0 leads: it builds "cloud"
+    and "scene" (global values), runs the clients and moves "cloud";
+    the other ranks follow until its close."""
+    import threading
+    import torch
+    from repro_torch.core import geometry as G
+    from repro_torch.service import (PipelineConfig, ServiceConfig,
+                                     ServingPipeline, ShardedIndexStore)
+    from repro_torch.service.pipeline import PipelineStats
+    store = ShardedIndexStore(None, engine=engine)
+    pipe = ServingPipeline(store=store, config=PipelineConfig(
+        service=ServiceConfig(capacity=SERVE_CAPACITY,
+                              min_bucket=SERVE_MIN_BUCKET,
+                              max_bucket=SERVE_MAX_BUCKET)))
+    counters = _dist_counters()
+    out = {}
+    if rank == 0:
+        pts = make_data(dev)[0]
+        a, b, c, _, _ = make_soup(dev)
+        t0 = time.perf_counter()
+        pipe.create_index("cloud", G.Points(pts))
+        pipe.create_index("scene", G.Triangles(a, b, c))
+        out["create_s"] = time.perf_counter() - t0
+        reqs = [pipe_requests(cl) for cl in range(PIPE_CLIENTS)]
+        done, versions = [0], [(1, "build")]
+        cv = threading.Condition()
+        results = [[None] * PIPE_PER_CLIENT for _ in range(PIPE_CLIENTS)]
+        errors = []
+
+        def client(cl):
+            for n, (req, deadline) in enumerate(reqs[cl]):
+                t = time.perf_counter()
+                try:
+                    resp = pipe.submit(req, deadline_us=deadline).result(120)
+                except Exception as err:        # counted, checked after
+                    errors.append(f"client {cl} request {n}: {err!r}")
+                    resp = None
+                results[cl][n] = (resp, time.perf_counter() - t)
+                with cv:
+                    done[0] += 1
+                    cv.notify_all()
+
+        def mover():
+            step = PIPE_CLIENTS * PIPE_PER_CLIENT // (PIPE_MOVES + 1)
+            for v in range(2, PIPE_MOVES + 2):
+                with cv:
+                    cv.wait_for(lambda: done[0] >= step * (v - 1))
+                pipe.update_index("cloud", G.Points(pipe_cloud(pts, v)))
+                check(pipe.wait_maintenance_idle(120.0),
+                      "[sharded] pipeline: maintenance did not go idle")
+                e = store.get("cloud")
+                versions.append((e.version, e.action))
+
+        torch.cuda.synchronize()
+        for f in counters.values():
+            f.launches = 0
+        threads = [threading.Thread(target=client, args=(cl,))
+                   for cl in range(PIPE_CLIENTS)]
+        threads.append(threading.Thread(target=mover))
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads[:-1]:
+            th.join()
+        load_s = time.perf_counter() - t0
+        threads[-1].join()
+        pipe.close()
+        lat = np.array([t for rs in results for _, t in rs]) * 1e3
+        out.update(
+            load_s=load_s, errors=errors, versions=versions,
+            p50_ms=float(np.percentile(lat, 50)),
+            p99_ms=float(np.percentile(lat, 99)),
+            rows=[[(r.kind, r.k, r.a, r.b, d,
+                    None if resp is None else _response_rows([resp])[0])
+                   for (r, d), (resp, _) in zip(reqs[cl], results[cl])]
+                  for cl in range(PIPE_CLIENTS)])
+    else:
+        torch.cuda.synchronize()
+        for f in counters.values():
+            f.launches = 0
+        pipe.close(timeout=DIST_WORLD_TIMEOUT_S)
+    torch.cuda.synchronize()
+    s = pipe.stats()
+    out.update(
+        launches={k: f.launches for k, f in counters.items()},
+        stats={f: getattr(s, f) for f in PipelineStats._FIELDS},
+        alive=pipe._scheduler.is_alive() or pipe._maintainer.is_alive(),
+        error=None if pipe.error is None else repr(pipe.error),
+        version=store.get("cloud").version,
+        action=store.get("cloud").action)
+    return out
 
 
 def rank_main(argv):
@@ -4462,7 +4606,10 @@ def rank_main(argv):
         out = {"backend": dist.get_backend()}
         out.update(_rank_distributed(dev, args.rank, args.ranks))
         if args.role == "distributed":
-            out["sharded"] = _rank_sharded(dev, args.rank, args.ranks)
+            engine, out["sharded"] = _rank_sharded(dev, args.rank,
+                                                   args.ranks)
+            out["pipeline"] = _rank_pipeline(dev, args.rank, args.ranks,
+                                             engine)
         torch.save(out, os.path.join(args.out, f"rank{args.rank}.pt"))
     finally:
         restore()
@@ -4746,7 +4893,96 @@ def phase_distributed(dev, pts, box_lo, box_hi, qc, serve_calls, serve_resps,
         + ", ".join(f"{x:.4f}" for x in s0["updates"][1][2])
         + f"), a scrambled cloud rebuilt {s0['rebuild_ms']:.1f} ms; "
         f"versions 1 build, 2 refit, 3 rebuild  [{card}]")
+    phase_sharded_pipeline(dev, pts, [r["pipeline"] for r in gloo], card)
     log(f"[distributed] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_sharded_pipeline(dev, pts, pipes, card):
+    """[sharded]'s pipeline pass, checked: the ranks' loops ended on the
+    leader's stop, every ticket served, nothing stalled or failed in
+    maintenance, the same versions and groups on every rank, the path's
+    kernels launched on every rank, and every response equal to a
+    single-device QueryServer's at the version it was served at."""
+    from repro_torch.core import geometry as G
+    from repro_torch.service import (QueryServer, ServiceConfig, knn_request,
+                                     ray_request, within_request)
+    lead = pipes[0]
+    n_req = PIPE_CLIENTS * PIPE_PER_CLIENT
+    check(not lead["errors"], "[sharded] pipeline: failed tickets: "
+          + "; ".join(lead["errors"][:3]))
+    st = lead["stats"]
+    check(st["served"] == n_req and st["failed"] == 0,
+          f"[sharded] pipeline: served {st['served']}, failed {st['failed']}")
+    want_versions = list(range(1, PIPE_MOVES + 2))
+    check([v for v, _ in lead["versions"]] == want_versions,
+          f"[sharded] pipeline: versions {lead['versions']}")
+    for r, p in enumerate(pipes):
+        label = f"[sharded] pipeline rank {r}"
+        check(not p["alive"] and p["error"] is None,
+              f"{label}: loops alive {p['alive']}, ended on {p['error']}")
+        check(p["stats"]["maintenance_errors"] == 0
+              and p["stats"]["stalled_behind_maintenance"] == 0,
+              f"{label}: maintenance errors or stalls {p['stats']}")
+        check((p["version"], p["action"]) == lead["versions"][-1],
+              f"{label}: cloud at {p['version']} {p['action']}, the leader "
+              f"at {lead['versions'][-1]}")
+        check(p["stats"]["swap_count"] == PIPE_MOVES,
+              f"{label}: {p['stats']['swap_count']} swaps")
+        check(p["stats"]["batches"] == st["batches"],
+              f"{label}: served {p['stats']['batches']} groups, the leader "
+              f"{st['batches']}")
+        for k in ("bvh_traverse_knn", "bvh_traverse_callback",
+                  "bvh_traverse_ray_knn"):
+            check(p["launches"][k] > 0, f"{label}: {k} was not launched")
+    # every response against a single-device server at its version
+    a, b, c, _, _ = make_soup(dev)
+    srv = QueryServer(config=ServiceConfig(
+        capacity=SERVE_CAPACITY, min_bucket=SERVE_MIN_BUCKET,
+        max_bucket=SERVE_MAX_BUCKET))
+    srv.create_index("cloud", G.Points(pts))
+    srv.create_index("scene", G.Triangles(a, b, c))
+    by_version = {}
+    for rows in lead["rows"]:
+        for kind, k, qa, qb, _, got in rows:
+            if kind == "knn":
+                req = knn_request(qa, k, "cloud")
+            elif kind == "within":
+                req = within_request(qa, qb, "cloud")
+            else:
+                req = ray_request(qa, qb, k, "scene")
+            v = 0 if kind == "ray" else got[1]
+            by_version.setdefault(v, []).append((req, got))
+    swaps = 0
+    for v in sorted(by_version):
+        if v > 1:
+            while srv.store.get("cloud").version < v:
+                nxt = srv.store.get("cloud").version + 1
+                srv.update_index("cloud", G.Points(pipe_cloud(pts, nxt)))
+        reqs = [req for req, _ in by_version[v]]
+        for (req, got), want in zip(by_version[v], srv.handle(reqs)):
+            swaps += _same_response(
+                got, want, f"[sharded] pipeline {req.kind} m={req.m} v{v}")
+    groups = [p["stats"]["batches"] for p in pipes]
+    log(f"[sharded] pipeline, {DIST_LABEL}: ServingPipeline at R = "
+        f"{len(pipes)} (rank 0 leads), \"cloud\" and \"scene\" built "
+        f"through the leader in {lead['create_s']:.2f} s; {PIPE_CLIENTS} "
+        f"closed-loop clients x {PIPE_PER_CLIENT} requests of [serve]'s mix "
+        f"(every second one with a {SERVE_DEADLINE_US / 1e3:.0f} ms "
+        f"deadline) in {lead['load_s']:.3f} s ({n_req / lead['load_s']:.0f} "
+        f"requests/s), latency p50 {lead['p50_ms']:.2f} ms, p99 "
+        f"{lead['p99_ms']:.2f} ms, {st['deadline_missed']} deadlines "
+        f"missed; \"cloud\" moved {PIPE_MOVES} times: versions "
+        + ", ".join(f"{v} {act}" for v, act in lead["versions"])
+        + f", the same on every rank; groups served per rank {groups} "
+        f"(occupancy {st['batch_rows'] / max(st['batch_slots'], 1):.3f}); "
+        f"0 failed tickets, 0 stalls, 0 maintenance errors; every response "
+        f"equal to the single-device QueryServer's at its version (ties "
+        f"swapped indices in {swaps})  [{card}]")
+    for r, p in enumerate(pipes):
+        log(f"[sharded] pipeline rank {r} launches (counts zeroed just "
+            + ("before the load" if r == 0 else "before the leader's "
+               "builds") + f", read after the close): "
+            f"{json.dumps(p['launches'])}")
 
 
 def main():
@@ -4805,7 +5041,7 @@ def main():
     records["bruteforce_knn"] = phase_bruteforce(dev, pts, qc, knn_out,
                                                  policy, card)
     del codes, knn_out
-    phase_sanitized(dev, policy)
+    phase_sanitized(card)
     records["flash_attention"] = phase_flash(dev, card)
     launches.update(phase_lm(dev, card))
     records["bvh_traverse_fine_knn"] = phase_geometry_twins(geo_twins, card)

@@ -15,7 +15,8 @@ import torch
 from . import geometry as G
 from . import predicates as P
 from .access import default_indexable_getter
-from .index import ExecutionPolicy, Index, QueryResult, resolve_device
+from .index import (ExecutionPolicy, Index, QueryResult, _is_legacy_space,
+                    _warn_deprecated, resolve_device)
 from .traversal import _leaves, _map, value_at
 
 __all__ = ["BruteForce", "pairwise_sq_distances"]
@@ -41,8 +42,20 @@ def pairwise_sq_distances(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 class BruteForce(Index):
     """Stores values; queries evaluate the predicate against every value."""
 
-    def __init__(self, values, indexable_getter=default_indexable_getter, *,
-                 policy: ExecutionPolicy | None = None):
+    def __init__(self, values, indexable_getter=default_indexable_getter,
+                 *_legacy, policy: ExecutionPolicy | None = None):
+        if _is_legacy_space(values):
+            _warn_deprecated(
+                "BruteForce.__init__", "BruteForce(space, values, ...) is "
+                "deprecated; use BruteForce(values, indexable_getter=..., "
+                "policy=ExecutionPolicy(device=space))")
+            space, values = values, indexable_getter
+            indexable_getter = _legacy[0] if _legacy \
+                else default_indexable_getter
+            policy = (policy or ExecutionPolicy()).override(device=space)
+        elif _legacy:
+            raise TypeError("BruteForce() takes at most 2 positional "
+                            "arguments (values, indexable_getter)")
         self.policy = policy or ExecutionPolicy()
         self.device = resolve_device(self.policy.device)
         self.values = values.to(self.device)

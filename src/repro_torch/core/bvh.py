@@ -38,15 +38,28 @@ from . import lbvh
 from . import predicates as P
 from . import traversal as T
 from .access import default_indexable_getter
-from .index import ExecutionPolicy, Index, _bcast_state, resolve_device
+from .index import (ExecutionPolicy, Index, _bcast_state, _is_legacy_space,
+                    _warn_deprecated, resolve_device)
 
 __all__ = ["BVH"]
 
 
 class BVH(Index):
-    def __init__(self, values, indexable_getter=default_indexable_getter, *,
-                 policy: ExecutionPolicy | None = None, engine=None,
+    def __init__(self, values, indexable_getter=default_indexable_getter,
+                 *_legacy, policy: ExecutionPolicy | None = None, engine=None,
                  bits: int = 64):
+        if _is_legacy_space(values):
+            _warn_deprecated(
+                "BVH.__init__", "BVH(space, values, ...) is deprecated; "
+                "use BVH(values, indexable_getter=..., policy="
+                "ExecutionPolicy(device=space))")
+            space, values = values, indexable_getter
+            indexable_getter = _legacy[0] if _legacy \
+                else default_indexable_getter
+            policy = (policy or ExecutionPolicy()).override(device=space)
+        elif _legacy:
+            raise TypeError("BVH() takes at most 2 positional arguments "
+                            "(values, indexable_getter)")
         self._init_common(values, indexable_getter, policy, engine)
         if self._n >= 2:
             self.tree = lbvh.build(self._boxes, bits=bits)
@@ -55,9 +68,21 @@ class BVH(Index):
 
     @classmethod
     def from_tree(cls, values, tree, indexable_getter=default_indexable_getter,
-                  *, policy: ExecutionPolicy | None = None, engine=None):
+                  *_legacy, policy: ExecutionPolicy | None = None,
+                  engine=None):
         """Wrap an existing LBVH over (possibly moved) values without
         rebuilding. The caller guarantees `tree` bounds the values."""
+        if _is_legacy_space(values):
+            _warn_deprecated(
+                "BVH.from_tree", "BVH.from_tree(space, values, tree) is "
+                "deprecated; use BVH.from_tree(values, tree, policy=...)")
+            space, values, tree = values, tree, indexable_getter
+            indexable_getter = _legacy[0] if _legacy \
+                else default_indexable_getter
+            policy = (policy or ExecutionPolicy()).override(device=space)
+        elif _legacy:
+            raise TypeError("BVH.from_tree() takes at most 3 positional "
+                            "arguments (values, tree, indexable_getter)")
         obj = cls.__new__(cls)
         obj._init_common(values, indexable_getter, policy, engine)
         if tree is not None and tree.device != obj.device:

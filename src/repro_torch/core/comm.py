@@ -18,11 +18,23 @@ Where the tensors travel is decided by the group's backend:
     exchanged there, and copied back to its device.
 
 ``group=None`` means the default group (``init_process_group``'s).
+
+Failures are agreed, not thrown alone: a step that may fail on one rank
+runs inside a ``try``, the rank takes part in the next collective all the
+same (with a failure flag in it, or through :func:`check_all`), and
+:func:`raise_together` then raises :class:`RankFailure` on every rank at
+once. A rank that raised alone would leave the others waiting in a
+collective until the group's timeout, and the group out of step after it.
+
+A leader (rank 0 of the group) hands work to the other ranks with
+:func:`broadcast_object`: a :class:`Work` (one serving group, or a
+control message), or an index build or update.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -30,7 +42,9 @@ from . import geometry as G
 
 __all__ = ["group_of", "size", "rank", "is_nccl", "check_device", "agree",
            "all_gather", "all_gather_varlen", "stack", "all_to_all",
-           "all_reduce_sum", "fold", "tree_map"]
+           "all_reduce_sum", "fold", "tree_map", "RankFailure",
+           "raise_together", "check_all", "broadcast_object", "Work",
+           "NOP", "STOP"]
 
 
 def group_of(group):
@@ -182,3 +196,80 @@ def tree_map(fn, tree, *rest):
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
                           for i, v in enumerate(tree))
     raise TypeError(f"cannot map over {type(tree).__name__}")
+
+
+# ---------------------------------------------------------------------------
+# agreed failures
+# ---------------------------------------------------------------------------
+
+class RankFailure(RuntimeError):
+    """A step failed on one or more ranks of a group. Every rank raises it
+    together, after the collective that told them all; ``ranks`` lists the
+    ranks where it failed, and the message quotes each one's error."""
+
+    def __init__(self, message: str, ranks):
+        super().__init__(message)
+        self.ranks = list(ranks)
+
+
+def raise_together(group, failed, error, what: str):
+    """Raise :class:`RankFailure` on every rank when any of `failed` is
+    set: one flag a rank, in rank order, from a collective every rank
+    took part in. The ranks' error texts are all-gathered first (one more
+    collective, which every rank takes, since every rank saw the same
+    flags), so the message names each failed rank's own error; this
+    rank's `error` is the exception's cause."""
+    bad = [r for r, f in enumerate(np.asarray(failed).tolist()) if f]
+    if not bad:
+        return
+    texts = [None] * size(group)
+    mine = None if error is None else f"{type(error).__name__}: {error}"
+    dist.all_gather_object(texts, mine, group=group)
+    detail = "; ".join(f"rank {r}: {texts[r]}" for r in bad)
+    raise RankFailure(f"{what} failed on rank(s) {bad} ({detail})",
+                      bad) from error
+
+
+def check_all(group, error, device, what: str):
+    """One collective: every rank raises :class:`RankFailure` together
+    when `error` (this rank's exception, or None) is set on any rank."""
+    raise_together(group, agree(group, [error is not None], device)[:, 0],
+                   error, what)
+
+
+# ---------------------------------------------------------------------------
+# the leader's broadcasts
+# ---------------------------------------------------------------------------
+
+def _leader(group) -> int:
+    """The global rank of rank 0 of `group`, the broadcasts' source."""
+    return dist.get_global_rank(group, 0)
+
+
+def broadcast_object(group, obj=None):
+    """Rank 0's picklable `obj` on every rank (the others pass None).
+    Tensors in it travel pickled, so pass them on the host."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=_leader(group), group=group)
+    return box[0]
+
+
+NOP, STOP = "nop", "stop"
+
+
+@dataclasses.dataclass(frozen=True)
+class Work:
+    """One unit of the leader's work, sent with :func:`broadcast_object`:
+    a serving group (its kind, k, bucket, real rows, the members' (rid,
+    start, m) rows, the index name, the version the leader pinned, and
+    the bucket's float32 `a` / `b` arrays) or a control message (kind
+    NOP or STOP, nothing else set)."""
+    kind: str
+    k: int = 0
+    bucket: int = 0
+    n_real: int = 0
+    members: tuple = ()
+    index: str = ""
+    version: int = 0
+    a: np.ndarray | None = None
+    b: np.ndarray | None = None

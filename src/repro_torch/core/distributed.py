@@ -58,11 +58,12 @@ from . import geometry as G
 from . import predicates as P
 from .access import as_geometry, default_indexable_getter, value_at
 from .bvh import BVH
-from .index import ExecutionPolicy, Index, _bcast_state, resolve_device
+from .index import (ExecutionPolicy, Index, _bcast_state, _warn_deprecated,
+                    resolve_device)
 from .lbvh import build as lbvh_build
 from .route_table import RouteRule, RouteTable
 
-__all__ = ["DistributedTree"]
+__all__ = ["DistributedTree", "ship_values_baseline"]
 
 #: the local steps' route table: the walk kernels, never brute force
 _WALK_TABLE = RouteTable(rules={"default": RouteRule(bf_max_work=-1)})
@@ -78,10 +79,23 @@ class DistributedTree(Index):
                  indexable_getter=default_indexable_getter, *,
                  policy: ExecutionPolicy | None = None):
         self._init_meta(group, values, indexable_getter, policy)
-        self.local.tree = lbvh_build(self.local._boxes)
-        tree = self.local.tree
-        self.top_lo, self.top_hi = comm.stack(
-            self.group, (tree.node_lo[0], tree.node_hi[0]))
+        # the (R, dim) top boxes and a flag of the local build in one
+        # collective: a build that failed on one rank raises on all
+        dim, boxes = self.dim, self.local._boxes
+        error = None
+        try:
+            tree = self.local.tree = lbvh_build(boxes)
+            row = torch.cat([tree.node_lo[0], tree.node_hi[0],
+                             tree.node_lo.new_ones((1,))])
+        except Exception as err:
+            error = err
+            row = torch.zeros((2 * dim + 1,), dtype=boxes.lo.dtype,
+                              device=self.device)
+        top = comm.stack(self.group, row)
+        comm.raise_together(self.group, (top[:, -1] == 0).cpu(), error,
+                            "the local build")
+        self.top_lo = top[:, :dim].contiguous()
+        self.top_hi = top[:, dim:2 * dim].contiguous()
 
     @classmethod
     def from_local_trees(cls, group, values, tree, top_lo, top_hi,
@@ -357,6 +371,104 @@ class DistributedTree(Index):
             start = sum(lengths[:self.rank])
             return sp.fence(comm.tree_map(
                 lambda a: a[start:start + lengths[self.rank]], summed))
+
+
+    # --- deprecation shims (the old per-kind methods) ---------------------
+    # `queries` is this rank's block, as every query here takes it.
+    def _as_queries(self, queries) -> torch.Tensor:
+        return torch.as_tensor(queries, device=self.device)
+
+    def query_knn(self, queries, k: int):
+        """DEPRECATED: use ``query(nearest(Points(queries), k))``."""
+        _warn_deprecated(
+            "DistributedTree.query_knn", "query_knn(queries, k) is "
+            "deprecated; use query(nearest(G.Points(queries), k=k)) and "
+            "read .distances/.indices")
+        res = self.query(P.nearest(G.Points(self._as_queries(queries)), k=k))
+        return res.distances, res.indices
+
+    def query_radius_count(self, queries, radius):
+        """DEPRECATED: use ``query(intersects(Spheres(...)),
+        callback=callbacks.counting())`` (or ``count``)."""
+        _warn_deprecated(
+            "DistributedTree.query_radius_count", "query_radius_count is "
+            "deprecated; use count(intersects(G.Spheres(centers, radii)))")
+        q = self._as_queries(queries)
+        return self.count(P.intersects(G.Spheres(
+            q, torch.full((q.shape[0],), radius, dtype=q.dtype,
+                          device=q.device))))
+
+    def query_ray_nearest(self, origins, directions, k: int = 1):
+        """DEPRECATED: use ``query(RayNearest(Rays(o, d), k))``."""
+        _warn_deprecated(
+            "DistributedTree.query_ray_nearest", "query_ray_nearest is "
+            "deprecated; use query(P.RayNearest(G.Rays(o, d), k))")
+        res = self.query(P.RayNearest(G.Rays(
+            self._as_queries(origins), self._as_queries(directions)), k))
+        return res.distances, res.indices
+
+    def query_callback(self, predicates_maker, callback, state0, queries,
+                       combine=None):
+        """DEPRECATED: use ``query(predicates, callback=(cb, state0),
+        policy=policy.override(combine=...))`` with a real predicate
+        batch."""
+        _warn_deprecated(
+            "DistributedTree.query_callback", "query_callback(maker, cb, "
+            "state0, queries) is deprecated; build the predicate batch "
+            "yourself and call query(predicates, callback=(cb, state0))")
+        preds = predicates_maker(self._as_queries(queries))
+        return self.query(preds, callback=(callback, state0),
+                          policy=self.policy.override(combine=combine))
+
+    def query_values_to_origin(self, queries, radius, capacity: int):
+        """DEPRECATED alias of :func:`ship_values_baseline`."""
+        _warn_deprecated(
+            "DistributedTree.query_values_to_origin", "query_values_to_"
+            "origin is deprecated; use query(predicates, policy=policy."
+            "override(ship_values=True)) to ship matched values")
+        return ship_values_baseline(self, queries, radius, capacity)
+
+
+def ship_values_baseline(tree: DistributedTree, queries, radius,
+                         capacity: int):
+    """DEPRECATED fixed-capacity baseline of value shipping: every rank
+    collects up to `capacity` matches of every query within `radius`
+    (this rank's block of `queries`, all-gathered) and ships their
+    COORDINATES back to the rank that asked, instead of reducing where
+    the data live. Returns this rank's (q, R, capacity, dim) values (inf
+    where no match) and (q, R) per-rank counts. Requires Points values.
+    New code wants ``query(preds,
+    policy=tree.policy.override(ship_values=True))``, which ships exactly
+    the matched set for any values and any predicate kind."""
+    _warn_deprecated(
+        "ship_values_baseline", "ship_values_baseline is deprecated; use "
+        "query(predicates, policy=policy.override(ship_values=True)) — "
+        "QueryResult.values then carries the matched values. The helper "
+        "remains only as the fixed-capacity HLO baseline for "
+        "benchmarks/bench_distributed.py")
+    if not isinstance(tree.values, G.Points):
+        raise TypeError("ship_values_baseline requires Points values")
+    q_local = tree._as_queries(queries)
+    R, dim = tree.R, tree.dim
+    qloc = tree._check_q(q_local, capacity)
+    if qloc == 0:
+        return (torch.zeros((0, R, capacity, dim), device=tree.device),
+                torch.zeros((0, R), dtype=torch.int32, device=tree.device))
+    q_all = comm.all_gather(tree.group, q_local)
+    preds = P.intersects(G.Spheres(q_all, torch.full(
+        (q_all.shape[0],), radius, dtype=q_all.dtype, device=tree.device)))
+    cb, s0 = CB.collect_hits(capacity)
+    s0 = _bcast_state(s0, len(preds), tree.device)
+    count, idxs, _ = tree.local._query_callback_impl(
+        preds, cb, s0, tree._walk(tree.policy))
+    vals = tree.values.coords[idxs.clamp_min(0).to(torch.int64)]
+    vals = torch.where((idxs >= 0)[..., None], vals,
+                       torch.full((), float("inf"), dtype=vals.dtype,
+                                  device=vals.device))
+    vals, count = comm.all_to_all(tree.group, (
+        vals.reshape(R, qloc, capacity, dim),
+        count.to(torch.int32).reshape(R, qloc)))
+    return vals.permute(1, 0, 2, 3), count.permute(1, 0)
 
 
 def merge_knn(d, gi, k: int):

@@ -144,10 +144,24 @@ class EngineStats:
     cache_misses = _counter_prop("cache_misses", "executable-cache misses")
     jit_traces = _counter_prop("jit_traces", "cache entries made")
 
-    def __init__(self, registry=None):
+    def __init__(self, registry=None, **legacy):
         self.registry = registry if registry is not None else MetricsRegistry()
         self._counters = {f: self.registry.counter(f"engine.{f}")
                           for f in self._FIELDS}
+        if legacy:
+            # the API-v1 spelling: fields seeded by keyword, warned once
+            unknown = sorted(set(legacy) - set(self._FIELDS))
+            if unknown:
+                raise TypeError(f"EngineStats got unexpected fields {unknown}")
+            from .index import _warn_deprecated
+            _warn_deprecated(
+                "EngineStats.kwargs",
+                "constructing EngineStats with field keyword arguments is "
+                "deprecated: the fields are now counters in a telemetry "
+                "MetricsRegistry (stats.registry); assign fields or use "
+                "registry.counter(...) instead")
+            for k, v in legacy.items():
+                self._counters[k].set(int(v))
 
     def snapshot(self) -> EngineStatsSnapshot:
         return EngineStatsSnapshot(
@@ -374,7 +388,7 @@ class QueryEngine:
     # An entry's only inputs are the index and the bucket's predicates, so
     # a refit or rebuild at the same N reuses the warm entry.
 
-    def _note_trace(self):
+    def _note_trace(self):  # reprolint: holds=_cache_lock
         """Count one cache entry made. Called from _cached's critical
         section, so the count is exact under concurrent schedulers."""
         self.stats.jit_traces += 1
@@ -482,6 +496,33 @@ class QueryEngine:
         fn, hit = self._cached(key, lambda: self._knn_body(route, k))
         out, kus = self._launch(fn, (bvh, preds), route=route,
                                 op="ray_nearest", hit=hit)
+        return out, ExecInfo(route, hit, kus)
+
+    def exec_collect(self, bvh, predicates, capacity: int):
+        """Cached ``collect_hits`` pass of an Intersects bucket through
+        the callback route (the callback kernel where ``route_callback``
+        picks it): ((counts, idx_buf (Q, capacity)), ExecInfo), full
+        counts and the first `capacity` matches in walk order. The sharded
+        executor's local fill, which must not take brute force or the
+        spatial kernel."""
+        cb, _ = CB.collect_hits(capacity)
+        with self._route_span("collect") as rsp:
+            route = self.route_callback(bvh, predicates, cb)
+            rsp.annotate(route=route)
+        key = (route, "collect", capacity) + self._shape_key(bvh, predicates)
+
+        def make():
+            def body(index, preds):
+                hits, s0 = CB.collect_hits(capacity)
+                s0 = _bcast_state(s0, len(preds), index.device)
+                count, idxs, _ = index._query_callback_impl(
+                    preds, hits, s0, index.policy)
+                return count, idxs
+            return body
+
+        fn, hit = self._cached(key, make)
+        out, kus = self._launch(fn, (bvh, predicates), route=route,
+                                op="collect", hit=hit)
         return out, ExecInfo(route, hit, kus)
 
     def _knn_body(self, route, k):

@@ -39,6 +39,7 @@ here once:
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, NamedTuple
 
 import torch
@@ -133,6 +134,38 @@ class ExecutionPolicy:
         return dataclasses.replace(self, **kw) if kw else self
 
 
+# --- deprecation shims ------------------------------------------------------
+
+_SEEN_DEPRECATIONS: set = set()
+
+
+def _warn_deprecated(key: str, msg: str):
+    """One DeprecationWarning per `key` and process: the API-v1
+    spellings forward to the current ones and say so once."""
+    if key in _SEEN_DEPRECATIONS:
+        return
+    _SEEN_DEPRECATIONS.add(key)
+    warnings.warn(msg, DeprecationWarning, stacklevel=3)
+
+
+class _LegacyTriple(tuple):
+    """Old storage-query result: a (values, indices, offsets) 3-tuple with
+    an ``overflow`` attribute. Returned only by the deprecated
+    ``query(space, predicates)`` spelling."""
+
+    def __new__(cls, triple, overflow: bool = False):
+        obj = super().__new__(cls, triple)
+        obj.overflow = overflow
+        return obj
+
+
+def _is_legacy_space(arg) -> bool:
+    """The API-v1 constructors took (space, values, ...): a leading None,
+    torch device or device name marks the old spelling (values are never
+    one of those)."""
+    return arg is None or isinstance(arg, (torch.device, str))
+
+
 def _bcast_state(state, nq, device):
     """An unbatched callback state (a tensor, a Python number, or a tuple
     / list of them) as fresh tensors with a leading (nq,) axis on
@@ -177,7 +210,7 @@ class Index:
     def bounds(self):
         raise NotImplementedError
 
-    def query(self, predicates, *, callback=None, out=None,
+    def query(self, predicates, *_legacy, callback=None, out=None,
               capacity: int | None = None,
               policy: ExecutionPolicy | None = None) -> QueryResult:
         """One polymorphic query, dispatched on the predicate kind; the
@@ -189,7 +222,13 @@ class Index:
                   once; its outputs land CSR in ``result.values``.
         capacity: per-query CSR width shorthand (== policy.capacity).
         policy:   full per-call ExecutionPolicy override.
-        Predicates are moved to the index's device."""
+        Predicates are moved to the index's device. The API-v1 spelling
+        ``query(space, predicates[, capacity])`` still works, warned once
+        (:meth:`_legacy_query`)."""
+        if _legacy:
+            return self._legacy_query(predicates, *_legacy, callback=callback,
+                                      out=out, capacity=capacity,
+                                      policy=policy)
         pol = policy if policy is not None else self.policy
         if capacity is not None:
             pol = pol.override(capacity=capacity)
@@ -209,9 +248,17 @@ class Index:
         raise TypeError(f"query() cannot dispatch predicate kind "
                         f"{type(predicates).__name__}")
 
-    def count(self, predicates, *, policy: ExecutionPolicy | None = None):
+    def count(self, predicates, *_legacy,
+              policy: ExecutionPolicy | None = None):
         """Per-query match counts of an Intersects or ray batch (every hit
-        of a ray; no fill pass)."""
+        of a ray; no fill pass). ``count(space, predicates)`` is the
+        API-v1 spelling, warned once."""
+        if _legacy:
+            _warn_deprecated(
+                "count", "count(space, predicates) is deprecated; the "
+                "execution space lives in ExecutionPolicy now — call "
+                "count(predicates)")
+            predicates = _legacy[0]
         if not isinstance(predicates, (P.Intersects,) + P.RAY_KINDS):
             raise TypeError(f"count() takes Intersects or ray predicates, "
                             f"got {type(predicates).__name__}")
@@ -288,6 +335,57 @@ class Index:
         return QueryResult(values=out_fn(preds, res.values, res.indices, t),
                            indices=res.indices, offsets=res.offsets,
                            overflow=res.overflow)
+
+    # --- deprecation shims (API v1 spellings) -----------------------------
+    # The execution space was the first argument; it is the policy's
+    # device now, so the shims ignore it (the index's device holds).
+    def _legacy_query(self, space, predicates, *rest, callback=None,
+                      out=None, capacity=None, policy=None):
+        _warn_deprecated(
+            "query", "query(space, predicates, ...) is deprecated; the "
+            "execution space lives in ExecutionPolicy now — call "
+            "query(predicates, ...) (returns a QueryResult NamedTuple)")
+        if rest:
+            capacity = rest[0]
+        if callback is not None:
+            cb, s0 = callback
+            predicates = predicates.to(self.device)
+            s0 = _bcast_state(s0, len(predicates), self.device)
+            return self._query_callback_impl(
+                predicates, cb, s0, policy or self.policy)
+        res = self.query(predicates, out=out, capacity=capacity,
+                         policy=policy)
+        if out is not None:
+            return res.values, res.offsets
+        return _LegacyTriple((res.values, res.indices, res.offsets),
+                             res.overflow)
+
+    def query_callback(self, space, predicates, callback, init_state):
+        """DEPRECATED: use ``query(predicates, callback=(cb, state0))``
+        (state0 unbatched; this shim keeps the old batched contract)."""
+        _warn_deprecated(
+            "query_callback", "query_callback(space, preds, cb, state) is "
+            "deprecated; use query(predicates, callback=(cb, state0)) with "
+            "an unbatched state0")
+        return self._query_callback_impl(predicates.to(self.device),
+                                         callback, init_state, self.policy)
+
+    def query_out(self, space, predicates, out_fn,
+                  capacity: int | None = None):
+        """DEPRECATED: use ``query(predicates, out=out_fn)``."""
+        _warn_deprecated(
+            "query_out", "query_out(space, preds, out_fn) is deprecated; "
+            "use query(predicates, out=out_fn)")
+        res = self.query(predicates, out=out_fn, capacity=capacity)
+        return res.values, res.offsets
+
+    def knn(self, space, predicates):
+        """DEPRECATED: use ``query(nearest(geom, k))`` — returns a
+        QueryResult with .distances/.indices."""
+        _warn_deprecated(
+            "knn", "knn(space, predicates) is deprecated; use "
+            "query(nearest(geom, k)) and read .distances/.indices")
+        return self._knn_impl(predicates.to(self.device), self.policy)
 
     # --- backend SPI ------------------------------------------------------
     def _query_callback_impl(self, predicates, callback, state0, pol):

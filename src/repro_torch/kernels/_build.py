@@ -10,6 +10,16 @@ the stream it is given, allocates nothing and returns
 ``cudaGetLastError()``; :func:`check` turns a nonzero code into an
 exception.
 
+ctypes converts a Python int to a ``c_int`` argument without a range
+check: 2^31 + 5 arrives as -2147483643 and 2^40 as 0, so a size past
+int32 would launch a kernel on a wrong size and raise nothing. The entry
+points :func:`function` returns are guarded: every integer argument is
+checked against the range of its ctypes type first, and one outside it
+raises OverflowError, naming the entry and the argument, before any
+launch. ``python -m repro_torch.analysis`` (KRN001) checks that every C
+entry is reached through :func:`function` and its code through
+:func:`check`.
+
 The compiler's own contraction into FMA is off (``--fmad=false``) and
 fast math is never on: the traversal kernels place their fused
 multiply-adds explicitly, so their float32 distance tests reproduce the
@@ -27,7 +37,7 @@ import time
 from pathlib import Path
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "function", "check",
-           "build_log"]
+           "build_log", "Entry", "entries"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -111,18 +121,84 @@ def _library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def function(lib: str, fn: str, argtypes):
-    """The C entry point `fn` of library `lib`, typed: pointers and the
-    stream are ``ctypes.c_void_p``, sizes ``ctypes.c_int``; every entry
-    point returns a ``cudaError_t`` as int."""
+_INT_TYPES = (ctypes.c_int, ctypes.c_uint, ctypes.c_long, ctypes.c_ulong,
+              ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_short,
+              ctypes.c_ushort, ctypes.c_int8, ctypes.c_uint8, ctypes.c_int16,
+              ctypes.c_uint16, ctypes.c_int32, ctypes.c_uint32,
+              ctypes.c_int64, ctypes.c_uint64, ctypes.c_size_t,
+              ctypes.c_ssize_t)
+
+
+def _int_range(ctype):
+    """(lowest, highest) int a ctypes integer type passes unchanged, or
+    None for a type that is not an integer (pointers, floats)."""
+    if ctype not in _INT_TYPES:
+        return None
+    bits = 8 * ctypes.sizeof(ctype)
+    if ctype(-1).value == -1:
+        return -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+    return 0, (1 << bits) - 1
+
+
+class Entry:
+    """A C entry point behind the int guard: calling it checks every
+    integer argument (the sizes; not the pointers) against the range of
+    its ctypes type and raises OverflowError, naming the entry and the
+    argument, before any launch; then it calls `raw`. ``calls`` counts
+    the calls that passed."""
+
+    def __init__(self, lib: str, name: str, raw, argtypes):
+        self.lib, self.name, self.raw = lib, name, raw
+        self.argtypes = list(argtypes)
+        #: (position, lowest, highest) of each integer argument
+        self.int_args = [(i, *r) for i, r in
+                         enumerate(map(_int_range, self.argtypes))
+                         if r is not None]
+        self.calls = 0
+
+    def check_args(self, args):
+        """Raise OverflowError on the first integer argument outside its
+        type's range (TypeError on a wrong argument count). A value that
+        is not a number is left to ctypes, which refuses it."""
+        if len(args) != len(self.argtypes):
+            raise TypeError(f"{self.lib}.{self.name} takes "
+                            f"{len(self.argtypes)} arguments, got {len(args)}")
+        for i, lo, hi in self.int_args:
+            a = args[i]
+            try:
+                ok = lo <= a <= hi
+            except TypeError:
+                continue
+            if not ok:
+                raise OverflowError(
+                    f"{self.lib}.{self.name}: argument {i} "
+                    f"({self.argtypes[i].__name__}) is {int(a)}, outside "
+                    f"[{lo}, {hi}]; not launched")
+
+    def __call__(self, *args):
+        self.check_args(args)
+        self.calls += 1
+        return self.raw(*args)
+
+
+def function(lib: str, fn: str, argtypes) -> Entry:
+    """The C entry point `fn` of library `lib`, typed and guarded
+    (:class:`Entry`): pointers and the stream are ``ctypes.c_void_p``,
+    sizes ``ctypes.c_int``; every entry point returns a ``cudaError_t``
+    as int."""
     key = (lib, fn)
     f = _FUNCS.get(key)
     if f is None:
-        f = getattr(_library(lib), fn)
-        f.argtypes = list(argtypes)
-        f.restype = ctypes.c_int
-        _FUNCS[key] = f
+        raw = getattr(_library(lib), fn)
+        raw.argtypes = list(argtypes)
+        raw.restype = ctypes.c_int
+        f = _FUNCS[key] = Entry(lib, fn, raw, argtypes)
     return f
+
+
+def entries() -> dict:
+    """{(lib, fn): Entry} of every entry point loaded in this process."""
+    return dict(_FUNCS)
 
 
 def check(lib: str, err: int, what: str) -> None:

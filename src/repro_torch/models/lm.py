@@ -9,7 +9,7 @@ stacked layers is a loop. Weights keep the reference's layout, (d_in,
 d_out) used as ``x @ w``, so ``convert.lm_from_numpy`` copies the JAX
 parameter tree leaf for leaf; norm parameters are float32, the rest in
 ``cfg.dtype``. The other families raise ``NotImplementedError`` naming
-what they wait for (ROADMAP Queue 1 item 15).
+what they wait for (ROADMAP Queue 1, the LM substrate).
 """
 from __future__ import annotations
 
@@ -24,8 +24,8 @@ from .layers import (apply_mlp, apply_norm, embed_tokens, logits_out,
 
 __all__ = ["LM", "DenseBlock", "Norm", "MLP"]
 
-#: what each family that does not run yet waits for (ROADMAP Queue 1
-#: item 15)
+#: what each family that does not run yet waits for (ROADMAP Queue 1,
+#: the LM substrate)
 _WAITING = {
     "moe": "moe.py (the MoE layer and its router)",
     "mla_moe": "MLA in attention.py and moe.py",
@@ -117,8 +117,8 @@ class LM(nn.Module):
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not ported yet; the "
                 f"port runs the dense family, and {cfg.family!r} waits for "
-                f"{_WAITING.get(cfg.family, 'its modules')} (ROADMAP Queue 1 "
-                f"item 15)")
+                f"{_WAITING.get(cfg.family, 'its modules')} (ROADMAP Queue 1, "
+                f"the LM substrate)")
         device = resolve_device(device)
         self.cfg = cfg
         self.embed = nn.Module()

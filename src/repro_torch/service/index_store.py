@@ -30,6 +30,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
+import time
 
 import torch
 
@@ -87,7 +88,9 @@ class IndexStore:
         self.engine = engine if engine is not None else E.QueryEngine()
         self.rebuild_threshold = float(rebuild_threshold)
         self.keep_versions = int(keep_versions)
-        self._lock = threading.Lock()
+        # a condition over a plain lock: pin_published waits on it for a
+        # version that _swap has not published yet
+        self._lock = threading.Condition(threading.Lock())
         self._live: dict[str, IndexVersion] = {}
         self._history: dict[str, dict[int, IndexVersion]] = {}
         self._pins: dict[tuple[str, int], int] = {}
@@ -117,6 +120,30 @@ class IndexStore:
         with self._lock:
             entry = (self._live[name] if version is None
                      else self._history[name][version])
+            key = (entry.name, entry.version)
+            self._pins[key] = self._pins.get(key, 0) + 1
+            return entry
+
+    def pin_published(self, name: str, version: int,
+                      timeout: float) -> IndexVersion:
+        """Pin `version` of `name` once this store has published it,
+        waiting at most `timeout` seconds (TimeoutError after); a version
+        already trimmed from the history raises KeyError. A sharded
+        pipeline's follower pins the version its leader pinned with
+        this."""
+        deadline = time.monotonic() + timeout
+        with self._lock:
+            while name not in self._live \
+                    or self._live[name].version < version:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    have = self._live[name].version \
+                        if name in self._live else None
+                    raise TimeoutError(
+                        f"index {name!r} version {version} was not published "
+                        f"within {timeout} s (this store holds {have})")
+                self._lock.wait(left)
+            entry = self._history[name][version]
             key = (entry.name, entry.version)
             self._pins[key] = self._pins.get(key, 0) + 1
             return entry
@@ -204,9 +231,10 @@ class IndexStore:
             hist = self._history.setdefault(entry.name, {})
             hist[entry.version] = entry
             self._trim(entry.name)
+            self._lock.notify_all()
         return entry
 
-    def _trim(self, name: str):  # holds _lock
+    def _trim(self, name: str):  # reprolint: holds=_lock
         """Evict unpinned versions beyond keep_versions (lock held). The
         newest keep_versions entries are always retained (a pinned old
         version must never push the LIVE version out of history), and

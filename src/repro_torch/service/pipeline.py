@@ -57,11 +57,38 @@ service times per (group key, bucket). Requests without a deadline ride
 with whoever closes the bucket, capped by ``max_linger_us`` so an idle
 trickle still flows.
 
-A ``ShardedIndexStore`` is served at a world of one rank only. At more
-ranks the constructor raises: every rank's scheduler would batch by its
-own arrival times, so the ranks would form different groups and their
-collectives would not line up (a leader that forms the groups and
-followers that run them is a later item of ROADMAP.md).
+A ``ShardedIndexStore`` of R > 1 ranks runs one pipeline a rank, every
+rank a process, and ONE scheduler that all ranks follow. Each rank's own
+scheduler would batch by its own arrival times, so the ranks would form
+different groups and their collectives would not line up:
+
+  * the LEADER is rank 0 of the store's group. Clients submit there (a
+    follower's ``submit`` raises), and its scheduler forms the groups as
+    above. Before it runs a group it broadcasts it on the store's
+    serving group (a ``comm.Work``: kind, k, bucket, the members' rows,
+    the index name, the version it pinned, the bucket's arrays);
+  * every FOLLOWER's scheduler thread receives the groups and runs them
+    in the leader's order (``ShardedExecutor.execute_group``) until the
+    leader's stop, which ``close()`` on the leader sends. A follower pins
+    the version the leader pinned, waiting (bounded by the store's
+    timeout) for its own maintenance thread to publish it, or taking it
+    from its history when it is a step ahead;
+  * MAINTENANCE: ``create_index`` and ``update_index`` are the leader's,
+    with the GLOBAL values (every rank's block in rank order; rank r
+    indexes block r). The leader's maintenance thread broadcasts each
+    build and each coalesced update (``comm.broadcast_object``) on the
+    store's maintenance group, and every rank's maintenance thread runs
+    it in that order, concurrently with serving;
+  * a failure on any rank does not split the world: the store and the
+    executor agree on it (``comm.RankFailure`` on every rank), so every
+    rank publishes an update or none does (each counts it in
+    ``maintenance_errors``), and a failed group fails the leader's
+    tickets for that group and leaves the ranks in step;
+  * while idle the leader sends a heartbeat on both groups every
+    ``HEARTBEAT_S``, so no follower waits in a collective past its
+    timeout. A follower's ``stats()`` counts the groups it served in
+    ``batches`` (and their rows), the requests of groups that failed in
+    ``failed``, and the maintenance it ran.
 """
 from __future__ import annotations
 
@@ -72,16 +99,23 @@ import time
 
 import torch
 
+from ..core import comm
 from ..core import engine as E
 from ..core.access import default_indexable_getter
+from ..core.distributed import DistributedTree
 from ..telemetry import MetricsRegistry
 from ..telemetry import tracer as TEL
-from .batcher import Batcher, Request, bucket_size, validate_kind
+from .batcher import Batcher, Group, Request, bucket_size, validate_kind
 from .index_store import IndexStore, IndexVersion
 from .server import Response, ServiceConfig, execute_group
 
 __all__ = ["PipelineConfig", "PipelineStats", "PipelineStatsSnapshot",
            "Ticket", "ServingPipeline", "REQUEST_PHASES"]
+
+#: over a sharded store of R > 1 ranks, the longest the leader stays
+#: silent on either group while idle, in seconds: a heartbeat keeps the
+#: followers' waiting collectives inside their timeout
+HEARTBEAT_S = 1.0
 
 #: request phase names, in wall-clock order; the phases tile the request's
 #: lifetime exactly: submit+queue+batch = queue_wait_us and
@@ -212,18 +246,47 @@ class PipelineStats:
     queue_depth = _gauge_prop("queue_depth")
     maintenance_pending = _gauge_prop("maintenance_pending")
 
-    def __init__(self, registry=None):
+    def __init__(self, registry=None, **legacy):
         self.registry = registry if registry is not None else MetricsRegistry()
         self._counters = {f: self.registry.counter(f"pipeline.{f}")
                           for f in self._COUNTER_FIELDS}
         self._gauges = {f: self.registry.gauge(f"pipeline.{f}")
                         for f in self._GAUGE_FIELDS}
+        if legacy:
+            # the API-v1 spelling: fields seeded by keyword, warned once
+            unknown = sorted(set(legacy) - set(self._FIELDS))
+            if unknown:
+                raise TypeError(
+                    f"PipelineStats got unexpected fields {unknown}")
+            from ..core.index import _warn_deprecated
+            _warn_deprecated(
+                "PipelineStats.kwargs",
+                "constructing PipelineStats with field keyword arguments is "
+                "deprecated: the fields are now metrics in a telemetry "
+                "MetricsRegistry (stats.registry); assign fields or use the "
+                "registry instead")
+            for k, v in legacy.items():
+                if k == "max_queue_depth":
+                    self._gauges["queue_depth"].note_high(int(v))
+                else:
+                    setattr(self, k, int(v))
 
     @property
     def max_queue_depth(self) -> int:
         """High-water mark of the queue-depth gauge — maintained inside
         the gauge's own lock, so it is race-free by construction."""
         return self._gauges["queue_depth"].high
+
+    @max_queue_depth.setter
+    def max_queue_depth(self, v):
+        from ..core.index import _warn_deprecated
+        _warn_deprecated(
+            "PipelineStats.max_queue_depth",
+            "assigning PipelineStats.max_queue_depth is deprecated: the "
+            "high-water mark now updates atomically inside every "
+            "queue_depth change; direct writes can only EXTEND it "
+            "(note_high), never lower it")
+        self._gauges["queue_depth"].note_high(int(v))
 
     @property
     def occupancy(self) -> float:
@@ -285,7 +348,9 @@ class Ticket:
 class ServingPipeline:
     """Deadline-aware async frontend over IndexStore + Batcher + engine.
     Without a `store` it makes one on `device` (None: the CUDA card,
-    raising without one; "cpu" for the plain twins)."""
+    raising without one; "cpu" for the plain twins). Over a sharded store
+    of R > 1 ranks every rank makes one, and rank 0 leads (module
+    docstring)."""
 
     #: lock discipline. _closing is a threading.Event, atomic on its own,
     #: because it is read under both conditions.
@@ -306,13 +371,13 @@ class ServingPipeline:
             self.store = IndexStore(
                 self.engine, rebuild_threshold=svc.rebuild_threshold,
                 device=device)
-        if getattr(self.store, "ranks", 1) > 1:
-            raise NotImplementedError(
-                "ServingPipeline serves a ShardedIndexStore of one rank only "
-                f"(this one spans {self.store.ranks}): each rank's scheduler "
-                "batches by its own arrival times, so the ranks' groups and "
-                "collectives would not line up; use QueryServer.handle with "
-                "the same requests on every rank")
+        #: this process's rank in a sharded store's group (0 leads) and
+        #: the group's size; 0 and 1 for a single-device store
+        self.rank = getattr(self.store, "rank", 0)
+        self.ranks = getattr(self.store, "ranks", 1)
+        #: the exception that ended a follower's loops early (a broken
+        #: group, a leader gone), None while they run or after the stop
+        self.error: BaseException | None = None
         self.batcher = Batcher(svc.min_bucket)
         dev = self.store.device
         #: the maintenance thread's own stream on the card (None on the CPU)
@@ -330,13 +395,23 @@ class ServingPipeline:
         self._maint: collections.OrderedDict[str, object] = \
             collections.OrderedDict()
         self._maint_inflight = 0
+        # the leader's maintenance-group broadcasts and the collectives
+        # that follow each, one message at a time (create_index runs on
+        # the caller's thread, updates and heartbeats on the maintenance
+        # thread)
+        self._maint_io = threading.Lock()
+        # when the leader last sent on each group (its scheduler and its
+        # maintenance thread each write their own)
+        self._sent_serve = self._sent_maint = time.perf_counter()
 
+        leader = self.rank == 0
         self._scheduler = threading.Thread(
-            target=self._run_scheduler, name="repro-pipeline-scheduler",
-            daemon=True)
+            target=self._run_scheduler if leader else self._run_follower,
+            name="repro-pipeline-scheduler", daemon=True)
         self._maintainer = threading.Thread(
-            target=self._run_maintenance, name="repro-pipeline-maintenance",
-            daemon=True)
+            target=self._run_maintenance if leader
+            else self._follow_maintenance,
+            name="repro-pipeline-maintenance", daemon=True)
         self._scheduler.start()
         self._maintainer.start()
 
@@ -349,27 +424,48 @@ class ServingPipeline:
 
     def close(self, timeout: float = 30.0):
         """Drain: serve everything already submitted, finish queued
-        maintenance, stop both threads. Idempotent."""
-        self._closing.set()
-        with self._cv:
-            self._cv.notify_all()
-        with self._maint_cv:
-            self._maint_cv.notify_all()
+        maintenance, stop both threads. Idempotent. On the leader of a
+        sharded store this also stops every follower; on a follower it
+        waits (at most `timeout` seconds a thread) for the leader's
+        stop."""
+        if self.rank == 0:
+            self._closing.set()
+            with self._cv:
+                self._cv.notify_all()
+            with self._maint_cv:
+                self._maint_cv.notify_all()
         self._scheduler.join(timeout)
         self._maintainer.join(timeout)
+
+    def _follower_refuses(self, what: str):
+        if self.rank != 0:
+            raise RuntimeError(
+                f"{what} on rank {self.rank}: this pipeline follows rank 0 "
+                f"of its {self.ranks}-rank store, which forms every group and "
+                f"orders every index write; call {what} on rank 0")
 
     # -- index lifecycle ----------------------------------------------------
     def create_index(self, name: str, values,
                      indexable_getter=default_indexable_getter) -> IndexVersion:
-        """Synchronous initial build — serving needs version 1 to exist."""
-        return self.store.build(name, values, indexable_getter)
+        """Synchronous initial build — serving needs version 1 to exist.
+        Over a sharded store of R > 1 ranks this is the leader's, with the
+        global values: every rank builds its block."""
+        if self.ranks == 1:
+            return self.store.build(name, values, indexable_getter)
+        self._follower_refuses("create_index")
+        with self._maint_io:
+            host = self._share("build", name, values, indexable_getter)
+            return self.store.build(name, self._block(host),
+                                    indexable_getter)
 
     def update_index(self, name: str, values):
         """Enqueue a refresh of `name` to moved `values` and return
         immediately; the maintenance worker refits-or-rebuilds a shadow
         index and publishes it via the store's atomic swap. Updates for
         the same name coalesce to the newest values (a moving-points
-        stream only ever needs the latest geometry)."""
+        stream only ever needs the latest geometry). Over a sharded store
+        of R > 1 ranks this is the leader's, with the global values."""
+        self._follower_refuses("update_index")
         ready = None
         if self.maintenance_stream is not None:
             # the values may still be in the making on the caller's stream
@@ -401,7 +497,9 @@ class ServingPipeline:
                deadline_us: float | None = None) -> Ticket:
         """Enqueue one request; returns a Ticket future. `deadline_us` is
         the total latency budget from this call; None = best effort
-        (bounded by max_linger_us of batching delay)."""
+        (bounded by max_linger_us of batching delay). Over a sharded
+        store of R > 1 ranks clients submit to the leader only."""
+        self._follower_refuses("submit")
         validate_kind(request.kind)
         with TEL.span("pipeline.submit", kind=request.kind):
             ticket = Ticket(request, deadline_us, time.perf_counter())
@@ -435,10 +533,22 @@ class ServingPipeline:
     def warmup(self, index: str, kinds_ks=None, max_bucket=None, dim=None):
         """Prepare the bucket ladder through the shared executable cache
         (same contract as ``QueryServer.warmup`` — all three kinds by
-        default)."""
-        from .server import QueryServer
-        QueryServer(self.store, self.engine, self.config.service).warmup(
-            index, kinds_ks, max_bucket, dim)
+        default). Over a sharded store of R > 1 ranks the leader sends one
+        best-effort request a (kind, k, bucket) through its own scheduler,
+        so every rank's cache warms in the same order (they count in
+        ``stats()``); on a follower this returns at once."""
+        from .server import QueryServer, warmup_requests
+        if self.ranks == 1:
+            QueryServer(self.store, self.engine, self.config.service).warmup(
+                index, kinds_ks, max_bucket, dim)
+            return
+        if self.rank != 0:
+            return
+        dim = dim if dim is not None else self.store.get(index).dim
+        for reqs in warmup_requests(self.config.service, index, kinds_ks,
+                                    max_bucket, dim):
+            for t in [self.submit(r) for r in reqs]:
+                t.result(self.store.timeout)
 
     # -- scheduler ----------------------------------------------------------
     # reprolint: holds=_cv
@@ -490,20 +600,84 @@ class ServingPipeline:
         return None, None, wait
 
     def _run_scheduler(self):
+        beat = HEARTBEAT_S if self.ranks > 1 else None
         while True:
             with self._cv:
                 while True:
-                    key, taken, extra = self._pick(time.perf_counter())
+                    now = time.perf_counter()
+                    key, taken, extra = self._pick(now)
                     if taken is not None:
                         self._stats.queue_depth -= len(taken)
                         break
                     if self._closing.is_set():
-                        return
+                        break
                     # extra is seconds until the earliest forced close (or
-                    # None when idle); clamp so a just-passed deadline
-                    # doesn't busy-spin
+                    # None when idle); a leader also wakes for its next
+                    # heartbeat. Clamp so a just-passed deadline doesn't
+                    # busy-spin
+                    if beat is not None:
+                        quiet = self._sent_serve + beat - now
+                        if quiet <= 0:
+                            break
+                        extra = quiet if extra is None else min(extra, quiet)
                     self._cv.wait(None if extra is None else max(extra, 1e-4))
-            self._dispatch(key, taken, extra, time.perf_counter())
+            if taken is not None:
+                self._dispatch(key, taken, extra, time.perf_counter())
+            elif self._closing.is_set():
+                if self.ranks > 1:
+                    self._send_work(comm.Work(comm.STOP))
+                return
+            else:
+                self._send_work(comm.Work(comm.NOP))
+
+    def _send_work(self, work: comm.Work):
+        """Hand `work` to the followers (the leader's scheduler thread)."""
+        comm.broadcast_object(self.store._serve, work)
+        self._sent_serve = time.perf_counter()
+
+    def _run_follower(self):
+        """A follower's scheduler thread: run the leader's groups in the
+        leader's order until its stop."""
+        store, svc = self.store, self.config.service
+        while True:
+            try:
+                work = comm.broadcast_object(store._serve)
+            except Exception as err:     # the group broke: nothing more comes
+                self.error = err
+                return
+            if work.kind == comm.STOP:
+                self._closing.set()
+                return
+            if work.kind == comm.NOP:
+                continue
+            group = Group(key=(work.index, work.kind, work.k,
+                               work.a.shape[1]),
+                          a=work.a, b=work.b, bucket=work.bucket,
+                          n_real=work.n_real, members=work.members)
+            entry = error = None
+            try:
+                entry = store.pin_published(work.index, work.version,
+                                            store.timeout)
+            except Exception as err:     # agreed on inside the group
+                error = err
+            ok = True
+            try:
+                with TEL.span("pipeline.follow", kind=work.kind,
+                              bucket=work.bucket, version=work.version):
+                    store.executor.execute_group(svc, entry, group, error)
+            except Exception:
+                ok = False
+            finally:
+                if entry is not None:
+                    store.release(entry)
+            with self._cv:
+                s = self._stats
+                if ok:
+                    s.batches += 1
+                    s.batch_rows += group.n_real
+                    s.batch_slots += group.bucket
+                else:
+                    s.failed += len(group.members)
 
     def _dispatch(self, key: tuple, tickets: list[Ticket], reason: str,
                   t_picked: float | None = None):
@@ -529,6 +703,12 @@ class ServingPipeline:
                     t._fail(miss)
                 return
             try:
+                if self.ranks > 1:
+                    self._send_work(comm.Work(
+                        group.kind, k=group.k, bucket=group.bucket,
+                        n_real=group.n_real, members=group.members,
+                        index=group.index, version=entry.version,
+                        a=group.a, b=group.b))
                 responses = execute_group(self.engine, self.config.service,
                                           entry, group)
             except Exception as err:
@@ -634,51 +814,143 @@ class ServingPipeline:
 
     # -- maintenance --------------------------------------------------------
     def _run_maintenance(self):
+        beat = HEARTBEAT_S if self.ranks > 1 else None
         while True:
+            item = None
             with self._maint_cv:
-                while not self._maint:
-                    if self._closing.is_set():
-                        return
-                    self._maint_cv.wait()
-                name, (values, ready) = self._maint.popitem(last=False)
-                self._maint_inflight += 1
+                while not self._maint and not self._closing.is_set():
+                    if beat is None:
+                        self._maint_cv.wait()
+                        continue
+                    quiet = self._sent_maint + beat - time.perf_counter()
+                    if quiet <= 0:
+                        break
+                    self._maint_cv.wait(quiet)
+                if self._maint:
+                    item = self._maint.popitem(last=False)
+                    self._maint_inflight += 1
+            if item is None:
+                # closing with nothing queued, or a quiet heartbeat
+                closing = self._closing.is_set()
+                if beat is not None:
+                    with self._maint_io:
+                        comm.broadcast_object(
+                            self.store._maint,
+                            (comm.STOP if closing else comm.NOP,))
+                        self._sent_maint = time.perf_counter()
+                if closing:
+                    return
+                continue
+            name, (values, ready) = item
             action, failed = None, False
             try:
                 # the slow part: shadow build/refit outside every lock the
                 # serving path touches; publication inside is one dict swap
                 with TEL.span("pipeline.maintenance", index=name):
-                    action = self._update(name, values, ready)
+                    action = self._on_stream(
+                        lambda: self._update(name, values), ready)
             except Exception:
                 failed = True
             finally:
-                # the counters move before the update stops counting as in
-                # flight, so wait_maintenance_idle returns only after they
-                # are final (_maint_cv, then _cv: update_index's order)
-                with self._maint_cv:
-                    self._maint_inflight -= 1
-                    with self._cv:
-                        s = self._stats
-                        s.maintenance_pending = \
-                            len(self._maint) + self._maint_inflight
-                        if failed:
-                            s.maintenance_errors += 1
-                        elif action is not None:
-                            s.swap_count += 1
-                            if action == "refit":
-                                s.refits += 1
-                            else:
-                                s.rebuilds += 1
-                    self._maint_cv.notify_all()
+                self._maintenance_done(action, failed)
 
-    def _update(self, name, values, ready) -> str:
-        """One refit-or-rebuild on the maintenance stream (the calling
-        thread's current stream on the CPU); returns the action."""
+    def _maintenance_done(self, action, failed: bool):
+        # the counters move before the update stops counting as in
+        # flight, so wait_maintenance_idle returns only after they are
+        # final (_maint_cv, then _cv: update_index's order)
+        with self._maint_cv:
+            self._maint_inflight -= 1
+            with self._cv:
+                s = self._stats
+                s.maintenance_pending = \
+                    len(self._maint) + self._maint_inflight
+                if failed:
+                    s.maintenance_errors += 1
+                elif action is not None:
+                    s.swap_count += 1
+                    if action == "refit":
+                        s.refits += 1
+                    else:
+                        s.rebuilds += 1
+            self._maint_cv.notify_all()
+
+    def _update(self, name, values) -> str:
+        """One refit-or-rebuild; over R > 1 ranks the leader first hands
+        the values to the followers, and every rank updates its block."""
+        if self.ranks == 1:
+            return self.store.update(name, values).action
+        with self._maint_io:
+            getter = self.store.get(name).tree._getter
+            host = self._share("update", name, values, getter)
+            return self.store.update(name, self._block(host)).action
+
+    def _on_stream(self, fn, ready=None):
+        """fn() on the maintenance stream (the calling thread's current
+        stream on the CPU), after `ready` (an event of the stream the
+        values were made on); the stream is synchronized after, failed
+        calls included."""
         stream = self.maintenance_stream
         if stream is None:
-            return self.store.update(name, values).action
+            return fn()
         try:
             with torch.cuda.stream(stream):
-                stream.wait_event(ready)
-                return self.store.update(name, values).action
+                if ready is not None:
+                    stream.wait_event(ready)
+                return fn()
         finally:
             stream.synchronize()
+
+    # -- the leader's maintenance messages ----------------------------------
+    def _share(self, op: str, name: str, values, getter):
+        """The leader's half of a build or update over R > 1 ranks: the
+        global `values` adapted as the store adapts them, sent to every
+        follower on the maintenance group; returns them on the host."""
+        values = DistributedTree._adapt_values(values, getter)
+        host = comm.tree_map(lambda t: t.detach().cpu(), values)
+        comm.broadcast_object(self.store._maint, (op, name, host, getter))
+        self._sent_maint = time.perf_counter()
+        return host
+
+    def _block(self, values):
+        """This rank's block of the global `values` (rank r: rows
+        [r n / R, (r + 1) n / R))."""
+        n = []
+        comm.tree_map(lambda t: n.append(t.shape[0]), values)
+        if n[0] % self.ranks:
+            raise ValueError(f"{n[0]} values do not split into {self.ranks} "
+                             "equal blocks, one a rank")
+        nl = n[0] // self.ranks
+        return comm.tree_map(
+            lambda t: t[self.rank * nl:(self.rank + 1) * nl], values)
+
+    def _follow_maintenance(self):
+        """A follower's maintenance thread: run the leader's builds and
+        updates in its order until its stop."""
+        while True:
+            try:
+                msg = comm.broadcast_object(self.store._maint)
+            except Exception as err:     # the group broke: nothing more comes
+                self.error = err
+                return
+            if msg[0] == comm.STOP:
+                return
+            if msg[0] == comm.NOP:
+                continue
+            op, name, values, getter = msg
+            with self._maint_cv:
+                self._maint_inflight += 1
+            action, failed = None, False
+            try:
+                # a build is the leader's create_index, which raises there
+                # and counts nowhere; an update counts on every rank
+                with TEL.span("pipeline.maintenance", index=name, op=op):
+                    if op == "build":
+                        self._on_stream(lambda: self.store.build(
+                            name, self._block(values), getter))
+                    else:
+                        action = self._on_stream(lambda: self.store.update(
+                            name, self._block(values)).action)
+            except Exception:
+                failed = op != "build"
+            finally:
+                self._maintenance_done(action, failed)

@@ -33,7 +33,7 @@ from .batcher import (KIND_KNN, KIND_RAY, KIND_WITHIN, Batcher, Group,
 from .index_store import IndexStore, IndexVersion
 
 __all__ = ["ServiceConfig", "RequestStats", "Response", "QueryServer",
-           "execute_group"]
+           "execute_group", "warmup_requests"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,6 +185,38 @@ def execute_group(engine: E.QueryEngine, config: ServiceConfig,
     return out
 
 
+def warmup_requests(config: ServiceConfig, index: str, kinds_ks, max_bucket,
+                    dim: int, default_ks: tuple[int, ...] = (1,)):
+    """The warm-up's requests, one list a bucket of the ladder from
+    ``config.min_bucket`` up to the bucket `max_bucket` queries ride in
+    (None: ``config.max_bucket``): a zero request of every (kind, k) in
+    `kinds_ks`, every kind it leaves out at `default_ks` (within at
+    k = 0)."""
+    kinds_ks = list(kinds_ks or [])
+    have = {kind for kind, _ in kinds_ks}
+    for kind in (KIND_KNN, KIND_WITHIN, KIND_RAY):
+        if kind not in have:
+            kinds_ks += [(kind, 0)] if kind == KIND_WITHIN else \
+                        [(kind, k) for k in default_ks]
+    if max_bucket is None:
+        max_bucket = config.max_bucket
+    b = config.min_bucket
+    top = bucket_size(max_bucket, config.min_bucket)
+    while b <= top:
+        reqs = []
+        for kind, k in kinds_ks:
+            a = np.zeros((b, dim), np.float32)
+            if kind == KIND_WITHIN:
+                reqs.append(within_request(a, 0.0, index))
+            elif kind == KIND_RAY:
+                reqs.append(ray_request(a, np.ones((b, dim), np.float32),
+                                        k, index))
+            else:
+                reqs.append(knn_request(a, k, index))
+        yield reqs
+        b *= 2
+
+
 class QueryServer:
     """Synchronous frontend over an IndexStore, the Batcher and an engine.
     Without a `store` it makes one on `device` (None: the CUDA card,
@@ -235,32 +267,11 @@ class QueryServer:
         result). `max_bucket` defaults to the configured ladder top and
         `dim` is read off the index, so ``warmup("default")`` alone leaves
         no cold route behind."""
-        kinds_ks = list(kinds_ks or [])
-        have = {kind for kind, _ in kinds_ks}
-        for kind in (KIND_KNN, KIND_WITHIN, KIND_RAY):
-            if kind not in have:
-                kinds_ks += [(kind, 0)] if kind == KIND_WITHIN else \
-                            [(kind, k) for k in default_ks]
-        if max_bucket is None:
-            max_bucket = self.config.max_bucket
         if dim is None:
             dim = self.store.get(index).dim
-
-        b = self.config.min_bucket
-        top = bucket_size(max_bucket, self.config.min_bucket)
-        while b <= top:
-            reqs = []
-            for kind, k in kinds_ks:
-                a = np.zeros((b, dim), np.float32)
-                if kind == KIND_WITHIN:
-                    reqs.append(within_request(a, 0.0, index))
-                elif kind == KIND_RAY:
-                    reqs.append(ray_request(a, np.ones((b, dim), np.float32),
-                                            k, index))
-                else:
-                    reqs.append(knn_request(a, k, index))
+        for reqs in warmup_requests(self.config, index, kinds_ks, max_bucket,
+                                    dim, default_ks):
             self.handle(reqs)
-            b *= 2
 
     # -- internals ---------------------------------------------------------
     def _dispatch(self, group: Group, responses: list):

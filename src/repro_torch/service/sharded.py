@@ -24,18 +24,21 @@ The store and the server run as one program on every rank: every rank
 makes the same store and server calls with the same request lists. Rank
 r originates block r of each bucket (padded to a multiple of R), and the
 merged blocks are all-gathered, so every rank's ``Response`` objects hold
-the whole group. Builds and updates run their collectives on a second
-process group made at construction, so a maintenance thread's
-collectives never interleave with the serving thread's on one group (at
-more than one rank that thread is the caller's own: the pipeline's runs
-at one rank only).
-``ServingPipeline`` takes a store of one rank only (see its docstring).
+the whole group. Serving and maintenance each run their collectives on a
+process group the store makes at construction, both bounded by the
+store's `timeout`, so a maintenance thread's collectives never interleave
+with the serving thread's. ``ServingPipeline`` serves a store of R > 1
+ranks from a leader (rank 0), which forms the groups and hands each one
+to its followers (see its docstring).
+
+A step that fails on one rank is agreed on (``core.comm``): the ranks
+raise :class:`~repro_torch.core.comm.RankFailure` together, a failed
+update publishes on no rank, and a failed group leaves the group in step.
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
-import threading
 
 import numpy as np
 import torch
@@ -51,7 +54,7 @@ from ..core.index import ExecutionPolicy
 from ..telemetry import tracer as TEL
 from .batcher import KIND_KNN, KIND_WITHIN, Group, _pad_edge
 from .index_store import IndexStore, _settle
-from .server import RequestStats, Response, ServiceConfig, _to_host
+from .server import _HOST_DTYPES, RequestStats, Response, ServiceConfig
 
 __all__ = ["ShardedExecutor", "ShardedIndexStore", "ShardedIndexVersion"]
 
@@ -85,74 +88,67 @@ class ShardedIndexVersion:
         return int(self.tree.dim)
 
 
-@dataclasses.dataclass(frozen=True)
-class _StagePlan:
-    """The kind-specific stages of one (kind, k, capacity, n_local)
-    family, between the tree's own gather and exchange; the tree arrives
-    as an argument, so a refit of the same index reuses them. Nothing is
-    compiled or sized for a plan: ``cache_hit`` says only that the key
-    was served before, as the reference's plan cache reports it."""
-    local: object
-    merge: object
-
-
 class ShardedExecutor:
     """Runs planned :class:`~repro_torch.service.batcher.Group` batches
     against a pinned :class:`ShardedIndexVersion` as four collective
     stages. With telemetry on, each stage is fenced under its own span,
     so the report shows where distributed time goes; off, nothing
-    waits."""
+    waits.
 
-    #: the plan cache is shared by every thread dispatching on this group
-    _REPROLINT_GUARDED_BY = {"_stages": "_lock"}
+    The local walk goes through the local engine's executable cache
+    (``exec_knn``, ``exec_ray_nearest`` and ``exec_collect`` on the rank's
+    local BVH, whose route table never takes brute force), and a
+    response's ``cache_hit`` is that cache's. Every rank runs the same
+    collectives whatever happens on it: a local step that fails, or a
+    version a follower could not pin (`error`), leaves neutral rows in its
+    place, the failure flag rides in the last collective, and every rank
+    raises :class:`~repro_torch.core.comm.RankFailure` together, so the
+    group stays in step for the next batch."""
 
     def __init__(self, group, device: torch.device):
         self.group = group
         self.R = comm.size(group)
         self.rank = comm.rank(group)
         self.device = device
-        self._lock = threading.Lock()
-        self._stages: dict[tuple, _StagePlan] = {}
 
-    def _plan(self, kind: str, k: int, capacity: int,
-              n_local: int) -> tuple[_StagePlan, bool]:
-        key = (kind, k, capacity, n_local)
-        with self._lock:
-            plan = self._stages.get(key)
-            warm = plan is not None
-            if plan is None:
-                plan = self._stages[key] = self._build_plan(kind, k, capacity)
-        return plan, warm
-
-    @staticmethod
-    def _build_plan(kind, k, capacity) -> _StagePlan:
+    def _local(self, tree: DistributedTree, kind: str, k: int,
+               capacity: int, a, b=None):
+        """This rank's partials of every gathered query, with global
+        indices, and whether the cache entry was warm."""
+        local = tree.local
+        engine = local.policy.resolve_engine()
         if kind == KIND_WITHIN:
-            def local(tree, centers, radii):
-                return tree._local_fill(P.intersects(G.Spheres(
-                    centers, radii)), capacity, tree.policy)
-
-            def merge(count, gi):
-                return merge_fill(count, gi, capacity)
+            (count, idxs), info = engine.exec_collect(
+                local, P.intersects(G.Spheres(a, b)), capacity)
+            out = (count.to(torch.int32), tree._globalize(idxs))
+        elif kind == KIND_KNN:
+            (d, i), info = engine.exec_knn(local, P.nearest(G.Points(a), k=k))
+            out = (d, tree._globalize(i))
         else:
-            # kNN and ray-nearest share the merge: (Q, k) distances (the
-            # ray parameter t for rays) and global indices
-            def local(tree, a, b=None):
-                preds = (P.nearest(G.Points(a), k=k) if kind == KIND_KNN
-                         else P.RayNearest(G.Rays(a, b), k))
-                return tree._local_knn(preds, tree.policy)
+            (d, i), info = engine.exec_ray_nearest(local, G.Rays(a, b), k)
+            out = (d, tree._globalize(i))
+        return out, info.cache_hit
 
-            def merge(d, gi):
-                return merge_knn(d, gi, k)
+    def _neutral(self, kind: str, q: int, k: int, capacity: int):
+        """Rows a failed step leaves in place: no match, no neighbour."""
+        dev = self.device
+        if kind == KIND_WITHIN:
+            return (torch.zeros((q,), dtype=torch.int32, device=dev),
+                    torch.full((q, capacity), -1, dtype=torch.int32,
+                               device=dev))
+        return (torch.full((q, k), float("inf"), device=dev),
+                torch.full((q, k), -1, dtype=torch.int32, device=dev))
 
-        return _StagePlan(local, merge)
-
-    def execute_group(self, config: ServiceConfig, entry: ShardedIndexVersion,
-                      group: Group) -> dict[int, Response]:
+    def execute_group(self, config: ServiceConfig,
+                      entry: ShardedIndexVersion | None, group: Group,
+                      error: BaseException | None = None
+                      ) -> dict[int, Response]:
         """Serve ONE planned group against a pinned sharded version and
         scatter the results to per-request Responses: the sharded
         counterpart of ``server.execute_group``, which routes here. Every
-        rank calls it with the same group."""
-        tree = entry.tree
+        rank calls it with the same group; a rank that could not pin the
+        version passes entry None and its `error`, and takes part all the
+        same. Raises RankFailure on every rank when a step failed on any."""
         R = self.R
         qp = -(-group.bucket // R) * R
         q = qp // R
@@ -160,38 +156,71 @@ class ShardedExecutor:
         blocks = tuple(
             torch.from_numpy(np.ascontiguousarray(_pad_edge(x, qp)[rows]))
             .to(self.device) for x in (group.a, group.b) if x is not None)
-        cap = config.capacity if group.kind == KIND_WITHIN else 0
-        plan, warm = self._plan(group.kind, group.k, cap, tree.n_local)
+        kind, k = group.kind, group.k
+        cap = config.capacity if kind == KIND_WITHIN else 0
+        tree = entry.tree if entry is not None else None
+        name = entry.name if entry is not None else group.index
+        version = entry.version if entry is not None else -1
+        warm = False
 
         kernel_us = 0.0
-        with TEL.span("sharded.execute_group", kind=group.kind,
-                      bucket=group.bucket, shards=R, index=entry.name,
-                      version=entry.version):
-            with TEL.span("sharded.gather", kind=group.kind, q=qp) as sp:
-                gathered = sp.fence(tree._gather(blocks))
+        with TEL.span("sharded.execute_group", kind=kind,
+                      bucket=group.bucket, shards=R, index=name,
+                      version=version):
+            with TEL.span("sharded.gather", kind=kind, q=qp) as sp:
+                gathered = sp.fence(comm.all_gather(self.group, blocks))
             kernel_us += sp.dur_us
-            with TEL.span("sharded.local_traverse", kind=group.kind,
-                          n_local=tree.n_local) as sp:
-                partial = sp.fence(plan.local(tree, *gathered))
+            with TEL.span("sharded.local_traverse", kind=kind,
+                          n_local=tree.n_local if tree else 0) as sp:
+                try:
+                    if error is not None:
+                        raise error
+                    partial, warm = self._local(tree, kind, k, cap, *gathered)
+                except Exception as err:    # agreed on after the exchange
+                    error = err
+                    partial = self._neutral(kind, qp, k, cap)
+                partial = sp.fence(partial)
             kernel_us += sp.dur_us
-            with TEL.span("sharded.exchange", kind=group.kind) as sp:
-                exchanged = sp.fence(tree._exchange(partial))
+            with TEL.span("sharded.exchange", kind=kind) as sp:
+                exchanged = sp.fence(comm.all_to_all(self.group, tuple(
+                    t.reshape((R, q) + t.shape[1:]) for t in partial)))
             kernel_us += sp.dur_us
-            with TEL.span("sharded.merge", kind=group.kind) as sp:
-                merged = sp.fence(plan.merge(*exchanged))
+            with TEL.span("sharded.merge", kind=kind) as sp:
+                try:
+                    merged = (merge_fill(*exchanged, cap)
+                              if kind == KIND_WITHIN
+                              else merge_knn(*exchanged, k))
+                except Exception as err:
+                    error = error or err
+                    merged = self._neutral(kind, q, k, cap)
+                merged = sp.fence(merged)
             kernel_us += sp.dur_us
 
-            # every rank's merged block, so each rank holds the whole group
-            with TEL.span("server.assemble", kind=group.kind):
-                res_rows = _to_host(*comm.all_gather(self.group, merged))
+            # every rank's merged block and its failure flag, in one
+            # collective and one device-to-host copy
+            with TEL.span("server.assemble", kind=kind):
+                flag = torch.full((q, 1), int(error is not None),
+                                  dtype=torch.int32, device=self.device)
+                packed = comm.all_gather(self.group, torch.cat(
+                    [m.reshape(q, -1).view(torch.int32) for m in merged]
+                    + [flag], 1)).cpu().numpy()
+            comm.raise_together(self.group, packed[::q, -1], error,
+                                f"the sharded {kind} group on {name!r} "
+                                f"v{version}")
+            res_rows, at = [], 0
+            for m in merged:
+                w = m.reshape(q, -1).shape[1]
+                host = packed[:, at:at + w].view(_HOST_DTYPES[m.dtype])
+                res_rows.append(host.reshape((qp,) + tuple(m.shape[1:])))
+                at += w
 
             out: dict[int, Response] = {}
             with TEL.span("server.scatter", requests=len(group.members)):
                 stats = RequestStats(
-                    kind=group.kind, route="sharded", bucket=group.bucket,
-                    index_name=entry.name, index_version=entry.version,
+                    kind=kind, route="sharded", bucket=group.bucket,
+                    index_name=name, index_version=version,
                     cache_hit=warm, kernel_us=kernel_us)
-                if group.kind == KIND_WITHIN:
+                if kind == KIND_WITHIN:
                     counts, buf = res_rows
                     over = counts > config.capacity
                     for rid, start, m in group.members:
@@ -228,13 +257,22 @@ class ShardedIndexStore(IndexStore):
         self.group = group
         self.ranks = comm.size(group)
         self.rank = comm.rank(group)
-        self._maint = dist.new_group(
-            ranks=dist.get_process_group_ranks(group),
-            backend=dist.get_backend(group), timeout=timeout)
+        #: seconds every collective of this store's groups may wait
+        self.timeout = timeout.total_seconds()
+        ranks = dist.get_process_group_ranks(group)
+        backend = dist.get_backend(group)
+        # serving (the executor, the versions' query collectives) and
+        # maintenance (builds, updates) each on a group of their own, so
+        # a maintenance thread's collectives never interleave with the
+        # serving thread's, and both bounded by `timeout`
+        self._serve = dist.new_group(ranks=ranks, backend=backend,
+                                     timeout=timeout)
+        self._maint = dist.new_group(ranks=ranks, backend=backend,
+                                     timeout=timeout)
         base = policy or ExecutionPolicy()
         self.policy = dataclasses.replace(
             base, engine=base.engine or self.engine, device=self.device)
-        self.executor = ShardedExecutor(group, self.device)
+        self.executor = ShardedExecutor(self._serve, self.device)
 
     # -- writes --------------------------------------------------------------
     def build(self, name: str, values,
@@ -249,27 +287,46 @@ class ShardedIndexStore(IndexStore):
         (the only exchange: the top boxes and the SAH costs); rebuild when
         any rank's leaf count changed or the WORST rank degraded past the
         threshold. Runs outside the registry lock; only the finished
-        version swaps in."""
+        version swaps in. A step that fails on one rank raises
+        RankFailure on every rank, and none publishes."""
         cur = self.get(name)
         tree = cur.tree
         getter = tree._getter
-        values = DistributedTree._adapt_values(values, getter)
-        values = values.to(self.device)
-        boxes = getter(values)
-        same = comm.agree(self._maint, [len(boxes) == tree.n_local],
-                          self.device)
-        if not bool(same.all()):
+        error, same = None, True
+        try:
+            values = DistributedTree._adapt_values(values, getter)
+            values = values.to(self.device)
+            boxes = getter(values)
+            same = len(boxes) == tree.n_local
+        except Exception as err:
+            error = err
+        table = comm.agree(self._maint, [same, error is not None],
+                           self.device)
+        comm.raise_together(self._maint, table[:, 1], error,
+                            f"the update of {name!r}")
+        if not bool(table[:, 0].all()):
             return self._publish_sharded(name, values, getter,
                                          action="rebuild")
 
+        dim = tree.dim
         with TEL.span("store.refit", index=name, n=tree.size(),
                       shards=tree.R) as sp:
-            new, sah = lbvh.refit_with_quality(tree.tree, boxes)
-            row = comm.stack(self._maint, torch.cat(
-                [new.node_lo[0], new.node_hi[0], sah.reshape(1)]))
+            # the top box, the SAH cost and a flag of the local refit in
+            # one collective: a refit that failed on one rank raises on all
+            try:
+                new, sah = lbvh.refit_with_quality(tree.tree, boxes)
+                row = torch.cat([new.node_lo[0], new.node_hi[0],
+                                 sah.reshape(1), sah.new_ones((1,))])
+            except Exception as err:
+                error = err
+                row = torch.zeros((2 * dim + 2,), dtype=boxes.lo.dtype,
+                                  device=self.device)
+            row = comm.stack(self._maint, row)
+            comm.raise_together(self._maint, (row[:, -1] == 0).cpu(), error,
+                                f"the refit of {name!r}")
             sp.fence(new)
-            dim = tree.dim
-            top_lo, top_hi = row[:, :dim], row[:, dim:2 * dim]
+            top_lo = row[:, :dim].contiguous()
+            top_hi = row[:, dim:2 * dim].contiguous()
             sah = tuple(float(s) for s in row[:, 2 * dim].cpu())
             sp.annotate(degradation=max(
                 s / max(b, 1e-30) for s, b in zip(sah, cur.sah_built)))
@@ -280,9 +337,8 @@ class ShardedIndexStore(IndexStore):
 
         new_tree = DistributedTree.from_local_trees(
             self._maint, values, new, top_lo, top_hi, getter,
-            policy=tree.policy)._with_group(self.group)
-        _settle(self.device)
-        return self._swap(ShardedIndexVersion(
+            policy=tree.policy)._with_group(self._serve)
+        return self._commit(ShardedIndexVersion(
             name=name, version=0, tree=new_tree, action="refit", sah=sah,
             sah_built=cur.sah_built,
             refits_since_build=cur.refits_since_build + 1,
@@ -294,12 +350,35 @@ class ShardedIndexStore(IndexStore):
                       sharded=True) as sp:
             tree = DistributedTree(self._maint, values, getter,
                                    policy=self.policy)
-            sah = comm.stack(self._maint, lbvh.sah_cost(tree.tree).reshape(1))
+            error = None
+            try:
+                row = torch.cat([
+                    lbvh.sah_cost(tree.tree).reshape(1).to(torch.float64),
+                    torch.ones((1,), dtype=torch.float64,
+                               device=self.device)])
+            except Exception as err:
+                error = err
+                row = torch.zeros((2,), dtype=torch.float64,
+                                  device=self.device)
+            sah = comm.stack(self._maint, row)
+            comm.raise_together(self._maint, (sah[:, 1] == 0).cpu(), error,
+                                f"the {action} of {name!r}")
             sp.fence(tree.tree)
             sah = tuple(float(s) for s in sah[:, 0].cpu())
             sp.annotate(n=tree.size(), shards=tree.R)
-        _settle(self.device)
-        return self._swap(ShardedIndexVersion(
-            name=name, version=0, tree=tree._with_group(self.group),
+        return self._commit(ShardedIndexVersion(
+            name=name, version=0, tree=tree._with_group(self._serve),
             action=action, sah=sah, sah_built=sah, refits_since_build=0,
             executor=self.executor))
+
+    def _commit(self, entry: ShardedIndexVersion) -> ShardedIndexVersion:
+        """Settle this rank's stream, agree that every rank did, and
+        publish: every rank swaps the version in, or none does."""
+        error = None
+        try:
+            _settle(self.device)
+        except Exception as err:
+            error = err
+        comm.check_all(self._maint, error, self.device,
+                       f"the publication of {entry.name!r}")
+        return self._swap(entry)

@@ -1445,3 +1445,55 @@ def test_comm_tree_map_keeps_non_tensors_and_shared_directions():
     assert comm.fold(rows, torch.add).tolist() == rows.sum(0).tolist()
     assert comm.fold((rows, rows), lambda a, b: (a[0] - b[0], a[1] * b[1])
                      )[0].tolist() == (rows[0] - rows[1] - rows[2]).tolist()
+
+
+# ---------------------------------------------------------------------------
+# the port's static analysis (repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+ANALYSIS_MODULES = tuple(importlib.import_module(f"repro_torch.analysis.{m}")
+                         for m in ("findings", "astutil", "locks",
+                                   "telemetry_lint", "tracer", "launches",
+                                   "smoke", "__main__"))
+
+
+def test_analysis_modules_are_scanned_for_imports():
+    files = {os.path.realpath(p) for p in _port_files()}
+    for mod in ANALYSIS_MODULES:
+        assert os.path.realpath(mod.__file__) in files, mod
+
+
+def test_analysis_passes_import_the_standard_library_alone():
+    """The passes work on the AST: at module level they import the
+    standard library and each other, nothing else (torch and the kernels
+    only inside the smoke and the strict pass, which run them)."""
+    import sys as _sys
+    std = set(_sys.stdlib_module_names) | {"__future__"}
+    for mod in ANALYSIS_MODULES:
+        tree = ast.parse(open(mod.__file__).read())
+        for node in tree.body:
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            assert all(n.split(".")[0] in std for n in names), (mod, names)
+
+
+def test_analysis_runs_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "from repro_torch import analysis\n"
+        "from repro_torch.analysis.__main__ import main\n"
+        "assert main([]) == 0\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules\n"
+        "               if sys.modules[m] is not None)\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "reprolint (default): 0 finding(s), " \
+        "0 suppressed"

@@ -250,8 +250,9 @@ def test_from_config_seeds_the_weights():
 @pytest.mark.parametrize("arch", OTHER)
 def test_other_families_are_refused(arch):
     cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match=cfg.family):
+    with pytest.raises(NotImplementedError, match=cfg.family) as info:
         LM(cfg, device="cpu")
+    assert "(ROADMAP Queue 1, the LM substrate)" in str(info.value)
 
 
 def test_lm_from_numpy_refuses_a_missing_or_misshaped_leaf():

@@ -27,9 +27,12 @@ from test_torch_parity import (assert_knn_equal, merge_ranks, run_world,
                                world_results)
 
 #: R -> (values a rank, the scenario groups run)
-WORLDS = {1: (64, ("store", "serve", "single")),
-          3: (32, ("serve", "pad")),
-          4: (64, ("store", "serve", "race"))}
+WORLDS = {1: (64, ("store", "serve", "single", "pipe")),
+          3: (32, ("serve", "pad", "pipe")),
+          4: (64, ("store", "serve", "race", "pipe"))}
+
+#: requests of the pipeline part (one client, submitted in one order)
+PIPE_N = 12
 
 DATA = """
 R_, NL, PARTS = {ranks}, {nl}, {parts!r}
@@ -44,7 +47,40 @@ TARGETS = np.random.default_rng(5).integers(0, N, 13)
 AX_O = PTS[TARGETS].copy()             # axis rays through points
 AX_O[:, 0] -= 1.0
 AX_D = np.tile(np.float32([1, 0, 0]), (13, 1))
-"""
+PIPE_N = %d
+
+def pipe_reqs():
+    # (request, deadline_us): kNN, within and ray requests of 1-4 rows in
+    # turn, every second one with a 20 ms deadline
+    rng = np.random.default_rng(9)
+    reqs = []
+    for n in range(PIPE_N):
+        a = rng.uniform(0, 1, (int(rng.integers(1, 5)), 3)).astype(np.float32)
+        if n %% 3 == 0:
+            r = knn_request(a, 3)
+        elif n %% 3 == 1:
+            r = within_request(a, 0.3)
+        else:
+            r = ray_request(a, rng.normal(size=a.shape).astype(np.float32), 2)
+        reqs.append((r, 20_000.0 if n %% 2 else None))
+    return reqs
+
+def pipe_out(rs):
+    for n, r in enumerate(rs):
+        out[f"lead_pipe{{n}}_route"] = np.array(r.stats.route)
+        for f in ("dists", "idxs", "counts"):
+            if getattr(r, f) is not None:
+                out[f"lead_pipe{{n}}_{{f}}"] = getattr(r, f)
+        out[f"lead_pipe{{n}}_over"] = np.array(r.overflow)
+
+def pipe_entry(n, e):
+    out[f"lead_pipe_e{{n}}"] = np.array([e.version, e.action == "refit"])
+    out[f"lead_pipe_e{{n}}_sah"] = np.array(e.sah, np.float64)
+
+#: the pipeline part's updates: a drift (refit), a scramble (rebuild),
+#: back home
+PIPE_MOVES = (PTS + np.float32(0.01), SCRAMBLE, PTS)
+""" % PIPE_N
 
 #: the same scenarios in both packages: `mine(x)` is this rank's block
 #: of x (all of it in the reference), `points(x)` a Points of it, and
@@ -190,6 +226,16 @@ if "single" in PARTS:
                                     pipe.stats().refits])
         out["rep_pipe_d"] = np.concatenate([r1.dists, r2.dists])
         out["rep_pipe_i"] = np.concatenate([r1.idxs, r2.idxs])
+
+if "pipe" in PARTS:
+    with ServingPipeline(store=sharded.store,
+                         config=PipelineConfig(service=c)) as pipe:
+        tickets = [pipe.submit(r, deadline_us=d) for r, d in pipe_reqs()]
+        pipe_out([t.result(120.0) for t in tickets])
+        for n, values in enumerate(PIPE_MOVES):
+            pipe.update_index("default", points(values))
+            assert pipe.wait_maintenance_idle(120.0)
+            pipe_entry(n, pipe.store.get("default"))
 np.savez(OUT, **out)
 print("REF OK")
 """
@@ -233,12 +279,74 @@ if "single" in PARTS:
                                     pipe.stats().refits])
         out["rep_pipe_d"] = np.concatenate([r1.dists, r2.dists])
         out["rep_pipe_i"] = np.concatenate([r1.idxs, r2.idxs])
-if R_ > 1:
-    try:
-        ServingPipeline(store=make_store())
-        out["rep_pipe_refused"] = np.array("none")
-    except NotImplementedError as e:
-        out["rep_pipe_refused"] = np.array(type(e).__name__)
+
+if "pipe" in PARTS:
+    # the leader (rank 0) takes every request and index write; the last
+    # rank fails one kNN group (k = 4) and its fourth refit on purpose
+    import time
+    import torch.distributed as dist
+    from repro_torch.service import sharded as SH
+    pipe = ServingPipeline(store=sharded.store,
+                           config=PipelineConfig(service=c))
+    refused = True
+    if RANK > 0:
+        try:
+            pipe.submit(knn_request(QA[:2], 3))
+            refused = False
+        except RuntimeError as e:
+            refused = "call submit on rank 0" in str(e)
+    if RANKS > 1 and RANK == RANKS - 1:
+        engine = sharded.store.engine
+        real_knn, real_refit, refits = engine.exec_knn, \
+            SH.lbvh.refit_with_quality, []
+
+        def failing_knn(bvh, preds):
+            if preds.k == 4:
+                raise RuntimeError("injected kNN fault")
+            return real_knn(bvh, preds)
+
+        def failing_refit(tree, boxes):
+            refits.append(1)
+            if len(refits) == 4:
+                raise RuntimeError("injected refit fault")
+            return real_refit(tree, boxes)
+
+        engine.exec_knn = failing_knn
+        SH.lbvh.refit_with_quality = failing_refit
+    dist.barrier()                      # the faults are armed
+    if RANK == 0:
+        tickets = [pipe.submit(r, deadline_us=d) for r, d in pipe_reqs()]
+        pipe_out([t.result(120.0) for t in tickets])
+        for n, values in enumerate(PIPE_MOVES):
+            pipe.update_index("default", points(values))
+            assert pipe.wait_maintenance_idle(120.0)
+            pipe_entry(n, pipe.store.get("default"))
+        if RANKS > 1:
+            t0 = time.monotonic()
+            try:
+                pipe.submit(knn_request(QA[:3], 4)).result(120.0)
+                fault = "none"
+            except Exception as e:
+                fault = f"{{type(e).__name__}}: {{e}}"
+            out["lead_pipe_fault"] = np.array(fault)
+            out["lead_pipe_fault_s"] = np.array(time.monotonic() - t0)
+            after = pipe.submit(knn_request(QA[:3], 3)).result(120.0)
+            out["lead_pipe_after"] = after.dists
+            vers = [pipe.store.get("default").version]
+            for shift in (0.02, 0.03):
+                pipe.update_index("default", points(PTS + np.float32(shift)))
+                assert pipe.wait_maintenance_idle(120.0)
+                vers.append(pipe.store.get("default").version)
+            out["lead_pipe_maint"] = np.array(vers)
+        pipe.close()
+    else:
+        pipe.close(timeout=200.0)
+    s = pipe.stats()
+    out["rank_pipe_final"] = np.array([
+        sharded.store.get("default").version, refused,
+        pipe._scheduler.is_alive() or pipe._maintainer.is_alive(),
+        pipe.error is not None, s.batches, s.failed, s.swap_count,
+        s.refits, s.rebuilds, s.maintenance_errors])
 save(**out)
 print("PORT OK")
 """
@@ -264,7 +372,13 @@ def runs(tmp_path_factory):
         nl, parts = WORLDS[r]
         run_world(PORT.format(ranks=r, nl=nl, parts=parts), r, timeout=240,
                   out=out)
-        return merge_ranks(world_results(out, r))
+        # the pipeline's leader alone holds the responses (``lead_*``)
+        ranks = world_results(out, r)
+        merged = merge_ranks([{k: v for k, v in p.items()
+                               if not k.startswith("lead_")} for p in ranks])
+        merged.update({k: v for k, v in ranks[0].items()
+                       if k.startswith("lead_")})
+        return merged
 
     with concurrent.futures.ThreadPoolExecutor(2 * len(WORLDS)) as pool:
         refs = {r: pool.submit(ref, r) for r in WORLDS}
@@ -448,7 +562,89 @@ def test_pipeline_background_refit_at_a_world_of_one(runs):
                      want["rep_pipe_d"], want["rep_pipe_i"])
 
 
-@pytest.mark.parametrize("r", [r for r in sorted(WORLDS) if r > 1])
-def test_pipeline_refuses_more_than_one_rank(runs, r):
+# ---------------------------------------------------------------------------
+# the pipeline over R ranks: a leader and its followers
+# ---------------------------------------------------------------------------
+
+#: the kind of request n of ``pipe_reqs``
+PIPE_KINDS = ("knn", "within", "ray")
+
+
+@pytest.mark.parametrize("r,n", cases("pipe", range(PIPE_N)))
+def test_pipeline_matches_the_reference(runs, r, n):
+    """The same requests submitted in the same order, half with
+    deadlines: the groups depend on timing, so every request is held to
+    the reference's on its own."""
+    want, got = runs[r]
+    key = f"lead_pipe{n}"
+    assert str(got[key + "_route"]) == "sharded"
+    _assert_response(want, got, key, PIPE_KINDS[n % 3])
+
+
+@pytest.mark.parametrize("r", cases("pipe"))
+def test_pipeline_maintenance_matches_the_reference(runs, r):
+    """update_index, idle between calls: the reference's versions and
+    actions (refit, rebuild, ...), and per-rank SAH bit for bit."""
+    want, got = runs[r]
+    for n in range(3):
+        key = f"lead_pipe_e{n}"
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+        assert got[key + "_sah"].shape == (r,)
+        np.testing.assert_array_equal(_bits(got[key + "_sah"]),
+                                      _bits(want[key + "_sah"]))
+    assert got["lead_pipe_e1"].tolist() == [got["lead_pipe_e0"][0] + 1, 0]
+
+
+#: rank_pipe_final's columns
+FINAL = ("version", "refused", "alive", "error", "batches", "failed",
+         "swaps", "refits", "rebuilds", "maintenance_errors")
+
+
+def _final(got):
+    return {f: got["rank_pipe_final"][:, i] for i, f in enumerate(FINAL)}
+
+
+@pytest.mark.parametrize("r", cases("pipe"))
+def test_pipeline_close_ends_every_rank(runs, r):
+    """close() on the leader stops every follower's loops (no error), and
+    every rank ends on the same version, having served the same groups
+    and run the same maintenance."""
+    fin = _final(runs[r][1])
+    assert not fin["alive"].any() and not fin["error"].any()
+    for f in ("version", "batches", "failed", "swaps", "refits", "rebuilds",
+              "maintenance_errors"):
+        assert len(set(fin[f].tolist())) == 1, (f, fin[f])
+    assert fin["batches"][0] > 0
+
+
+@pytest.mark.parametrize("r", [r for r in cases("pipe") if r > 1])
+def test_a_follower_refuses_submit(runs, r):
+    assert _final(runs[r][1])["refused"].all()
+
+
+@pytest.mark.parametrize("r", [r for r in cases("pipe") if r > 1])
+def test_a_failure_on_a_follower_fails_the_leaders_tickets(runs, r):
+    """A kNN group whose local walk raises on the last rank: the leader's
+    ticket fails with that rank's error, well inside the collective
+    timeout, and the next group serves."""
     _, got = runs[r]
-    assert str(got["rep_pipe_refused"]) == "NotImplementedError"
+    fault = str(got["lead_pipe_fault"])
+    assert fault.startswith("RankFailure") and f"[{r - 1}]" in fault
+    assert "injected kNN fault" in fault
+    assert float(got["lead_pipe_fault_s"]) < 30.0
+    assert np.isfinite(got["lead_pipe_after"]).all()
+    fin = _final(got)
+    assert (fin["failed"] == 1).all()
+
+
+@pytest.mark.parametrize("r", [r for r in cases("pipe") if r > 1])
+def test_a_maintenance_failure_is_agreed(runs, r):
+    """A refit that raises on the last rank: no rank publishes it (the
+    version stays), every rank counts one maintenance error, and the next
+    update publishes everywhere."""
+    _, got = runs[r]
+    before, mid, after = got["lead_pipe_maint"].tolist()
+    assert mid == before and after == before + 1
+    fin = _final(got)
+    assert (fin["maintenance_errors"] == 1).all()
+    assert (fin["version"] == after).all()

@@ -257,6 +257,29 @@ Phases (one line or more each, then the two closing lines):
      least 0.999). The forward's
      time (ms, tokens/s) and one profiled forward, with the flash
      kernel's share of device time.
+ 16b. lm-serve (slice 18): the flash kernel against its twin at the new
+     forwards' attention shapes (a window of 4096 at S = 4160, the
+     non-causal encoder, cross-attention with Sq 32 / Skv 256, heads of
+     112, 640 rows with a window); ``repro_torch.launch.serve.main`` for
+     TinyLlama-1.1B at full depth (B = 4, prompt 128, gen 32); then one
+     model at a time at its published width, bf16, ``LM.from_config``
+     weights (LMS_MODELS: TinyLlama; Mixtral-8x22B at 2 of 56 layers, B
+     = 1, a prompt of 4096 + 64 so the ring of 4096 wraps; DeepSeek-V3
+     at 4 of 61 layers, its 3 first_k_dense and 1 MLA + MoE; Mamba2-780m;
+     Zamba2-7B, 81 layers; SeamlessM4T-medium over 256 frames;
+     LLaVA-NeXT with 576 patch rows in the flash forward), the MoE
+     families at capacity factor 8.0: the prefill's logits (the
+     sequential decode steps) against the forward's on the same tokens
+     (max |diff| / max |logit| and top-1 agreement within
+     LMS_GAP / LMS_MOE_GAP and LMS_TOP1); decode ms per step and tokens/s
+     by CUDA events (TinyLlama's steps under sync-debug "error", and one
+     profiled step's busy share), prefill s, peak device memory, the
+     cache's bytes and the step's bound (every weight it uses and the
+     cache read once at 3.35 TB/s); a forward with attn_impl="flash"
+     against the plain path on the same weights, the flash counter zeroed
+     just before and read just after (one launch per attention call,
+     no twin call), MLA's refused with a ValueError. The kernels line
+     adds these launches to flash's.
 
  17. distributed (slice 15; run last, once the host's cores are free of
      the twins' workers): one world of 4 gloo ranks on the one card
@@ -2674,6 +2697,287 @@ def phase_lm(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# slice 18: the LM serving path of every family
+# ---------------------------------------------------------------------------
+
+#: (arch, layers kept (None: full depth), B, prompt, gen, extra): each at
+#: its published width, bf16, weights from LM.from_config; extra is the
+#: encdec family's encoder frames or the vlm family's patch rows
+LMS_MODELS = (
+    ("tinyllama-1.1b", None, 4, 128, 32, 0),
+    ("mixtral-8x22b", 2, 1, 4096 + 64, 16, 0),   # 141 B parameters: 2 of 56
+    ("deepseek-v3-671b", 4, 2, 64, 16, 0),       # 3 first_k_dense + 1 MoE
+    ("mamba2-780m", None, 4, 256, 32, 0),
+    ("zamba2-7b", None, 2, 64, 16, 0),
+    ("seamless-m4t-medium", None, 4, 32, 16, 256),
+    ("llava-next-mistral-7b", None, 2, 64, 16, 576),
+)
+#: decode against forward, bf16 logits, as a share of max |logit| and a
+#: top-1 agreement share. Both paths round every matmul output and every
+#: residual to bf16 (u = 2^-8), at other places: the prefill's steps
+#: multiply (1, d) rows where the forward multiplies (S, d) panels, keep
+#: p and P.V in float32 where the forward rounds p, and the SSD forward
+#: rounds its panels where the recurrence keeps float32. A layer's
+#: output is then off by a few u of its scale, and the residual stream
+#: sums the layers, so the logits stay within about 10 u (4e-2) of max
+#: |logit|; 1e-1 leaves a factor 2.5. A wrong slot, position or mask
+#: instead gives gaps of order 1 and near-random top-1. In the MoE
+#: families a token whose router scores nearly tie can go to another
+#: expert on one path (its FFN output then changes wholesale), so there
+#: the gap only bounds the scale (1.0) and the top-1 share decides.
+LMS_GAP, LMS_MOE_GAP, LMS_TOP1 = 1e-1, 1.0, 0.9
+#: flash against the plain path on the same weights: the same two kinds
+#: of bf16 rounding at other places, so the same gap (1e-1; [lm]'s 2e-2
+#: held at TinyLlama's 22 layers, but Zamba2 carries its 13 attention
+#: applications' differences through 81 Mamba layers: 2.8e-2 measured)
+#: and, for the MoE family, the same router flips; top-1 [lm]'s 0.95
+LMS_FLASH_TOP1 = LM_TOP1
+
+
+def _attn_calls(cfg):
+    """Attention calls of one forward: each layer's, the shared block's
+    applications, the encoder's and the decoder's self and cross."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def _set_attn_impl(model, impl):
+    """Point every module's configuration at `impl` (the same weights)."""
+    import dataclasses
+    for m in model.modules():
+        if hasattr(m, "cfg"):
+            m.cfg = dataclasses.replace(m.cfg, attn_impl=impl)
+
+
+def _step_bytes(model, cache):
+    """Bytes a decode step must read: every weight it uses once (the MTP
+    module is the loss's, unused here; under the dense MoE dispatch every
+    expert) and the whole cache."""
+    w = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+            if not n.startswith("mtp."))
+    c = sum(t.numel() * t.element_size() for t in cache.values())
+    return w, c
+
+
+def _lm_serve_flash_shapes(dev):
+    """The flash kernel against its twin on the card at the new forwards'
+    attention shapes (random bf16 q, k, v): Mixtral's window of 4096 at S
+    = 4160, the non-causal encoder and the cross-attention (Sq != Skv) of
+    SeamlessM4T, Zamba2's heads of 112, LLaVA's 640 rows with a window.
+    Returns (max |diff|, worst share of the tolerance, shapes)."""
+    import torch
+    from repro_torch.kernels import flash_attention as KF
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    shapes = ((1, 48, 8, 4160, 4160, 128, True, 4096),
+              (4, 16, 16, 256, 256, 64, False, None),
+              (4, 16, 16, 32, 256, 64, False, None),
+              (2, 32, 32, 64, 64, 112, True, None),
+              (2, 32, 8, 640, 640, 128, True, 4096))
+    err = worst = 0.0
+    for b, hq, hkv, sq, skv, d, causal, window in shapes:
+        q, k, v = (torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
+                   for s in ((b, hq, sq, d), (b, hkv, skv, d),
+                             (b, hkv, skv, d)))
+        e, r, _ = _flash_against_twin(
+            KF, q, k, v, causal, window,
+            f"[lm-serve] ({b}, {hq}, {hkv}, {sq}, {skv}, {d}, {causal}, "
+            f"{window})")
+        err, worst = max(err, e), max(worst, r)
+    return err, worst, len(shapes)
+
+
+def _lm_serve_one(dev, card, arch, layers, b, prompt, gen, extra):
+    """One model of [lm-serve]: prefill (the sequential decode steps)
+    against the model's forward, decode timed, flash against the plain
+    path. Returns (flash launches, flash attention calls expected)."""
+    import dataclasses
+    import torch
+    import repro_torch as rt
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.models import serve as S
+    t0 = time.perf_counter()
+    cfg = rt.get_config(arch)
+    full_layers = cfg.n_layers
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if cfg.is_moe:      # no capacity drops: decode and forward route alike
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    model = rt.LM.from_config(cfg, seed=SEED)
+    check(model.device.type == "cuda", f"{arch}: LM not on the card")
+    n_params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator(device=dev).manual_seed(SEED + 37)
+    tokens = torch.randint(0, cfg.vocab, (b, prompt), generator=g, device=dev)
+    bf16 = getattr(torch, cfg.dtype)
+    fwd_kw, flash_kw = {}, {}
+    with torch.inference_mode():
+        cache = S.init_cache(cfg, b, prompt + gen, dtype=bf16,
+                             enc_len=extra if cfg.family == "encdec" else None)
+        if cfg.family == "encdec":
+            src = torch.randn((b, extra, cfg.d_model), generator=g,
+                              device=dev).to(bf16)
+            cache = S.prefill_encoder(model, cache, src)
+            fwd_kw = flash_kw = {"src_embeds": src}
+        elif cfg.family == "vlm":
+            # the prefill has no patch rows: the forward takes none either
+            fwd_kw = {"patch_embeds": torch.empty((b, 0, cfg.d_model),
+                                                  device=dev, dtype=bf16)}
+            flash_kw = {"patch_embeds": torch.randn(
+                (b, extra, cfg.d_model), generator=g, device=dev).to(bf16)}
+        w_bytes, c_bytes = _step_bytes(model, cache)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cache, plog = S.prefill(model, cache, tokens)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t1
+
+        # decode: gen - 2 steps by CUDA events after the prefill's warm-up
+        # (TinyLlama's under sync-debug "error": a host sync raises)
+        tok = plog[:, -1:].argmax(-1)
+        steps = gen - 2
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        strict = arch == LM_ARCH
+        if strict:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            start.record()
+            for _ in range(steps):
+                lg, cache = S.decode_step(model, cache, tok)
+                tok = lg[:, -1:].argmax(-1)
+            stop.record()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        step_ms = start.elapsed_time(stop) / steps
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(int(cache["index"]) == prompt + steps
+              and bool(torch.isfinite(lg).all()),
+              f"{arch}: decode index or logits wrong")
+        if strict:
+            profile_window(
+                f"decode step ({cfg.name}, B={b}, context {prompt + steps})",
+                lambda: S.decode_step(model, cache, tok), card)
+        bound_ms = (w_bytes + c_bytes) / HBM_BYTES_PER_S * 1e3
+
+        # (a) decode against forward on the same tokens
+        flog, _ = model(tokens, **fwd_kw)
+        rel, top1 = _logit_gap(plog, flog)
+        shapes = (tuple(plog.shape), tuple(flog.shape))
+        del plog
+        gap_tol = LMS_MOE_GAP if cfg.is_moe else LMS_GAP
+        check(shapes == ((b, prompt, cfg.vocab),) * 2
+              and rel <= gap_tol and top1 >= LMS_TOP1,
+              f"{arch}: prefill vs forward max |diff| {rel:.3g} of max "
+              f"|logit| (tolerance {gap_tol}), top-1 {top1:.4f} (at least "
+              f"{LMS_TOP1})")
+
+        # (b) flash against the plain path, the counters around the forward
+        launches = expected = 0
+        flash_line = "no attention"
+        if cfg.mla:
+            _set_attn_impl(model, "flash")
+            try:
+                model(tokens[:, :8])
+                fail(f"{arch}: attn_impl='flash' ran MLA's unequal widths")
+            except ValueError as err:
+                check("one head width" in str(err), f"{arch}: {err}")
+            finally:
+                _set_attn_impl(model, "xla")
+            flash_line = ("attn_impl='flash' refused with a ValueError "
+                          "(q / k 192, v 128)")
+        elif _attn_calls(cfg):
+            want = model(tokens, **flash_kw)[0] if flash_kw is not fwd_kw \
+                else flog
+            twin_calls = []
+            twin = KF.flash_attention_ref
+
+            def counted_twin(*a, **kw):
+                twin_calls.append(1)
+                return twin(*a, **kw)
+
+            _set_attn_impl(model, "flash")
+            KF.flash_attention_ref = counted_twin
+            try:
+                KF.flash_attention.launches = 0
+                got, _ = model(tokens, **flash_kw)
+                torch.cuda.synchronize()
+                launches = KF.flash_attention.launches
+            finally:
+                KF.flash_attention_ref = twin
+                _set_attn_impl(model, "xla")
+            expected = _attn_calls(cfg)
+            check(launches == expected and not twin_calls,
+                  f"{arch}: flash launched {launches} times for {expected} "
+                  f"attention calls, the twin {len(twin_calls)}")
+            frel, ftop = _logit_gap(got, want)
+            ftol = LMS_MOE_GAP if cfg.is_moe else LMS_GAP
+            check(frel <= ftol and ftop >= LMS_FLASH_TOP1,
+                  f"{arch}: flash vs plain max |diff| {frel:.3g} of max "
+                  f"|logit| (tolerance {ftol}), top-1 {ftop:.4f}")
+            rows = tokens.shape[1] + (extra if cfg.family == "vlm" else 0)
+            flash_line = (f"flash vs plain over {rows} rows: max |diff| "
+                          f"{frel:.3g} of max |logit| (tolerance {ftol}), "
+                          f"top-1 {ftop:.4f}; {launches} flash launches = "
+                          f"{expected} attention calls, twin calls 0")
+            del got, want
+        del flog
+    cut = (f"{layers} of {full_layers} layers" if layers
+           else f"{full_layers} layers")
+    log(f"[lm-serve] {cfg.name}: {cut}, d_model {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B parameters, {cfg.dtype}, B={b} prompt {prompt} "
+        f"gen {gen}{f', extra rows {extra}' if extra else ''}: prefill "
+        f"{prefill_s:.2f} s ({prompt} steps); decode {step_ms:.3f} ms/step "
+        f"({b / step_ms * 1e3:.1f} tokens/s, CUDA events over {steps} steps"
+        f"{', sync-debug error' if strict else ''}), bound "
+        f"{bound_ms:.3f} ms (weights {w_bytes / 1e9:.3f} GB + cache "
+        f"{c_bytes / 1e9:.4f} GB read once at 3.35 TB/s, {step_ms / bound_ms:.1f}x); "
+        f"peak device memory {peak:.2f} GiB; prefill vs forward max |diff| "
+        f"{rel:.3g} of max |logit| (tolerance {gap_tol}), top-1 {top1:.4f}; "
+        f"{flash_line}; {time.perf_counter() - t0:.1f} s  [{card}]")
+    del model, cache
+    torch.cuda.empty_cache()
+    return launches, expected
+
+
+def phase_lm_serve(dev, card):
+    """Slice 18's main path: ``repro_torch.launch.serve.main`` for
+    TinyLlama-1.1B at full depth (B = 4, prompt 128, gen 32), then each
+    model of LMS_MODELS: the prefill against the forward, the decode
+    timed beside its bound, flash against the plain path with its
+    launches counted around the forward. Returns the flash launches."""
+    import torch
+    from repro_torch.launch import serve as L
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    err, worst, n = _lm_serve_flash_shapes(dev)
+    log(f"[lm-serve] flash kernel against twin at the new forwards' shapes "
+        f"({n}: window 4096 at S = 4160, non-causal encoder, cross Sq 32 / "
+        f"Skv 256, D 112, 640 rows with a window), bf16: max |diff| "
+        f"{err:.3g}, at most {worst:.3f} of the tolerance")
+    arch, _, b, prompt, gen, _ = LMS_MODELS[0]
+    out = L.main(["--arch", arch, "--batch", str(b), "--prompt-len",
+                  str(prompt), "--gen", str(gen), "--seed", str(SEED)])
+    check(out.shape == (b, gen) and (out >= 0).all()
+          and (out < L.get_config(arch).vocab).all(),
+          f"launch.serve.main: tokens of shape {out.shape}")
+    torch.cuda.empty_cache()
+    total = 0
+    for spec in LMS_MODELS:
+        launches, _ = _lm_serve_one(dev, card, *spec)
+        total += launches
+    log(f"[lm-serve] flash launches in the new forwards: {total}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return total
+
+
+
+# ---------------------------------------------------------------------------
 # slice 12: the serving path (QueryServer, ServingPipeline, telemetry)
 # ---------------------------------------------------------------------------
 
@@ -5044,6 +5348,8 @@ def main():
     phase_sanitized(card)
     records["flash_attention"] = phase_flash(dev, card)
     launches.update(phase_lm(dev, card))
+    # flash in the new families' forwards
+    launches["flash_attention"] += phase_lm_serve(dev, card)
     records["bvh_traverse_fine_knn"] = phase_geometry_twins(geo_twins, card)
     # last, with the host's cores free of the twins' workers: the gloo
     # ranks stage their collectives through host memory. Their launches

@@ -1,9 +1,10 @@
-"""Carry trees, values and LM weights between the JAX package and this
-port as numpy arrays: an LBVH built by either package can be queried by
-the other, the same values can be handed to both, and an LM initialised
-by the reference runs in the port. Like every entry point of the
-port, they land on the CUDA card unless the caller passes a device
-(``"cpu"``), and raise without a card."""
+"""Carry trees, values, LM weights and serving caches between the JAX
+package and this port as numpy arrays: an LBVH built by either package
+can be queried by the other, the same values can be handed to both, and
+an LM initialised by the reference runs in the port, from the
+reference's cache too. Like every entry point of the port, they land on
+the CUDA card unless the caller passes a device (``"cpu"``), and raise
+without a card."""
 from __future__ import annotations
 
 import numpy as np
@@ -15,7 +16,7 @@ from .core.lbvh import FIELDS, LBVH
 from .models.lm import LM
 
 __all__ = ["lbvh_from_numpy", "lbvh_to_numpy", "geometry_from_numpy",
-           "lm_from_numpy"]
+           "lm_from_numpy", "cache_from_numpy", "cache_to_numpy"]
 
 _FLOAT_FIELDS = ("node_lo", "node_hi")
 
@@ -72,20 +73,28 @@ def geometry_from_numpy(kind: str, arrays, device=None):
     return cls(*(_tensor(a, np.float32, device) for a in arrays))
 
 
+#: module lists of ``LM`` whose blocks the reference stacks along a
+#: leading layer axis
+_STACKED = ("layers", "dense_layers", "enc_layers")
+
+
 def lm_from_numpy(cfg, params: dict, device=None) -> LM:
-    """An ``LM`` holding the reference's parameter tree, given as numpy
-    arrays (``jax.tree_util.tree_map(np.asarray, init_params(cfg, key))``):
-    ``embed/table``, ``final_norm/...`` and the ``layers`` subtree stacked
-    along a leading layer axis, split here per block. Each leaf is copied
-    into the parameter of the same path, in that parameter's dtype; a
-    missing or mis-shaped leaf raises with its path."""
+    """An ``LM`` of any family holding the reference's parameter tree,
+    given as numpy arrays (``jax.tree_util.tree_map(np.asarray,
+    init_params(cfg, key))``): ``embed/table``, ``final_norm/...`` and
+    each family's subtrees (``dense_layers``, ``layers``, ``enc_layers``
+    stacked along a leading layer axis and split here per block;
+    ``enc_norm``, ``shared_attn``, ``patch_proj``, ``mtp``, the MoE and
+    Mamba leaves as they are). Each leaf is copied into the parameter of
+    the same path, in that parameter's dtype; a missing or mis-shaped leaf
+    raises with its path."""
     model = LM(cfg, device)
     with torch.no_grad():
         for name, param in model.named_parameters():
             parts = name.split(".")
             layer = None
-            if parts[0] == "layers":
-                layer, parts = int(parts[1]), ["layers"] + parts[2:]
+            if parts[0] in _STACKED:
+                layer, parts = int(parts[1]), parts[:1] + parts[2:]
             node = params
             for i, key in enumerate(parts):
                 if not isinstance(node, dict) or key not in node:
@@ -93,10 +102,36 @@ def lm_from_numpy(cfg, params: dict, device=None) -> LM:
                                    f"{'/'.join(parts[:i + 1])}")
                 node = node[key]
             want = tuple(param.shape) if layer is None \
-                else (cfg.n_layers,) + tuple(param.shape)
+                else (len(getattr(model, parts[0])),) + tuple(param.shape)
             if np.shape(node) != want:
                 raise ValueError(f"lm_from_numpy: {'/'.join(parts)} has shape "
                                  f"{np.shape(node)}, the model needs {want}")
             a = node if layer is None else node[layer]
             param.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
     return model
+
+
+def cache_from_numpy(cache: dict, device=None) -> dict:
+    """A serving cache (``models.serve``) from the reference's, given as
+    numpy arrays (``jax.tree_util.tree_map(np.asarray, cache)``), e.g.
+    taken mid-sequence: each leaf in its own dtype (bfloat16 arrays, which
+    numpy holds as ``ml_dtypes.bfloat16``, as torch.bfloat16), ``index`` a
+    0-d int32 tensor."""
+    device = resolve_device(device)
+    out = {}
+    for name, a in cache.items():
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a, order="C"))
+        out[name] = t.to(torch.int32 if name == "index" else t.dtype).to(
+            device)
+    return out
+
+
+def cache_to_numpy(cache: dict) -> dict:
+    """The cache's leaves as numpy arrays (bfloat16 leaves as float32,
+    which holds them exactly)."""
+    return {name: (t.float() if t.dtype == torch.bfloat16 else t)
+            .detach().cpu().numpy() for name, t in cache.items()}

@@ -1,9 +1,9 @@
-"""GQA attention of the dense LM, full-sequence forward: the port of
-``repro.models.attention`` (``init_attn``'s GQA branch,
-``_xla_attention``, ``_flash``, ``attention_core``, ``gqa_forward``).
+"""Attention of the LM: the port of ``repro.models.attention``. GQA (with
+a sliding window), MLA and cross-attention, each with its full-sequence
+forward, and the one-token decode steps over the serving caches.
 
-Two implementations (``cfg.attn_impl``), routed as the reference routes
-them:
+Two implementations of the full-sequence core (``cfg.attn_impl``), routed
+as the reference routes them:
   * "xla"   query-chunked attention in plain PyTorch: float32 scores and
             softmax per chunk of 1024 queries, the probabilities cast to
             the model dtype before P.V, as the reference does;
@@ -11,8 +11,16 @@ them:
             when there is more than one query row (Sq > 1): bf16 and fp16
             on the tensor cores, which also round p to the model dtype
             before P.V (against their own running max, per 128-key
-            tile), float32 on the CUDA cores.
-MLA, cross-attention and the decode paths come with later slices.
+            tile), float32 on the CUDA cores. The kernel takes q, k and v
+            of one head width; MLA's q / k (qk_nope + qk_rope) and v
+            (v_head) differ, and there ``attention_core`` raises a
+            ValueError naming both (the reference's Pallas route fails
+            there too, in ``dot_general``).
+
+The decode steps (``gqa_decode``, ``mla_decode``) are plain PyTorch, as
+the reference's are einsums: one query row never reaches the kernel.
+They write the new token's key and value into the cache in place and
+keep the index, the slots and the masks on the device (no host sync).
 """
 from __future__ import annotations
 
@@ -23,36 +31,68 @@ from ..kernels.ops import flash_attention
 from .config import ModelConfig
 from .layers import apply_rope, trunc_normal
 
-__all__ = ["Attention", "attention_core", "gqa_forward"]
+__all__ = ["Attention", "MLAAttention", "attention_core", "gqa_forward",
+           "gqa_decode", "mla_forward", "mla_decode", "cross_kv",
+           "cross_attn_forward", "cross_attn_decode"]
 
 _CHUNK_Q = 1024
 
 
-class Attention(nn.Module):
-    """GQA projections, (d_in, d_out) weights used as ``x @ w``: wq
-    (d, H dh), wk / wv (d, Hkv dh), wo (H dh, d)."""
+class _Projections(nn.Module):
+    """(d_in, d_out) weights used as ``x @ w``, each drawn as the
+    reference's ``dense_init``: a truncated normal scaled by d_in ** -0.5."""
 
-    def __init__(self, cfg: ModelConfig, device=None, dtype=None):
+    def __init__(self, shapes: dict, device=None, dtype=None):
         super().__init__()
-        d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh
-        shapes = {"wq": (d, h * dh), "wk": (d, hkv * dh),
-                  "wv": (d, hkv * dh), "wo": (h * dh, d)}
         for name, shape in shapes.items():
             self.register_parameter(name, nn.Parameter(
                 torch.empty(shape, device=device, dtype=dtype)))
 
     @torch.no_grad()
     def init_(self, gen: torch.Generator):
-        """Each weight ~ truncated normal scaled by d_in ** -0.5 (the
-        reference's ``dense_init``)."""
-        for w in (self.wq, self.wk, self.wv, self.wo):
+        for w in self.parameters():
             w.copy_(trunc_normal(gen, w.shape, w.shape[0] ** -0.5, w.dtype))
 
+
+class Attention(_Projections):
+    """GQA projections: wq (d, H dh), wk / wv (d, n_kv dh), wo (H dh, d).
+    `n_kv` defaults to ``cfg.n_kv_heads``; cross-attention takes
+    ``cfg.n_heads`` (the reference's ``init_cross_attn``)."""
+
+    def __init__(self, cfg: ModelConfig, device=None, dtype=None,
+                 n_kv: int | None = None):
+        d, h, dh = cfg.d_model, cfg.n_heads, cfg.dh
+        hkv = cfg.n_kv_heads if n_kv is None else n_kv
+        super().__init__({"wq": (d, h * dh), "wk": (d, hkv * dh),
+                          "wv": (d, hkv * dh), "wo": (h * dh, d)},
+                         device, dtype)
+
+
+class MLAAttention(_Projections):
+    """MLA projections (DeepSeek-V3): w_dq (d, r_q), w_uq (r_q, H (dn +
+    dr)), w_dkv (d, r_kv), w_kr (d, dr), w_uk (r_kv, H dn), w_uv (r_kv, H
+    dv), wo (H dv, d)."""
+
+    def __init__(self, cfg: ModelConfig, device=None, dtype=None):
+        d, h = cfg.d_model, cfg.n_heads
+        qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+        r_kv = cfg.kv_lora_rank
+        super().__init__({
+            "w_dq": (d, cfg.q_lora_rank), "w_uq": (cfg.q_lora_rank, h * qk),
+            "w_dkv": (d, r_kv), "w_kr": (d, cfg.qk_rope_dim),
+            "w_uk": (r_kv, h * cfg.qk_nope_dim),
+            "w_uv": (r_kv, h * cfg.v_head_dim),
+            "wo": (h * cfg.v_head_dim, d)}, device, dtype)
+
+
+# ---------------------------------------------------------------------------
+# core attention math (q: (B, H, Sq, dh); k / v: (B, Hkv, Skv, dh))
+# ---------------------------------------------------------------------------
 
 def _xla_attention(q, k, v, *, causal, window, q_offset, scale,
                    chunk=_CHUNK_Q):
     """Query-chunked attention; masks computed per chunk. q_offset is the
-    absolute position of q[0]."""
+    absolute position of q[0]. v may be narrower than q and k (MLA)."""
     b, h, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -81,14 +121,20 @@ def _xla_attention(q, k, v, *, causal, window, q_offset, scale,
 
 
 def _flash(q, k, v, *, causal, window):
+    if not q.shape[-1] == k.shape[-1] == v.shape[-1]:
+        raise ValueError(
+            f"attn_impl='flash': the kernel takes q, k and v of one head "
+            f"width; got q / k {q.shape[-1]} and v {v.shape[-1]} (MLA's "
+            f"qk_nope + qk_rope and v_head); use attn_impl='xla'")
     return flash_attention(q, k, v, causal=causal,
                            window=window if window else None)
 
 
 def attention_core(cfg: ModelConfig, q, k, v, *, causal=True, q_offset=0,
                    scale=None):
-    """q (B, H, Sq, dh), k / v (B, Hkv, Skv, dh) -> (B, H, Sq, dh). The
-    kernel uses 1/sqrt(dh) whatever `scale` says, as the reference's."""
+    """q (B, H, Sq, dh), k (B, Hkv, Skv, dh), v (B, Hkv, Skv, dv) -> (B,
+    H, Sq, dv). The kernel uses 1/sqrt(dh) whatever `scale` says, as the
+    reference's."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if cfg.attn_impl == "flash" and q.shape[2] > 1:
@@ -107,6 +153,10 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, s, n * dh)
 
 
+# ---------------------------------------------------------------------------
+# GQA
+# ---------------------------------------------------------------------------
+
 def gqa_forward(cfg: ModelConfig, p: Attention, x, positions, *, causal=True):
     """x: (B, S, d) -> (out (B, S, d), (k, v)) with k, v (B, Hkv, S, dh)
     after RoPE, as the reference returns them to seed a cache."""
@@ -118,3 +168,144 @@ def gqa_forward(cfg: ModelConfig, p: Attention, x, positions, *, causal=True):
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
     o = attention_core(cfg, q, k, v, causal=causal)
     return _merge_heads(o) @ p.wo, (k, v)
+
+
+def _cached_attention(q, ck, cv, mask, scale, dtype):
+    """One query row against a cache: q (B, H, 1, dh), ck / cv (B, Hkv, W,
+    dh), mask (W,) or None (every key) -> (B, H, 1, dh) in `dtype`.
+    float32 scores, softmax and P.V, as the reference's decode einsums;
+    the H / Hkv query heads of a KV head share its rows through a group
+    axis instead of a repeated copy of the cache."""
+    b, h, _, dh = q.shape
+    hkv = ck.shape[1]
+    qg = q.float().reshape(b, hkv, h // hkv, dh)
+    s = torch.matmul(qg, ck.float().transpose(-1, -2)) * scale  # (B,Hkv,g,W)
+    if mask is not None:
+        s = torch.where(mask, s, float("-inf"))
+    o = torch.matmul(torch.softmax(s, dim=-1), cv.float())
+    return o.reshape(b, h, 1, cv.shape[-1]).to(dtype)
+
+
+def gqa_decode(cfg: ModelConfig, p: Attention, x, cache_k, cache_v, index):
+    """One-token decode with a RING KV cache, updated in place.
+
+    x: (B, 1, d); cache_k / cache_v: (B, Hkv, W, dh), where W may be
+    smaller than the context (sliding-window configurations keep W =
+    window); index: the 0-d int32 tensor of tokens already in context.
+    The new entry is written at slot ``index % W``; slot s holds the token
+    at absolute position ``index - ((index - s) mod W)`` (negative:
+    empty), which gives both the validity and the window mask. Keys carry
+    RoPE at their absolute positions, so relative phases survive the
+    wraparound. Returns (out (B, 1, d), cache_k, cache_v), the caches
+    being the arguments, written."""
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    q = _split_heads(x @ p.wq, h, dh)
+    k = _split_heads(x @ p.wk, hkv, dh)
+    v = _split_heads(x @ p.wv, hkv, dh)
+    pos = index.reshape(1)
+    q = apply_rope(q, pos, cfg.rope_theta, cfg.rotary_pct)
+    k = apply_rope(k, pos, cfg.rope_theta, cfg.rotary_pct)
+    w = cache_k.shape[2]
+    slot = (index % w).reshape(1).long()
+    cache_k.index_copy_(2, slot, k.to(cache_k.dtype))
+    cache_v.index_copy_(2, slot, v.to(cache_v.dtype))
+    kpos = index - torch.remainder(
+        index - torch.arange(w, device=x.device), w)          # absolute pos
+    mask = kpos >= 0
+    if cfg.window:
+        mask &= kpos > index - cfg.window
+    o = _cached_attention(q, cache_k, cache_v, mask, dh ** -0.5, x.dtype)
+    return _merge_heads(o) @ p.wo, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+def mla_forward(cfg: ModelConfig, p: MLAAttention, x, positions, *,
+                causal=True):
+    """Full-sequence MLA. Returns (out, (c_kv, k_rope)) for cache seeding."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q = ((x @ p.w_dq) @ p.w_uq).reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope.transpose(1, 2), positions, cfg.rope_theta)
+    c_kv = x @ p.w_dkv                                       # (B, S, r_kv)
+    k_rope = apply_rope(x @ p.w_kr, positions, cfg.rope_theta)  # (B, S, dr)
+    k_nope = (c_kv @ p.w_uk).reshape(b, s, h, dn)
+    v = (c_kv @ p.w_uv).reshape(b, s, h, dv)
+    qq = torch.cat([q_nope.transpose(1, 2), q_rope], dim=-1)
+    kk = torch.cat([k_nope.transpose(1, 2),
+                    k_rope[:, None].expand(b, h, s, dr)], dim=-1)
+    o = attention_core(cfg, qq, kk, v.transpose(1, 2), causal=causal,
+                       scale=(dn + dr) ** -0.5)
+    return _merge_heads(o) @ p.wo, (c_kv, k_rope)
+
+
+def mla_decode(cfg: ModelConfig, p: MLAAttention, x, cache_ckv, cache_kr,
+               index):
+    """Latent-space decode, the caches updated in place: scores against
+    the compressed cache (W_UK absorbed into q, W_UV into the output), in
+    float32. cache_ckv (B, S, r_kv), cache_kr (B, S, dr). The cache is not
+    a ring: the new entry goes to row ``min(index, S - 1)`` (the
+    reference's ``dynamic_update_slice`` clamps its start, so an index at
+    or past S overwrites the last row), and row j is visible when j <=
+    index. Returns (out (B, 1, d), cache_ckv, cache_kr)."""
+    b = x.shape[0]
+    h = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    rkv = cfg.kv_lora_rank
+    q = ((x @ p.w_dq) @ p.w_uq).reshape(b, 1, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    pos = index.reshape(1)
+    q_rope = apply_rope(q_rope.transpose(1, 2), pos, cfg.rope_theta)
+    c_new = x @ p.w_dkv                                      # (B, 1, r_kv)
+    kr_new = apply_rope(x @ p.w_kr, pos, cfg.rope_theta)     # (B, 1, dr)
+    s_max = cache_ckv.shape[1]
+    row = torch.clamp(index, max=s_max - 1).reshape(1).long()
+    cache_ckv.index_copy_(1, row, c_new.to(cache_ckv.dtype))
+    cache_kr.index_copy_(1, row, kr_new.to(cache_kr.dtype))
+
+    ckv = cache_ckv.float()
+    w_uk = p.w_uk.float().reshape(rkv, h, dn)
+    q_abs = torch.einsum("bhd,khd->bhk", q_nope[:, 0].float(), w_uk)
+    s_lat = torch.einsum("bhk,bsk->bhs", q_abs, ckv)
+    s_rope = torch.einsum("bhd,bsd->bhs", q_rope[:, :, 0].float(),
+                          cache_kr.float())
+    s = (s_lat + s_rope) * ((dn + dr) ** -0.5)
+    mask = torch.arange(s_max, device=x.device) <= index
+    s = torch.where(mask, s, float("-inf"))
+    ctx = torch.einsum("bhs,bsk->bhk", torch.softmax(s, dim=-1), ckv)
+    w_uv = p.w_uv.float().reshape(rkv, h, dv)
+    o = torch.einsum("bhk,khd->bhd", ctx, w_uv)
+    o = o.reshape(b, 1, h * dv).to(x.dtype)
+    return o @ p.wo, cache_ckv, cache_kr
+
+
+# ---------------------------------------------------------------------------
+# cross attention (enc-dec)
+# ---------------------------------------------------------------------------
+
+def cross_kv(cfg: ModelConfig, p: Attention, enc_out):
+    """The cross-attention keys and values of `enc_out`, (B, H, Se, dh)
+    each, without RoPE (what ``prefill_encoder`` caches)."""
+    h, dh = cfg.n_heads, cfg.dh
+    return (_split_heads(enc_out @ p.wk, h, dh),
+            _split_heads(enc_out @ p.wv, h, dh))
+
+
+def cross_attn_forward(cfg: ModelConfig, p: Attention, x, enc_out):
+    """Non-causal attention of x (B, S, d) over enc_out (B, Se, d)."""
+    q = _split_heads(x @ p.wq, cfg.n_heads, cfg.dh)
+    k, v = cross_kv(cfg, p, enc_out)
+    o = attention_core(cfg, q, k, v, causal=False)
+    return _merge_heads(o) @ p.wo
+
+
+def cross_attn_decode(cfg: ModelConfig, p: Attention, x, cross_k, cross_v):
+    """One query row against the precomputed cross k / v (B, H, Se, dh),
+    float32 scores and softmax (the reference's ``_decode_encdec``)."""
+    q = _split_heads(x @ p.wq, cfg.n_heads, cfg.dh)
+    o = _cached_attention(q, cross_k, cross_v, None, cfg.dh ** -0.5, x.dtype)
+    return _merge_heads(o) @ p.wo

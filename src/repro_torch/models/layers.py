@@ -1,7 +1,7 @@
 """Shared neural layers of the LM: norms, RoPE, MLPs, embedding and tied
 logits, and the truncated-normal initialiser. The port of
-``repro.models.layers``, as functions over tensors; the modules of
-``models.lm`` hold the parameters and call them.
+``repro.models.layers``, as functions over tensors, and the two
+parameter modules every block kind holds, ``Norm`` and ``MLP``.
 
 Each follows the reference's arithmetic where PyTorch's defaults differ:
 the norms compute in float32 with eps = 1e-6 (LayerNorm with the
@@ -15,10 +15,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 __all__ = ["trunc_normal", "rms_norm", "layer_norm", "apply_norm",
            "rope_freqs", "apply_rope", "apply_mlp", "embed_tokens",
-           "logits_out"]
+           "logits_out", "Norm", "MLP"]
 
 EPS = 1e-6
 
@@ -57,8 +58,10 @@ def apply_norm(x, scale, bias=None, kind: str = "rmsnorm", eps: float = EPS):
 def rope_freqs(dh_rot: int, theta: float, device=None):
     """(dh_rot // 2,) float32 inverse frequencies."""
     e = torch.arange(0, dh_rot, 2, dtype=torch.float32, device=device) / dh_rot
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), e)
+    # theta filled on the device: a tensor made from a host value would be
+    # a copy, and a decode step makes none
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), e)
 
 
 def apply_rope(x, positions, theta: float, rotary_pct: float = 1.0):
@@ -97,3 +100,40 @@ def embed_tokens(table, tokens):
 def logits_out(table, x):
     """Tied logits: (B, S, d) @ (d, V)."""
     return x @ table.T.to(x.dtype)
+
+
+class Norm(nn.Module):
+    """RMSNorm (scale) or LayerNorm (scale, bias); float32 parameters."""
+
+    def __init__(self, d: int, kind: str, device=None):
+        super().__init__()
+        self.kind = kind
+        self.scale = nn.Parameter(torch.ones(d, device=device))
+        self.bias = (nn.Parameter(torch.zeros(d, device=device))
+                     if kind != "rmsnorm" else None)
+
+    def forward(self, x):
+        return apply_norm(x, self.scale, self.bias, self.kind)
+
+
+class MLP(nn.Module):
+    """SwiGLU (wg, wu, wd) or GELU (wu, wd), (d_in, d_out) weights."""
+
+    def __init__(self, d: int, d_ff: int, kind: str, device=None, dtype=None):
+        super().__init__()
+        self.kind = kind
+        shapes = {"wu": (d, d_ff), "wd": (d_ff, d)}
+        if kind == "swiglu":
+            shapes = {"wg": (d, d_ff), **shapes}
+        for name, shape in shapes.items():
+            self.register_parameter(name, nn.Parameter(
+                torch.empty(shape, device=device, dtype=dtype)))
+
+    @torch.no_grad()
+    def init_(self, gen: torch.Generator):
+        for w in self.parameters():
+            w.copy_(trunc_normal(gen, w.shape, w.shape[0] ** -0.5, w.dtype))
+
+    def forward(self, x):
+        return apply_mlp(x, self.wu, self.wd, getattr(self, "wg", None),
+                         self.kind)

@@ -1,84 +1,120 @@
-"""The LM: the dense family's model assembly, the port of
-``repro.models.lm``'s ``init_dense_block`` / ``apply_block`` /
-``init_params`` / ``forward`` for ``family == "dense"`` (TinyLlama,
-Phi-3, StarCoder2, ChatGLM3).
+"""The LM: model assembly for every family, the port of
+``repro.models.lm``'s blocks, ``init_params`` and ``forward``.
 
-``LM`` is an ``nn.Module`` of ``DenseBlock``s (pre-norm GQA attention and
-an MLP) in an ``nn.ModuleList``; the reference's ``lax.scan`` over
-stacked layers is a loop. Weights keep the reference's layout, (d_in,
-d_out) used as ``x @ w``, so ``convert.lm_from_numpy`` copies the JAX
-parameter tree leaf for leaf; norm parameters are float32, the rest in
-``cfg.dtype``. The other families raise ``NotImplementedError`` naming
-what they wait for (ROADMAP Queue 1, the LM substrate).
+Families:
+  dense    [tinyllama, phi3, starcoder2, chatglm3] pre-norm GQA + MLP
+  moe      [mixtral] GQA (+ sliding window) + top-k MoE
+  mla_moe  [deepseek-v3] MLA + (first_k_dense dense layers, the rest MoE);
+           the multi-token-prediction module is held (``mtp``) for the
+           loss, which no forward uses
+  ssm      [mamba2] SSD layers, attention-free
+  hybrid   [zamba2] Mamba backbone + one SHARED attention + MLP block
+           applied after every ``attn_every`` Mamba layers
+  encdec   [seamless] non-causal encoder over given frame embeddings +
+           causal decoder with cross-attention
+  vlm      [llava-next] projected patch embeddings prepended to the tokens
+
+``LM`` is an ``nn.Module`` with one module per block kind
+(``DenseBlock``, ``MoEBlock``, ``MambaBlock``, ``XAttnBlock``) in
+``nn.ModuleList``s; the reference's ``lax.scan`` over stacked layers is a
+loop. Every parameter sits at the reference's path (``layers.3.attn.wq``
+for ``layers/attn/wq[3]``), in the reference's layout ((d_in, d_out) used
+as ``x @ w``) and dtype (norms, the router and Mamba's a_log / dt_bias /
+d_skip / norm_scale float32, the rest ``cfg.dtype``), so
+``convert.lm_from_numpy`` copies the JAX tree leaf for leaf.
+``models.serve`` runs the same modules one token at a time.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
 
 from ..core.index import resolve_device
 from . import attention as A
+from . import mamba2 as M2
+from . import moe as MOE
 from .config import ModelConfig
-from .layers import (apply_mlp, apply_norm, embed_tokens, logits_out,
-                     trunc_normal)
+from .layers import MLP, Norm, embed_tokens, logits_out, trunc_normal
 
-__all__ = ["LM", "DenseBlock", "Norm", "MLP"]
-
-#: what each family that does not run yet waits for (ROADMAP Queue 1,
-#: the LM substrate)
-_WAITING = {
-    "moe": "moe.py (the MoE layer and its router)",
-    "mla_moe": "MLA in attention.py and moe.py",
-    "ssm": "mamba2.py (the SSD layer)",
-    "hybrid": "mamba2.py and the hybrid family's shared attention block",
-    "encdec": "the encoder-decoder family (cross-attention)",
-    "vlm": "the VLM family (patch projection)",
-}
+__all__ = ["LM", "DenseBlock", "MoEBlock", "MambaBlock", "XAttnBlock",
+           "Norm", "MLP"]
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-class Norm(nn.Module):
-    """RMSNorm (scale) or LayerNorm (scale, bias); float32 parameters."""
-
-    def __init__(self, d: int, kind: str, device=None):
-        super().__init__()
-        self.kind = kind
-        self.scale = nn.Parameter(torch.ones(d, device=device))
-        self.bias = (nn.Parameter(torch.zeros(d, device=device))
-                     if kind != "rmsnorm" else None)
-
-    def forward(self, x):
-        return apply_norm(x, self.scale, self.bias, self.kind)
-
-
-class MLP(nn.Module):
-    """SwiGLU (wg, wu, wd) or GELU (wu, wd), (d_in, d_out) weights."""
-
-    def __init__(self, d: int, d_ff: int, kind: str, device=None, dtype=None):
-        super().__init__()
-        self.kind = kind
-        shapes = {"wu": (d, d_ff), "wd": (d_ff, d)}
-        if kind == "swiglu":
-            shapes = {"wg": (d, d_ff), **shapes}
-        for name, shape in shapes.items():
-            self.register_parameter(name, nn.Parameter(
-                torch.empty(shape, device=device, dtype=dtype)))
-
-    @torch.no_grad()
-    def init_(self, gen: torch.Generator):
-        for w in self.parameters():
-            w.copy_(trunc_normal(gen, w.shape, w.shape[0] ** -0.5, w.dtype))
-
-    def forward(self, x):
-        return apply_mlp(x, self.wu, self.wd, getattr(self, "wg", None),
-                         self.kind)
+def dense_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The configuration of DeepSeek's first_k_dense layers and MTP block
+    (the reference's ``dataclass_replace(cfg, n_experts=0)``)."""
+    return dataclasses.replace(cfg, n_experts=0)
 
 
 class DenseBlock(nn.Module):
-    """Pre-norm block: x + attn(ln1(x)), then + mlp(ln2(x))."""
+    """Pre-norm block: x + attn(ln1(x)), then + mlp(ln2(x)). The attention
+    is MLA when ``cfg.mla``, else GQA."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        dt = _dtype(cfg)
+        self.ln1 = Norm(cfg.d_model, cfg.norm, device)
+        self.attn = (A.MLAAttention if cfg.mla else A.Attention)(
+            cfg, device, dt)
+        self.ln2 = Norm(cfg.d_model, cfg.norm, device)
+        self._ffn(cfg, device, dt)
+
+    def _ffn(self, cfg, device, dt):
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp, device, dt)
+
+    def init_(self, gen: torch.Generator):
+        self.attn.init_(gen)
+        self.mlp.init_(gen)
+
+    def ffn(self, x):
+        """x + the FFN of ln2(x); returns (x, aux float32 or None)."""
+        return x + self.mlp(self.ln2(x)), None
+
+    def forward(self, x, positions, *, causal=True):
+        """Returns (x, aux): aux the MoE router's loss, None for an MLP."""
+        fn = A.mla_forward if self.cfg.mla else A.gqa_forward
+        h, _ = fn(self.cfg, self.attn, self.ln1(x), positions, causal=causal)
+        return self.ffn(x + h)
+
+
+class MoEBlock(DenseBlock):
+    """A DenseBlock whose FFN is ``moe.MoE``."""
+
+    def _ffn(self, cfg, device, dt):
+        self.moe = MOE.MoE(cfg, device, dt)
+
+    def init_(self, gen: torch.Generator):
+        self.attn.init_(gen)
+        self.moe.init_(gen)
+
+    def ffn(self, x):
+        h, aux = MOE.moe_forward(self.cfg, self.moe, self.ln2(x))
+        return x + h, aux
+
+
+class MambaBlock(nn.Module):
+    """x + mamba(ln(x))."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.ln = Norm(cfg.d_model, cfg.norm, device)
+        self.mamba = M2.Mamba(cfg, device, _dtype(cfg))
+
+    def forward(self, x):
+        return x + M2.mamba_forward(self.cfg, self.mamba, self.ln(x))
+
+
+class XAttnBlock(nn.Module):
+    """The decoder block of encdec: causal self-attention, cross-attention
+    over the encoder's output, MLP; each pre-norm."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -86,74 +122,154 @@ class DenseBlock(nn.Module):
         dt = _dtype(cfg)
         self.ln1 = Norm(cfg.d_model, cfg.norm, device)
         self.attn = A.Attention(cfg, device, dt)
+        self.lnx = Norm(cfg.d_model, cfg.norm, device)
+        self.xattn = A.Attention(cfg, device, dt, n_kv=cfg.n_heads)
         self.ln2 = Norm(cfg.d_model, cfg.norm, device)
         self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp, device, dt)
 
-    def forward(self, x, positions, *, causal=True):
-        h, _ = A.gqa_forward(self.cfg, self.attn, self.ln1(x), positions,
-                             causal=causal)
+    def init_(self, gen: torch.Generator):
+        for m in (self.attn, self.xattn, self.mlp):
+            m.init_(gen)
+
+    def forward(self, x, positions, enc_out):
+        h, _ = A.gqa_forward(self.cfg, self.attn, self.ln1(x), positions)
         x = x + h
+        x = x + A.cross_attn_forward(self.cfg, self.xattn, self.lnx(x),
+                                     enc_out)
         return x + self.mlp(self.ln2(x))
 
 
 class LM(nn.Module):
-    """The dense LM: embedding, ``cfg.n_layers`` blocks, final norm, tied
-    logits. ``LM(cfg, device)`` allocates the parameters uninitialised;
-    ``LM.from_config`` draws them from a seed.
+    """The LM of any family: embedding, the family's blocks, final norm,
+    tied logits. ``LM(cfg, device)`` allocates the parameters
+    uninitialised; ``LM.from_config`` draws them from a seed.
 
-    ``forward(tokens)`` takes (B, S) int64 tokens and returns (logits (B,
-    S, vocab) in ``cfg.dtype``, aux), aux a float32 zero as the reference
-    returns for the dense family. With ``attn_impl="flash"`` the attention
-    runs the CUDA kernel, which is forward-only: call it under
-    ``torch.inference_mode()`` (or ``no_grad``) on the card.
-    ``cfg.remat`` (the reference's per-layer activation checkpointing)
-    has no effect on a forward pass under ``torch.inference_mode()``: no
-    activation is kept for a backward pass there.
+    ``forward(tokens, patch_embeds=None, src_embeds=None)`` takes (B, S)
+    int64 tokens (and, for vlm, (B, P, d) patch embeddings; for encdec,
+    (B, Se, d) frame embeddings) and returns (logits (B, S, vocab) in
+    ``cfg.dtype``, aux), aux the float32 sum of the MoE layers' router
+    losses (zero without MoE), as the reference returns them. With
+    ``attn_impl="flash"`` the attention runs the CUDA kernel, which is
+    forward-only: call it under ``torch.inference_mode()`` (or
+    ``no_grad``) on the card. ``cfg.remat`` (the reference's per-layer
+    activation checkpointing) has no effect on a forward pass under
+    ``torch.inference_mode()``: no activation is kept for a backward pass
+    there.
     """
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.family != "dense" or cfg.mla or cfg.is_moe:
-            raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} is not ported yet; the "
-                f"port runs the dense family, and {cfg.family!r} waits for "
-                f"{_WAITING.get(cfg.family, 'its modules')} (ROADMAP Queue 1, "
-                f"the LM substrate)")
         device = resolve_device(device)
         self.cfg = cfg
+        dt = _dtype(cfg)
         self.embed = nn.Module()
         self.embed.table = nn.Parameter(torch.empty(
-            (cfg.vocab, cfg.d_model), device=device, dtype=_dtype(cfg)))
-        self.layers = nn.ModuleList(DenseBlock(cfg, device)
-                                    for _ in range(cfg.n_layers))
+            (cfg.vocab, cfg.d_model), device=device, dtype=dt))
+        f = cfg.family
+        if f in ("dense", "moe", "mla_moe", "vlm"):
+            if cfg.first_k_dense:
+                self.dense_layers = nn.ModuleList(
+                    DenseBlock(dense_cfg(cfg), device)
+                    for _ in range(cfg.first_k_dense))
+            block = MoEBlock if cfg.is_moe else DenseBlock
+            self.layers = nn.ModuleList(
+                block(cfg, device)
+                for _ in range(cfg.n_layers - cfg.first_k_dense))
+            if f == "vlm":
+                self.patch_proj = nn.Parameter(torch.empty(
+                    (cfg.d_model, cfg.d_model), device=device, dtype=dt))
+            if cfg.mtp_depth:
+                self.mtp = nn.Module()
+                self.mtp.block = DenseBlock(dense_cfg(cfg), device)
+                self.mtp.norm = Norm(cfg.d_model, cfg.norm, device)
+                self.mtp.proj = nn.Parameter(torch.empty(
+                    (2 * cfg.d_model, cfg.d_model), device=device, dtype=dt))
+        elif f in ("ssm", "hybrid"):
+            self.layers = nn.ModuleList(MambaBlock(cfg, device)
+                                        for _ in range(cfg.n_layers))
+            if f == "hybrid":
+                self.shared_attn = DenseBlock(cfg, device)
+        elif f == "encdec":
+            self.enc_layers = nn.ModuleList(DenseBlock(cfg, device)
+                                            for _ in range(cfg.n_enc_layers))
+            self.enc_norm = Norm(cfg.d_model, cfg.norm, device)
+            self.layers = nn.ModuleList(XAttnBlock(cfg, device)
+                                        for _ in range(cfg.n_layers))
+        else:
+            raise ValueError(f"{cfg.name}: unknown family {f!r}")
         self.final_norm = Norm(cfg.d_model, cfg.norm, device)
 
     @classmethod
     def from_config(cls, cfg: ModelConfig, seed: int = 0, device=None) -> "LM":
         """An LM with weights drawn from `seed` by a ``torch.Generator`` on
-        the target device: truncated normals scaled by d_in ** -0.5 (the
-        embedding by 1), norms at one and zero. The card unless `device`
-        says otherwise; without a card this raises."""
+        the target device, with the reference's initialisers: truncated
+        normals scaled by d_in ** -0.5 (the embedding by 1), normals for
+        the experts and conv_wx, norms at one and zero, Mamba's constants.
+        The card unless `device` says otherwise; without a card this
+        raises."""
         model = cls(cfg, device)
-        gen = torch.Generator(device=model.embed.table.device)
+        gen = torch.Generator(device=model.device)
         gen.manual_seed(seed)
         with torch.no_grad():
-            t = model.embed.table
-            t.copy_(trunc_normal(gen, t.shape, 1.0, t.dtype))
-            for blk in model.layers:
-                blk.attn.init_(gen)
-                blk.mlp.init_(gen)
+            for m in model.modules():
+                if isinstance(m, (DenseBlock, XAttnBlock, M2.Mamba)):
+                    m.init_(gen)
+            for w in (model.embed.table, getattr(model, "patch_proj", None),
+                      getattr(getattr(model, "mtp", None), "proj", None)):
+                if w is not None:
+                    scale = 1.0 if w is model.embed.table else \
+                        w.shape[0] ** -0.5
+                    w.copy_(trunc_normal(gen, w.shape, scale, w.dtype))
         return model
 
     @property
     def device(self) -> torch.device:
         return self.embed.table.device
 
-    def forward(self, tokens):
+    def forward(self, tokens, patch_embeds=None, src_embeds=None):
+        cfg = self.cfg
         x = embed_tokens(self.embed.table, tokens)
+        if cfg.family == "vlm":
+            if patch_embeds is None:
+                raise ValueError(f"{cfg.name}: the vlm family's forward takes "
+                                 f"patch_embeds (B, P, d_model)")
+            pe = patch_embeds.to(x.dtype) @ self.patch_proj
+            x = torch.cat([pe, x], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)
-        for blk in self.layers:
-            x = blk(x, positions)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.family in ("dense", "moe", "mla_moe", "vlm"):
+            for blk in getattr(self, "dense_layers", ()):
+                x, _ = blk(x, positions)
+            for blk in self.layers:
+                x, a = blk(x, positions)
+                if a is not None:
+                    aux = aux + a
+        elif cfg.family == "ssm":
+            for blk in self.layers:
+                x = blk(x)
+        elif cfg.family == "hybrid":
+            k = cfg.attn_every
+            for i, blk in enumerate(self.layers):
+                x = blk(x)
+                if (i + 1) % k == 0:
+                    x, _ = self.shared_attn(x, positions)
+        else:                                                 # encdec
+            if src_embeds is None:
+                raise ValueError(f"{cfg.name}: the encdec family's forward "
+                                 f"takes src_embeds (B, Se, d_model)")
+            enc = self.encode(src_embeds.to(x.dtype))
+            for blk in self.layers:
+                x = blk(x, positions, enc)
         x = self.final_norm(x)
-        return (logits_out(self.embed.table, x),
-                torch.zeros((), dtype=torch.float32, device=x.device))
+        logits = logits_out(self.embed.table, x)
+        if cfg.family == "vlm":
+            logits = logits[:, patch_embeds.shape[1]:]
+        return logits, aux
+
+    def encode(self, src_embeds):
+        """encdec: the non-causal encoder and its final norm."""
+        enc = src_embeds
+        positions = torch.arange(enc.shape[1], device=enc.device)
+        for blk in self.enc_layers:
+            enc, _ = blk(enc, positions, causal=False)
+        return self.enc_norm(enc)

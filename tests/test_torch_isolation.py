@@ -1497,3 +1497,107 @@ def test_analysis_runs_with_jax_blocked():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "reprolint (default): 0 finding(s), " \
         "0 suppressed"
+
+
+# ---------------------------------------------------------------------------
+# slice 18: the LM serving path of every family
+# ---------------------------------------------------------------------------
+
+SERVING_LM_MODULES = tuple(importlib.import_module(f"repro_torch.{m}")
+                           for m in ("models.moe", "models.mamba2",
+                                     "models.serve", "launch",
+                                     "launch.serve"))
+
+
+def test_lm_serving_modules_are_scanned_for_imports():
+    files = {os.path.realpath(p) for p in _port_files()}
+    for mod in SERVING_LM_MODULES:
+        assert os.path.realpath(mod.__file__) in files, mod
+
+
+def test_lm_serving_runs_with_jax_blocked():
+    """Every family's LM, a cache, a prefill and decode steps, and the
+    driver, with JAX and the reference blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import torch, repro_torch as rt\n"
+        "from repro_torch.models import serve\n"
+        "from repro_torch.launch.serve import main\n"
+        "for arch in rt.configs.all_archs():\n"
+        "    cfg = rt.get_config(arch, smoke=True)\n"
+        "    m = rt.LM.from_config(cfg, seed=0, device='cpu')\n"
+        "    c = serve.init_cache(cfg, 1, 6, torch.float32, enc_len=3,\n"
+        "                         device='cpu')\n"
+        "    with torch.inference_mode():\n"
+        "        if cfg.family == 'encdec':\n"
+        "            c = serve.prefill_encoder(m, c, torch.ones((1, 3, cfg.d_model)))\n"
+        "        c, lg = serve.prefill(m, c, torch.zeros((1, 5), dtype=torch.long))\n"
+        "    assert lg.shape == (1, 5, cfg.vocab) and int(c['index']) == 5\n"
+        "    assert bool(torch.isfinite(lg).all()), arch\n"
+        "out = main(['--smoke', '--arch', 'zamba2-7b', '--batch', '1',\n"
+        "            '--prompt-len', '3', '--gen', '2', '--device', 'cpu'])\n"
+        "assert out.shape == (1, 2)\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules\n"
+        "               if sys.modules[m] is not None)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_lm_serving_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    """init_cache, launch.serve.main, LM.from_config of every family and
+    convert.cache_from_numpy take the card when no device is given, and
+    raise resolve_device's error without one."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError) as want:
+        resolve_device(None)
+    calls = [lambda: launch.main(["--smoke"]),
+             lambda: convert.cache_from_numpy(
+                 {"index": np.int32(0), "k": np.zeros((1, 1, 1, 1, 2),
+                                                      np.float32)})]
+    for arch in TCF.all_archs():
+        cfg = get_config(arch, smoke=True)
+        calls += [lambda cfg=cfg: serve.init_cache(cfg, 1, 4),
+                  lambda cfg=cfg: LM.from_config(cfg)]
+    for call in calls:
+        with pytest.raises(RuntimeError) as got:
+            call()
+        assert str(got.value) == str(want.value)
+
+
+def test_lm_serving_files_lint_clean():
+    """reprolint over the slice's files alone: no finding."""
+    from repro_torch import analysis
+    paths = [m.__file__ for m in SERVING_LM_MODULES] + [
+        os.path.join(PORT, "models", f)
+        for f in ("attention.py", "lm.py", "layers.py")] + [
+        os.path.join(PORT, "convert.py")]
+    assert analysis.analyze(paths) == []
+
+
+@pytest.mark.cuda
+def test_decode_step_on_the_card_makes_no_host_sync(cuda_device):
+    """A dense decode step under sync-debug "error": any host sync (an
+    .item(), a copy from the host) raises."""
+    from repro_torch.models import serve
+    cfg = dataclasses.replace(get_config(SMOKE, smoke=True), window=4)
+    model = LM.from_config(cfg, seed=0)
+    cache = serve.init_cache(cfg, 2, 8, torch.float32)
+    tok = torch.zeros((2, 1), dtype=torch.long, device=cuda_device)
+    with torch.inference_mode():
+        serve.decode_step(model, cache, tok)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(6):                       # the ring wraps
+                lg, cache = serve.decode_step(model, cache, tok)
+                tok = lg[:, -1:].argmax(-1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert int(cache["index"]) == 7

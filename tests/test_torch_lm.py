@@ -1,4 +1,4 @@
-"""PyTorch port vs the JAX package: the LM substrate's dense forward.
+"""PyTorch port vs the JAX package: the LM substrate's forward.
 
 * the ten configurations (``repro_torch.configs``) equal the reference's
   field for field, smoke and full, with equal parameter counts;
@@ -9,7 +9,10 @@
 * the four dense smoke models with the reference's own weights
   (``convert.lm_from_numpy``) against ``repro.models.lm.forward``, with
   ``attn_impl`` "xla" and "flash" (the Pallas kernel in interpret mode on
-  the JAX side, the kernel's twin on the port's), at S = 100 and 256.
+  the JAX side, the kernel's twin on the port's), at S = 100 and 256;
+* the six other families' smoke models against the reference's forward
+  (MoE, MLA with first_k_dense layers and the MTP module carried, Mamba2,
+  the hybrid's shared block, encoder-decoder, VLM patch rows).
 
 Tolerances: float32 logits within 1e-5 of max |logit| (two layers of
 float32 sums taken in other orders: about 3e-7 is typical); one bfloat16
@@ -247,12 +250,61 @@ def test_from_config_seeds_the_weights():
     assert bool(torch.isfinite(logits).all())
 
 
+def reference_tree(model):
+    """A port LM's weights as the reference's parameter tree (numpy): the
+    blocks of ``layers`` / ``dense_layers`` / ``enc_layers`` stacked along
+    a leading layer axis, every other leaf at its path."""
+    tree, stacked = {}, {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] in ("layers", "dense_layers", "enc_layers"):
+            stacked.setdefault((parts[0],) + tuple(parts[2:]), []).append(
+                p.detach().numpy())
+        else:
+            stacked[tuple(parts)] = p.detach().numpy()
+    for path, a in stacked.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack(a) if isinstance(a, list) else a
+    return tree
+
+
 @pytest.mark.parametrize("arch", OTHER)
-def test_other_families_are_refused(arch):
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match=cfg.family) as info:
-        LM(cfg, device="cpu")
-    assert "(ROADMAP Queue 1, the LM substrate)" in str(info.value)
+def test_other_families_forward_matches_reference(arch):
+    """The six families after the dense one: the logits and the MoE loss
+    against ``repro.models.lm.forward`` on the same weights (drawn by
+    ``LM.from_config``, handed to the reference as its parameter tree and
+    back through ``lm_from_numpy``, leaf for leaf), with the vlm family's
+    patch embeddings and the encdec family's frame embeddings.
+    ``tests/test_torch_serve_families.py`` runs the reference's own
+    ``init_params`` trees through ``lm_from_numpy``."""
+    cfg = JC.get_config(arch, smoke=True)
+    model = LM.from_config(get_config(arch, smoke=True), seed=2, device="cpu")
+    tree = reference_tree(model)
+    back = convert.lm_from_numpy(model.cfg, tree, device="cpu")
+    for (name, a), b in zip(model.named_parameters(), back.parameters()):
+        assert torch.equal(a, b), name
+    rng = np.random.default_rng(5)
+    tok = rng.integers(0, cfg.vocab, (2, 32))
+    extra, textra = {}, {}
+    if cfg.family == "vlm":
+        a = rng.normal(size=(2, cfg.n_patches, cfg.d_model)).astype(np.float32)
+        extra["patch_embeds"], textra["patch_embeds"] = jnp.asarray(a), t_of(a)
+    if cfg.family == "encdec":
+        a = rng.normal(size=(2, 16, cfg.d_model)).astype(np.float32)
+        extra["src_embeds"], textra["src_embeds"] = jnp.asarray(a), t_of(a)
+    want, aux = JLM.forward(
+        cfg, jax.tree_util.tree_map(jnp.asarray, tree), jnp.asarray(tok),
+        **extra)
+    with torch.inference_mode():
+        got, taux = model(t_of(tok), **textra)
+    want = np.asarray(want)
+    assert got.shape == want.shape == (2, 32, cfg.vocab)
+    assert np.abs(np_of(got) - want).max() <= F32_TOL * np.abs(want).max()
+    assert taux.dtype == torch.float32
+    assert abs(float(taux) - float(aux)) <= 1e-5 * max(1.0, abs(float(aux)))
+    assert (float(aux) > 0) == cfg.is_moe
 
 
 def test_lm_from_numpy_refuses_a_missing_or_misshaped_leaf():

@@ -281,6 +281,29 @@ Phases (one line or more each, then the two closing lines):
      no twin call), MLA's refused with a ValueError. The kernels line
      adds these launches to flash's.
 
+ 16c. train (slice 19): TinyLlama-1.1B at full width and depth, bf16,
+     remat, B = 4 x S = 2048 from ``TokenPipeline``: 3 warm and 5 timed
+     train steps (ms per step, tokens/s, peak device memory, the busy
+     share of one profiled step, 6 N tokens / step time / 989 TFLOP/s);
+     host syncs under sync-debug "warn" of a step and of its forward and
+     backward alone (the step adds none). A fresh model memorizes a
+     fixed batch: 20 steps at lr 1e-3, the last loss below 0.7 of the
+     first; then its ``make_eval_step`` on a held-out batch with
+     attn_impl="flash", the flash counter zeroed just before and read
+     just after (22 launches, no twin call), the loss within
+     TRAIN_EVAL_ABS of the plain path's.
+     At 2 of the 22 layers, full width, float32, B = 2 x S = 64: the
+     card's loss and gradients against the CPU port's on the same
+     weights (``convert.lm_to_numpy``), and AdamW's state after one step
+     from the same gradients on both; at 2 layers, bf16, B = 4 x S =
+     2048: remat on and off give bit-identical losses and gradients, both
+     peak memories printed. Every family's smoke configuration one step
+     on the card (loss and grad norm finite, every nonzero leaf moved,
+     the loss against the CPU port's). ``launch.train.main`` --smoke for
+     4 steps into a checkpoint directory, then to 8 from it ("resumed
+     from step 4"). The kernels line adds the eval step's flash launches
+     to flash's.
+
  17. distributed (slice 15; run last, once the host's cores are free of
      the twins' workers): one world of 4 gloo ranks on the one card
      (``python3 chip_smoke.py --rank r ...``: fresh processes, a file
@@ -2978,6 +3001,366 @@ def phase_lm_serve(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# slice 19: the LM's training
+# ---------------------------------------------------------------------------
+
+TRAIN_WARM, TRAIN_TIMED = 3, 5
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 100      # launch.train's defaults
+BF16_PEAK = 989e12                      # dense bf16 tensor-core FLOP/s
+#: the card against the CPU port at TRAIN_CMP_LAYERS layers, float32:
+#: the loss within 1e-5 relative and each gradient leaf within 1e-4 of
+#: its max |g| (cuBLAS and the CPU's BLAS sum in other orders, about
+#: 1e-6 of a product's scale; the CPU tests hold the port to the
+#: reference at these bounds); AdamW's m, v and weights after one step
+#: from the same gradients within 1e-6 of each leaf's max (elementwise
+#: float32: the card may fuse a multiply and an add)
+TRAIN_CMP_LAYERS, TRAIN_CMP_B, TRAIN_CMP_S = 2, 2, 64
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, TRAIN_OPT_TOL = 1e-5, 1e-4, 1e-6
+#: the fixed batch: steps, lr, warmup and the reference's bar
+TRAIN_MEMO_STEPS, TRAIN_MEMO_LR, TRAIN_MEMO_WARMUP = 20, 1e-3, 2
+TRAIN_MEMO_RATIO = 0.7
+#: the eval step's loss, flash against the plain path, bf16 at full
+#: depth, the memorized model on a held-out batch: [lm]'s logit gap
+#: (5e-3 of max |logit|) averaged over the 8192 tokens' losses
+TRAIN_EVAL_ABS = 1e-2
+#: every family's smoke configuration: the card's first loss against the
+#: CPU port's (float32)
+TRAIN_FAMILY_RTOL = 1e-5
+
+
+def _host_syncs(fn):
+    """The host syncs fn makes, as the source lines that made them (the
+    Python frame of each warning under sync-debug "warn")."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in seen
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def _loss_and_grads(model, batch):
+    import torch
+    from repro_torch.models.lm import loss_fn
+    params = dict(model.named_parameters())
+    total, _ = loss_fn(model.cfg, model, batch)
+    grads = torch.autograd.grad(total, list(params.values()))
+    return total.detach(), dict(zip(params, grads))
+
+
+def _leaf_gap(got, want):
+    """max over leaves of max |got - want| / max |want| (got on any
+    device, want on the CPU)."""
+    worst = 0.0
+    for n, w in want.items():
+        w = w.detach().float()
+        scale = float(w.abs().max())
+        gap = float((got[n].detach().float().cpu() - w).abs().max())
+        worst = max(worst, gap / scale if scale else gap)
+    return worst
+
+
+def _train_family_batch(cfg, dev):
+    import torch
+    from repro_torch.data import synthetic_batch
+    b = synthetic_batch(SEED, 0, 2, 32, cfg.vocab, device="cpu")
+    gen = torch.Generator().manual_seed(SEED)
+    if cfg.family == "vlm":
+        b["patch_embeds"] = torch.randn((2, cfg.n_patches, cfg.d_model),
+                                        generator=gen)
+    if cfg.family == "encdec":
+        b["src_embeds"] = torch.randn((2, 16, cfg.d_model), generator=gen)
+    return b, {k: v.to(dev) for k, v in b.items()}
+
+
+def _train_card_vs_cpu(dev, card):
+    """TRAIN_CMP_LAYERS layers of TinyLlama, full width, float32: the
+    card's loss and gradients against the CPU port's on the same weights,
+    then AdamW's state after one step from the CPU's gradients on both."""
+    import dataclasses
+    import torch
+    import repro_torch as rt
+    from repro_torch import convert
+    from repro_torch.data import synthetic_batch
+    from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
+    cfg = dataclasses.replace(rt.get_config(LM_ARCH), dtype="float32",
+                              n_layers=TRAIN_CMP_LAYERS)
+    cpu = rt.LM.from_config(cfg, seed=SEED, device="cpu")
+    gpu = convert.lm_from_numpy(cfg, convert.lm_to_numpy(cpu), dev)
+    b = synthetic_batch(SEED, 0, TRAIN_CMP_B, TRAIN_CMP_S, cfg.vocab,
+                        device="cpu")
+    l_cpu, g_cpu = _loss_and_grads(cpu, b)
+    l_gpu, g_gpu = _loss_and_grads(gpu, {k: v.to(dev) for k, v in b.items()})
+    rel = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
+    gap = _leaf_gap(g_gpu, g_cpu)
+    check(rel <= TRAIN_LOSS_RTOL and gap <= TRAIN_GRAD_TOL,
+          f"train: the card's loss {float(l_gpu)} against the CPU's "
+          f"{float(l_cpu)} ({rel:.3g} relative, tolerance "
+          f"{TRAIN_LOSS_RTOL}); gradients {gap:.3g} of a leaf's max "
+          f"(tolerance {TRAIN_GRAD_TOL})")
+    del g_gpu
+    lr = cosine_schedule(1e-3, 2, 10)
+    s_cpu, s_gpu = adamw_init(cpu), adamw_init(gpu)
+    adamw_update(cpu, g_cpu, s_cpu, lr)
+    adamw_update(gpu, {n: g.to(dev) for n, g in g_cpu.items()}, s_gpu, lr)
+    opt_gap = max(_leaf_gap(s_gpu["m"], s_cpu["m"]),
+                  _leaf_gap(s_gpu["v"], s_cpu["v"]),
+                  _leaf_gap(dict(gpu.named_parameters()),
+                            dict(cpu.named_parameters())))
+    check(opt_gap <= TRAIN_OPT_TOL and int(s_gpu["step"]) == 1,
+          f"train: AdamW on the card against the CPU from the same "
+          f"gradients: {opt_gap:.3g} of a leaf's max (tolerance "
+          f"{TRAIN_OPT_TOL})")
+    log(f"[train] {TRAIN_CMP_LAYERS} layers, full width, float32, B="
+        f"{TRAIN_CMP_B} x S={TRAIN_CMP_S}, the card against the CPU port on "
+        f"the same weights: loss {float(l_gpu):.6f} vs {float(l_cpu):.6f} "
+        f"({rel:.3g} relative, tolerance {TRAIN_LOSS_RTOL}); gradients "
+        f"{gap:.3g} of a leaf's max |g| (tolerance {TRAIN_GRAD_TOL}); AdamW "
+        f"after one step from the same gradients: m, v and weights within "
+        f"{opt_gap:.3g} of a leaf's max (tolerance {TRAIN_OPT_TOL})")
+
+
+def _train_remat(dev, card):
+    """TRAIN_CMP_LAYERS layers, bf16, the main shape: remat on and off,
+    losses and gradients bit-identical, both peak memories."""
+    import dataclasses
+    import torch
+    import repro_torch as rt
+    from repro_torch.data import TokenPipeline
+    cfg = dataclasses.replace(rt.get_config(LM_ARCH),
+                              n_layers=TRAIN_CMP_LAYERS, remat=True)
+    on = rt.LM.from_config(cfg, seed=SEED)
+    off = rt.LM(dataclasses.replace(cfg, remat=False), dev)
+    off.load_state_dict(on.state_dict())
+    batch = TokenPipeline(SEED, LM_B, LM_S, cfg.vocab).next()
+    out, peak = [], []
+    for model in (on, off):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out.append(_loss_and_grads(model, batch))
+        torch.cuda.synchronize()
+        peak.append((torch.cuda.max_memory_allocated() - base) / 2**30)
+    (l_on, g_on), (l_off, g_off) = out
+    same = torch.equal(l_on, l_off) and all(
+        torch.equal(g_on[n], g_off[n]) for n in g_on)
+    check(same, f"train: remat on and off differ: loss {float(l_on)} vs "
+          f"{float(l_off)}, gradients {_leaf_gap(g_on, {n: g.cpu() for n, g in g_off.items()}):.3g}")
+    per_layer = (peak[1] - peak[0]) / TRAIN_CMP_LAYERS
+    log(f"[train] remat on / off at {TRAIN_CMP_LAYERS} layers, bf16, B={LM_B} "
+        f"x S={LM_S}: loss and gradients bit-identical; peak device memory "
+        f"above the weights {peak[0]:.2f} / {peak[1]:.2f} GiB ({per_layer:.2f} "
+        f"GiB a layer more without remat)  [{card}]")
+    return peak
+
+
+def _train_families(dev, card):
+    """Every family's smoke configuration, one train step on the card."""
+    import torch
+    import repro_torch as rt
+    from repro_torch import convert
+    from repro_torch.models.lm import loss_fn
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+    rows = []
+    for arch in rt.configs.all_archs():
+        cfg = rt.get_config(arch, smoke=True)
+        cpu = rt.LM.from_config(cfg, seed=SEED, device="cpu")
+        gpu = convert.lm_from_numpy(cfg, convert.lm_to_numpy(cpu), dev)
+        b_cpu, b_gpu = _train_family_batch(cfg, dev)
+        with torch.no_grad():
+            want = float(loss_fn(cfg, cpu, b_cpu)[0])
+        before = {n: p.detach().clone() for n, p in gpu.named_parameters()}
+        m = make_train_step(cfg, lr=1e-3, warmup=1)(gpu, adamw_init(gpu),
+                                                    b_gpu)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        rel = abs(loss - want) / abs(want)
+        still = [n for n, p in gpu.named_parameters()
+                 if bool(before[n].any()) and torch.equal(p, before[n])]
+        check(math.isfinite(loss) and math.isfinite(gn) and not still
+              and rel <= TRAIN_FAMILY_RTOL,
+              f"train: {arch} smoke step: loss {loss} (the CPU's {want}, "
+              f"{rel:.3g} relative), grad norm {gn}, unmoved leaves {still}")
+        rows.append(f"{arch} {loss:.4f} ({rel:.2g})")
+    log(f"[train] one step of every family's smoke configuration on the "
+        f"card, loss (relative gap to the CPU port's, tolerance "
+        f"{TRAIN_FAMILY_RTOL}); every nonzero leaf moved: " + "; ".join(rows))
+
+
+def _train_launcher():
+    """launch.train.main --smoke: 4 steps into a checkpoint directory, then
+    to 8 from it."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from repro_torch.launch import train as T
+    ckpt = tempfile.mkdtemp(prefix="chip-smoke-train-")
+    outs = []
+    try:
+        for steps in (4, 8):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                loss = T.main(["--smoke", "--steps", str(steps), "--ckpt-dir",
+                               ckpt, "--log-every", "2"])
+            outs.append(buf.getvalue().strip().splitlines())
+            check(loss is not None and math.isfinite(loss),
+                  f"launch.train.main --steps {steps}: loss {loss}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    check("resumed from step 4" in outs[1] and "resumed" not in
+          " ".join(outs[0]), f"launch.train.main did not resume: {outs[1]}")
+    log(f"[train] launch.train.main --smoke --steps 4, then --steps 8 from "
+        f"its checkpoint: \"{outs[1][0]}\"; last lines \"{outs[0][-1]}\" "
+        f"and \"{outs[1][-1]}\"")
+
+
+def phase_train(dev, card):
+    """Slice 19's main path: TinyLlama-1.1B trained at full width and
+    depth on the card (bf16, remat, B x S from TokenPipeline), its eval
+    step through flash with the counter zeroed just before and read just
+    after; then the checks of the docstring's 16c. Returns the flash
+    launches of the eval step."""
+    import dataclasses
+    import torch
+    import repro_torch as rt
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.models.lm import loss_fn
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_eval_step, make_train_step
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = dataclasses.replace(rt.get_config(LM_ARCH), remat=True)
+    model = rt.LM.from_config(cfg, seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = adamw_init(model)
+    step = make_train_step(cfg, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                           total_steps=TRAIN_WARM + TRAIN_TIMED + 2)
+    pipe = TokenPipeline(SEED, LM_B, LM_S, cfg.vocab)
+    check(pipe.next()["tokens"].device.type == "cuda",
+          "TokenPipeline did not land on the card")
+    for _ in range(TRAIN_WARM):
+        m = step(model, opt, pipe.next())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    batches = [pipe.next() for _ in range(TRAIN_TIMED)]
+    t1 = time.perf_counter()
+    for b in batches:
+        m = step(model, opt, b)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) * 1e3 / TRAIN_TIMED
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss, gn = float(m["loss"]), float(m["grad_norm"])
+    check(math.isfinite(loss) and math.isfinite(gn)
+          and int(opt["step"]) == TRAIN_WARM + TRAIN_TIMED,
+          f"train: loss {loss}, grad norm {gn}, step {int(opt['step'])}")
+    tokens = LM_B * LM_S
+    mfu = 6 * n_params * tokens / (step_ms / 1e3) / BF16_PEAK
+    busy, _ = profile_window(f"train step ({cfg.name}, bf16, remat, "
+                             f"B={LM_B}, S={LM_S})",
+                             lambda: step(model, opt, pipe.next()), card)
+    busy_s = "not measured" if busy is None else f"{100 * busy:.1f} %"
+    log(f"[train] {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B parameters, bf16, remat, AdamW (float32 "
+        f"moments); B={LM_B} x S={LM_S} from TokenPipeline: "
+        f"{step_ms:.2f} ms a step ({TRAIN_TIMED} steps after {TRAIN_WARM}, "
+        f"host clock around device syncs), {tokens / step_ms * 1e3:.0f} "
+        f"tokens/s, peak device memory {peak:.2f} GiB, busy {busy_s} of "
+        f"a profiled step, 6 N tokens / step time = {100 * mfu:.2f} % of "
+        f"989 TFLOP/s; loss {loss:.4f}, grad norm {gn:.3f}  [{card}]")
+
+    batch = pipe.next()
+    params = list(model.parameters())
+    fwd_bwd = _host_syncs(lambda: torch.autograd.grad(
+        loss_fn(cfg, model, batch)[0], params))
+    stepped = _host_syncs(lambda: step(model, opt, batch))
+    own = [w for w in stepped if re.search(r"repro_torch/(train|optim)/", w)]
+    # the counter sees a sync: one .item()
+    seen = _host_syncs(lambda: float(opt["step"]))
+    check(not own and len(seen) == 1, f"train: the step's own code synced "
+          f"with the host at {own}; a known sync counted {len(seen)} times")
+    log(f"[train] host syncs under sync-debug \"warn\": {len(stepped)} in "
+        f"one train step {stepped}, {len(fwd_bwd)} in its forward and "
+        f"backward alone {fwd_bwd}; none in train/ or optim/ (one .item() "
+        f"counted {len(seen)})")
+
+    del model, opt, m, batches, batch, params
+    torch.cuda.empty_cache()
+
+    # a fresh model memorizes a fixed batch
+    model = rt.LM.from_config(cfg, seed=SEED + 1)
+    opt = adamw_init(model)
+    step = make_train_step(cfg, lr=TRAIN_MEMO_LR, warmup=TRAIN_MEMO_WARMUP,
+                           total_steps=TRAIN_MEMO_STEPS)
+    fixed = TokenPipeline(SEED + 1, LM_B, LM_S, cfg.vocab).next()
+    losses = torch.stack([step(model, opt, fixed)["loss"]
+                          for _ in range(TRAIN_MEMO_STEPS)]).tolist()
+    check(all(map(math.isfinite, losses))
+          and losses[-1] < TRAIN_MEMO_RATIO * losses[0],
+          f"train: the fixed batch's loss went {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (bar {TRAIN_MEMO_RATIO} x the first)")
+    log(f"[train] fixed batch, {TRAIN_MEMO_STEPS} steps at lr "
+        f"{TRAIN_MEMO_LR}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"({losses[-1] / losses[0]:.3f} of the first; bar "
+        f"{TRAIN_MEMO_RATIO}); every 5th: "
+        + ", ".join(f"{x:.3f}" for x in losses[::5]))
+
+    # the eval step of the trained model on a held-out batch through flash,
+    # the same weights through the plain path beside it (a fresh model's
+    # tied embedding gives each token's own logit a value in the
+    # hundreds or thousands, where a bf16 step is 2 to 8, which would
+    # swamp the comparison)
+    batch = TokenPipeline(SEED + 2, LM_B, LM_S, cfg.vocab).next()
+    twin_calls = []
+    twin = KF.flash_attention_ref
+
+    def counted_twin(*a, **kw):
+        twin_calls.append(1)
+        return twin(*a, **kw)
+
+    fcfg = dataclasses.replace(cfg, attn_impl="flash")
+    _set_attn_impl(model, "flash")
+    KF.flash_attention_ref = counted_twin
+    try:
+        KF.flash_attention.launches = 0
+        ev = make_eval_step(fcfg)(model, batch)
+        torch.cuda.synchronize()
+        launches = KF.flash_attention.launches
+    finally:
+        KF.flash_attention_ref = twin
+    _set_attn_impl(model, "xla")
+    plain = make_eval_step(cfg)(model, batch)
+    gap = abs(float(ev["loss"]) - float(plain["loss"]))
+    check(launches == cfg.n_layers and not twin_calls
+          and gap <= TRAIN_EVAL_ABS,
+          f"train: the flash eval step launched flash {launches} times for "
+          f"{cfg.n_layers} layers, the twin {len(twin_calls)}; loss "
+          f"{float(ev['loss'])} against the plain path's "
+          f"{float(plain['loss'])} (tolerance {TRAIN_EVAL_ABS})")
+    log(f"[train] eval step, attn_impl=flash: {launches} flash launches, twin "
+        f"calls 0; loss {float(ev['loss']):.5f}, the plain path's "
+        f"{float(plain['loss']):.5f} (|diff| {gap:.3g}, tolerance "
+        f"{TRAIN_EVAL_ABS})")
+    del model, opt
+    torch.cuda.empty_cache()
+
+    _train_card_vs_cpu(dev, card)
+    _train_remat(dev, card)
+    torch.cuda.empty_cache()
+    _train_families(dev, card)
+    _train_launcher()
+    log(f"[train] phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # slice 12: the serving path (QueryServer, ServingPipeline, telemetry)
 # ---------------------------------------------------------------------------
 
@@ -5350,6 +5733,8 @@ def main():
     launches.update(phase_lm(dev, card))
     # flash in the new families' forwards
     launches["flash_attention"] += phase_lm_serve(dev, card)
+    # flash in the training path's eval step
+    launches["flash_attention"] += phase_train(dev, card)
     records["bvh_traverse_fine_knn"] = phase_geometry_twins(geo_twins, card)
     # last, with the host's cores free of the twins' workers: the gloo
     # ranks stage their collectives through host memory. Their launches

@@ -13,9 +13,11 @@ tree (``emst``, over ``nearest(..., exclude=)``), MLS interpolation
 kernel ops are ``kernels.ops`` (``morton64``, ``bruteforce_knn``,
 ``ray_box_nearest``, as ``repro.kernels.ops``), with their oracles in
 ``kernels.ref``; ``REPRO_SANITIZE=1`` arms the kernels' output-contract
-checks (``kernels.sanitize``). The LM substrate's dense forward is
-``LM`` (``LM.from_config(get_config("tinyllama-1.1b"), seed=0)``), whose
-``attn_impl="flash"`` runs ``kernels.ops.flash_attention``. Entry points
+checks (``kernels.sanitize``). The LM substrate is ``LM``
+(``LM.from_config(get_config("tinyllama-1.1b"), seed=0)``), whose
+``attn_impl="flash"`` runs ``kernels.ops.flash_attention``; it serves
+(``models.serve``, ``launch.serve``) and trains (``models.lm.loss_fn``,
+``optim``, ``train``, ``data``, ``checkpoint``, ``launch.train``). Entry points
 run on the CUDA card unless the caller asks for the CPU with
 ``ExecutionPolicy(device="cpu")`` (``device="cpu"`` for ``LM`` and
 ``convert``, or CPU tensors for a kernel op), where the kernels' plain

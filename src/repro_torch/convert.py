@@ -2,7 +2,10 @@
 package and this port as numpy arrays: an LBVH built by either package
 can be queried by the other, the same values can be handed to both, and
 an LM initialised by the reference runs in the port, from the
-reference's cache too. Like every entry point of the port, they land on
+reference's cache too, and an LM's weights, gradients and optimizer
+state go back as the reference's trees (``lm_to_numpy``,
+``grads_to_numpy``, ``opt_to_numpy`` / ``opt_from_numpy``: the layers
+stacked along a leading axis, bfloat16 as float32). Like every entry point of the port, they land on
 the CUDA card unless the caller passes a device (``"cpu"``), and raise
 without a card."""
 from __future__ import annotations
@@ -16,7 +19,8 @@ from .core.lbvh import FIELDS, LBVH
 from .models.lm import LM
 
 __all__ = ["lbvh_from_numpy", "lbvh_to_numpy", "geometry_from_numpy",
-           "lm_from_numpy", "cache_from_numpy", "cache_to_numpy"]
+           "lm_from_numpy", "lm_to_numpy", "grads_to_numpy", "opt_to_numpy",
+           "opt_from_numpy", "cache_from_numpy", "cache_to_numpy"]
 
 _FLOAT_FIELDS = ("node_lo", "node_hi")
 
@@ -78,6 +82,61 @@ def geometry_from_numpy(kind: str, arrays, device=None):
 _STACKED = ("layers", "dense_layers", "enc_layers")
 
 
+def _ref_path(name: str):
+    """A parameter name's place in the reference's tree: (path, layer),
+    ``layers.3.attn.wq`` -> (("layers", "attn", "wq"), 3), ``embed.table``
+    -> (("embed", "table"), None)."""
+    parts = name.split(".")
+    if parts[0] in _STACKED:
+        return (parts[0],) + tuple(parts[2:]), int(parts[1])
+    return tuple(parts), None
+
+
+def _leaf(model: LM, tree: dict, name: str, shape, what: str):
+    """The array of `tree` that holds parameter `name` (one layer of a
+    stacked leaf), its path and shape checked."""
+    path, layer = _ref_path(name)
+    node = tree
+    for i, key in enumerate(path):
+        if not isinstance(node, dict) or key not in node:
+            raise KeyError(f"{what}: missing leaf {'/'.join(path[:i + 1])}")
+        node = node[key]
+    want = tuple(shape) if layer is None \
+        else (len(getattr(model, path[0])),) + tuple(shape)
+    if np.shape(node) != want:
+        raise ValueError(f"{what}: {'/'.join(path)} has shape "
+                         f"{np.shape(node)}, the model needs {want}")
+    return node if layer is None else node[layer]
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A copy of a tensor as a numpy array, bfloat16 as float32 (which
+    holds it exactly): a snapshot, which no later in-place update of the
+    tensor reaches."""
+    t = t.detach()
+    t = t.float() if t.dtype == torch.bfloat16 else t
+    return t.to("cpu", copy=True).numpy()
+
+
+def _tree(named: dict) -> dict:
+    """{parameter name: tensor} as the reference's nested tree of numpy
+    arrays, each stacked module list's leaves stacked in layer order."""
+    tree, stacked = {}, {}
+    for name, t in named.items():
+        path, layer = _ref_path(name)
+        if layer is None:
+            stacked[path] = _host(t)
+        else:
+            stacked.setdefault(path, {})[layer] = _host(t)
+    for path, a in stacked.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = a if isinstance(a, np.ndarray) else \
+            np.stack([a[i] for i in range(len(a))])
+    return tree
+
+
 def lm_from_numpy(cfg, params: dict, device=None) -> LM:
     """An ``LM`` of any family holding the reference's parameter tree,
     given as numpy arrays (``jax.tree_util.tree_map(np.asarray,
@@ -91,24 +150,52 @@ def lm_from_numpy(cfg, params: dict, device=None) -> LM:
     model = LM(cfg, device)
     with torch.no_grad():
         for name, param in model.named_parameters():
-            parts = name.split(".")
-            layer = None
-            if parts[0] in _STACKED:
-                layer, parts = int(parts[1]), parts[:1] + parts[2:]
-            node = params
-            for i, key in enumerate(parts):
-                if not isinstance(node, dict) or key not in node:
-                    raise KeyError(f"lm_from_numpy: missing leaf "
-                                   f"{'/'.join(parts[:i + 1])}")
-                node = node[key]
-            want = tuple(param.shape) if layer is None \
-                else (len(getattr(model, parts[0])),) + tuple(param.shape)
-            if np.shape(node) != want:
-                raise ValueError(f"lm_from_numpy: {'/'.join(parts)} has shape "
-                                 f"{np.shape(node)}, the model needs {want}")
-            a = node if layer is None else node[layer]
+            a = _leaf(model, params, name, param.shape, "lm_from_numpy")
             param.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
     return model
+
+
+def lm_to_numpy(model: LM) -> dict:
+    """The inverse of ``lm_from_numpy``: the model's weights as the
+    reference's parameter tree of numpy arrays (layers stacked, bfloat16
+    as float32)."""
+    return _tree(dict(model.named_parameters()))
+
+
+def grads_to_numpy(grads: dict) -> dict:
+    """Gradients keyed by parameter name (``train.step``'s) as the
+    reference's tree of numpy arrays."""
+    return _tree(grads)
+
+
+def opt_to_numpy(state: dict) -> dict:
+    """AdamW state (``optim.adamw_init``'s: ``step`` and per-parameter
+    ``m``, ``v``, and ``ef_err`` under grad compression) as the
+    reference's tree: {"step": int32, "m": tree, "v": tree(, "ef_err")}."""
+    out = {"step": np.asarray(_host(state["step"]), np.int32)}
+    for key in ("m", "v", "ef_err"):
+        if key in state:
+            out[key] = _tree(state[key])
+    return out
+
+
+def opt_from_numpy(model: LM, tree: dict, dtype=torch.float32) -> dict:
+    """AdamW state for `model` from the reference's tree (numpy): the
+    moments in `dtype` (float32, the reference's default; bfloat16 at
+    DeepSeek-V3 scale), ``ef_err`` in float32, the step an int32 0-d
+    tensor, all on the model's device."""
+    dev = model.device
+    named = dict(model.named_parameters())
+    out = {"step": torch.tensor(int(np.asarray(tree["step"])),
+                                dtype=torch.int32, device=dev)}
+    for key in ("m", "v", "ef_err"):
+        if key not in tree:
+            continue
+        dt = torch.float32 if key == "ef_err" else dtype
+        out[key] = {name: torch.from_numpy(np.array(_leaf(
+            model, tree[key], name, p.shape, f"opt_from_numpy {key}"),
+            dtype=np.float32)).to(dev, dt) for name, p in named.items()}
+    return out
 
 
 def cache_from_numpy(cache: dict, device=None) -> dict:
@@ -133,5 +220,4 @@ def cache_from_numpy(cache: dict, device=None) -> dict:
 def cache_to_numpy(cache: dict) -> dict:
     """The cache's leaves as numpy arrays (bfloat16 leaves as float32,
     which holds them exactly)."""
-    return {name: (t.float() if t.dtype == torch.bfloat16 else t)
-            .detach().cpu().numpy() for name, t in cache.items()}
+    return {name: _host(t) for name, t in cache.items()}

@@ -1,7 +1,9 @@
 """Shared neural layers of the LM: norms, RoPE, MLPs, embedding and tied
 logits, and the truncated-normal initialiser. The port of
 ``repro.models.layers``, as functions over tensors, and the two
-parameter modules every block kind holds, ``Norm`` and ``MLP``.
+parameter modules every block kind holds, ``Norm`` and ``MLP``; the
+training side's ``cross_entropy`` and the RMSNorm's backward
+(``_RMSNorm``, the reference's custom VJP).
 
 Each follows the reference's arithmetic where PyTorch's defaults differ:
 the norms compute in float32 with eps = 1e-6 (LayerNorm with the
@@ -19,7 +21,7 @@ from torch import nn
 
 __all__ = ["trunc_normal", "rms_norm", "layer_norm", "apply_norm",
            "rope_freqs", "apply_rope", "apply_mlp", "embed_tokens",
-           "logits_out", "Norm", "MLP"]
+           "logits_out", "cross_entropy", "Norm", "MLP"]
 
 EPS = 1e-6
 
@@ -33,8 +35,38 @@ def trunc_normal(gen: torch.Generator, shape, scale: float, dtype):
     return (t * scale).to(dtype)
 
 
+class _RMSNorm(torch.autograd.Function):
+    """RMSNorm with the reference's custom VJP (``layers._rmsnorm``): the
+    forward keeps x in its own dtype and the float32 rstd (B, S, 1), not
+    the float32 panels autograd would keep, and the backward gives dx in
+    x's dtype and dscale summed over every axis but the last."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        xf = x.float()
+        rstd = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        ctx.save_for_backward(x, rstd, scale)
+        return (xf * rstd * scale).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, rstd, scale = ctx.saved_tensors
+        xhat = x.float() * rstd
+        gf = g.float()
+        gs = gf * scale
+        dot = (gs * xhat).mean(-1, keepdim=True)
+        dx = ((gs - xhat * dot) * rstd).to(x.dtype)
+        dscale = gf * xhat
+        if x.dim() > 1:
+            dscale = dscale.sum(tuple(range(x.dim() - 1)))
+        return dx, dscale.to(scale.dtype), None
+
+
 def rms_norm(x, scale, eps: float = EPS):
-    """x / rms(x) * scale in float32, cast back to x's dtype."""
+    """x / rms(x) * scale in float32, cast back to x's dtype; through
+    ``_RMSNorm`` whenever a gradient is taken."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNorm.apply(x, scale, eps)
     xf = x.float()
     var = (xf * xf).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
@@ -100,6 +132,19 @@ def embed_tokens(table, tokens):
 def logits_out(table, x):
     """Tied logits: (B, S, d) @ (d, V)."""
     return x @ table.T.to(x.dtype)
+
+
+def cross_entropy(logits, labels, ignore_id: int = -100):
+    """Mean token cross-entropy in float32 over the labels that are not
+    `ignore_id`: the label's logit gathered at ``labels.clamp(min=0)``,
+    the masked sum over max(count, 1). A 0-d device tensor; no host
+    sync."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = labels != ignore_id
+    nll = (lse - ll) * mask
+    return nll.sum() / torch.clamp_min(mask.sum(), 1)
 
 
 class Norm(nn.Module):

@@ -23,6 +23,12 @@ as ``x @ w``) and dtype (norms, the router and Mamba's a_log / dt_bias /
 d_skip / norm_scale float32, the rest ``cfg.dtype``), so
 ``convert.lm_from_numpy`` copies the JAX tree leaf for leaf.
 ``models.serve`` runs the same modules one token at a time.
+
+Training: ``loss_fn`` (the token cross-entropy, the MoE router's loss
+and DeepSeek's depth-1 multi-token-prediction loss, ``_mtp_loss``) and
+per-layer activation checkpointing under ``cfg.remat`` (``_remat``:
+``torch.utils.checkpoint`` wherever the reference wraps a layer in
+``jax.checkpoint``), taken only while a gradient is being recorded.
 """
 from __future__ import annotations
 
@@ -30,20 +36,33 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.index import resolve_device
 from . import attention as A
 from . import mamba2 as M2
 from . import moe as MOE
 from .config import ModelConfig
-from .layers import MLP, Norm, embed_tokens, logits_out, trunc_normal
+from .layers import (MLP, Norm, cross_entropy, embed_tokens, logits_out,
+                     trunc_normal)
 
 __all__ = ["LM", "DenseBlock", "MoEBlock", "MambaBlock", "XAttnBlock",
-           "Norm", "MLP"]
+           "Norm", "MLP", "loss_fn"]
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def _remat(cfg: ModelConfig, block, *args, **kw):
+    """block(*args, **kw), its activations recomputed in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant) when ``cfg.remat`` and a
+    gradient is being recorded; a plain call otherwise. The forward draws
+    no random numbers, so no RNG state is saved."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(block, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+    return block(*args, **kw)
 
 
 def dense_cfg(cfg: ModelConfig) -> ModelConfig:
@@ -151,10 +170,12 @@ class LM(nn.Module):
     losses (zero without MoE), as the reference returns them. With
     ``attn_impl="flash"`` the attention runs the CUDA kernel, which is
     forward-only: call it under ``torch.inference_mode()`` (or
-    ``no_grad``) on the card. ``cfg.remat`` (the reference's per-layer
-    activation checkpointing) has no effect on a forward pass under
-    ``torch.inference_mode()``: no activation is kept for a backward pass
-    there.
+    ``no_grad``) on the card. With ``cfg.remat`` each layer (each block,
+    each Mamba layer, each application of the hybrid's shared block)
+    keeps only its input while a gradient is recorded and recomputes its
+    activations in the backward pass, as the reference's
+    ``jax.checkpoint``; under ``torch.inference_mode()`` or ``no_grad``
+    nothing is kept and remat changes nothing.
     """
 
     def __init__(self, cfg: ModelConfig, device=None):
@@ -239,27 +260,27 @@ class LM(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family in ("dense", "moe", "mla_moe", "vlm"):
             for blk in getattr(self, "dense_layers", ()):
-                x, _ = blk(x, positions)
+                x, _ = _remat(cfg, blk, x, positions)
             for blk in self.layers:
-                x, a = blk(x, positions)
+                x, a = _remat(cfg, blk, x, positions)
                 if a is not None:
                     aux = aux + a
         elif cfg.family == "ssm":
             for blk in self.layers:
-                x = blk(x)
+                x = _remat(cfg, blk, x)
         elif cfg.family == "hybrid":
             k = cfg.attn_every
             for i, blk in enumerate(self.layers):
-                x = blk(x)
+                x = _remat(cfg, blk, x)
                 if (i + 1) % k == 0:
-                    x, _ = self.shared_attn(x, positions)
+                    x, _ = _remat(cfg, self.shared_attn, x, positions)
         else:                                                 # encdec
             if src_embeds is None:
                 raise ValueError(f"{cfg.name}: the encdec family's forward "
                                  f"takes src_embeds (B, Se, d_model)")
             enc = self.encode(src_embeds.to(x.dtype))
             for blk in self.layers:
-                x = blk(x, positions, enc)
+                x = _remat(cfg, blk, x, positions, enc)
         x = self.final_norm(x)
         logits = logits_out(self.embed.table, x)
         if cfg.family == "vlm":
@@ -271,5 +292,43 @@ class LM(nn.Module):
         enc = src_embeds
         positions = torch.arange(enc.shape[1], device=enc.device)
         for blk in self.enc_layers:
-            enc, _ = blk(enc, positions, causal=False)
+            enc, _ = _remat(self.cfg, blk, enc, positions, causal=False)
         return self.enc_norm(enc)
+
+
+# ---------------------------------------------------------------------------
+# loss (with DeepSeek's optional multi-token prediction)
+# ---------------------------------------------------------------------------
+
+def loss_fn(cfg: ModelConfig, model: LM, batch: dict, *, aux_weight=0.01,
+            mtp_weight=0.3):
+    """(total, metrics) of ``model`` (whose configuration is `cfg`) on
+    ``batch`` ({"tokens", "labels"} (B, S) int64, "patch_embeds" for vlm,
+    "src_embeds" for encdec): total = cross-entropy + aux_weight * the MoE
+    router's loss (+ mtp_weight * the MTP loss where the model has the
+    module); metrics {"ce", "moe_aux"(, "mtp")}, 0-d float32 tensors."""
+    logits, aux = model(batch["tokens"], patch_embeds=batch.get("patch_embeds"),
+                        src_embeds=batch.get("src_embeds"))
+    loss = cross_entropy(logits, batch["labels"])
+    total = loss + aux_weight * aux
+    metrics = {"ce": loss, "moe_aux": aux}
+    if cfg.mtp_depth and hasattr(model, "mtp"):
+        mtp = _mtp_loss(cfg, model, batch)
+        total = total + mtp_weight * mtp
+        metrics["mtp"] = mtp
+    return total, metrics
+
+
+def _mtp_loss(cfg: ModelConfig, model: LM, batch: dict):
+    """Depth-1 MTP: predict token t + 2 from [emb(token t) ; emb(label t)]
+    @ proj, through the dense MTP block (no remat), its norm and the tied
+    logits; labels shifted one more place, -100 at the end."""
+    table, labels = model.embed.table, batch["labels"]
+    x = embed_tokens(table, batch["tokens"])
+    lab = embed_tokens(table, labels.clamp(min=0))
+    h = torch.cat([x, lab], dim=-1) @ model.mtp.proj
+    h, _ = model.mtp.block(h, torch.arange(h.shape[1], device=h.device))
+    logits = logits_out(table, model.mtp.norm(h))
+    labels2 = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], -100)],
+                        dim=1)
+    return cross_entropy(logits, labels2)

@@ -13,6 +13,7 @@ import ast
 import dataclasses
 import importlib
 import os
+import re
 import subprocess
 import sys
 
@@ -1601,3 +1602,122 @@ def test_decode_step_on_the_card_makes_no_host_sync(cuda_device):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     assert int(cache["index"]) == 7
+
+
+# ---------------------------------------------------------------------------
+# slice 19: the LM's training
+# ---------------------------------------------------------------------------
+
+TRAINING_MODULES = tuple(importlib.import_module(f"repro_torch.{m}")
+                         for m in ("optim", "optim.adamw",
+                                   "optim.compression", "train", "train.step",
+                                   "train.straggler", "data", "data.pipeline",
+                                   "checkpoint", "checkpoint.manager",
+                                   "launch.train"))
+
+
+def test_training_modules_are_scanned_for_imports():
+    files = {os.path.realpath(p) for p in _port_files()}
+    for mod in TRAINING_MODULES:
+        assert os.path.realpath(mod.__file__) in files, mod
+
+
+def test_training_runs_with_jax_blocked():
+    """A train step of every family, a checkpoint written and restored,
+    and the driver with a resume, with JAX and the reference blocked."""
+    code = (
+        "import sys, tempfile\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import torch, repro_torch as rt\n"
+        "from repro_torch import convert\n"
+        "from repro_torch.checkpoint import CheckpointManager\n"
+        "from repro_torch.data import synthetic_batch\n"
+        "from repro_torch.launch.train import main\n"
+        "from repro_torch.optim import adamw_init\n"
+        "from repro_torch.train import make_train_step\n"
+        "for arch in rt.configs.all_archs():\n"
+        "    cfg = rt.get_config(arch, smoke=True)\n"
+        "    m = rt.LM.from_config(cfg, seed=0, device='cpu')\n"
+        "    b = synthetic_batch(0, 0, 2, 8, cfg.vocab, device='cpu')\n"
+        "    if cfg.family == 'vlm':\n"
+        "        b['patch_embeds'] = torch.ones((2, 2, cfg.d_model))\n"
+        "    if cfg.family == 'encdec':\n"
+        "        b['src_embeds'] = torch.ones((2, 3, cfg.d_model))\n"
+        "    opt = adamw_init(m)\n"
+        "    met = make_train_step(cfg, lr=1e-3, warmup=1)(m, opt, b)\n"
+        "    assert bool(torch.isfinite(met['loss'])), arch\n"
+        "d = tempfile.mkdtemp()\n"
+        "mgr = CheckpointManager(d)\n"
+        "mgr.save(1, {'params': convert.lm_to_numpy(m),\n"
+        "             'opt': convert.opt_to_numpy(opt)})\n"
+        "mgr.wait()\n"
+        "step, tree, _ = mgr.restore()\n"
+        "assert step == 1 and int(tree['opt']['step']) == 1\n"
+        "args = ['--smoke', '--batch', '1', '--seq', '8', '--device', 'cpu',\n"
+        "        '--ckpt-dir', tempfile.mkdtemp()]\n"
+        "main(args + ['--steps', '2'])\n"
+        "main(args + ['--steps', '3'])\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules\n"
+        "               if sys.modules[m] is not None)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert "resumed from step 2" in lines and lines[-1] == "ok"
+
+
+def test_training_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    """launch.train.main, TokenPipeline and synthetic_batch take the card
+    when no device is given, and raise resolve_device's error without
+    one."""
+    from repro_torch.data import TokenPipeline, synthetic_batch
+    from repro_torch.launch import train as launch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError) as want:
+        resolve_device(None)
+    for call in (lambda: launch.main(["--smoke", "--steps", "1"]),
+                 lambda: TokenPipeline(0, 1, 2, 3),
+                 lambda: synthetic_batch(0, 0, 1, 2, 3)):
+        with pytest.raises(RuntimeError) as got:
+            call()
+        assert str(got.value) == str(want.value)
+
+
+def test_training_files_lint_clean():
+    """reprolint over the slice's files alone: no finding."""
+    from repro_torch import analysis
+    assert analysis.analyze([m.__file__ for m in TRAINING_MODULES]) == []
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_adds_no_host_sync(cuda_device):
+    """Under sync-debug "warn", no host sync of a dense train step comes
+    from the step's, the optimizer's or the schedule's own code (each
+    warning names the Python line that made it)."""
+    import warnings
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+    from repro_torch.data import synthetic_batch
+    cfg = dataclasses.replace(get_config(SMOKE, smoke=True), remat=True)
+    model = LM.from_config(cfg, seed=0)
+    opt = adamw_init(model)
+    step = make_train_step(cfg, lr=1e-3, warmup=2)
+    batch = synthetic_batch(0, 0, 2, 16, cfg.vocab)
+    step(model, opt, batch)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(model, opt, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    own = [f"{w.filename}:{w.lineno}" for w in seen
+           if "called a synchronizing CUDA operation" in str(w.message)
+           and re.search(r"repro_torch[/\\](train|optim)[/\\]",
+                         w.filename)]
+    assert own == []
+    assert int(opt["step"]) == 2

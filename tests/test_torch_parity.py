@@ -172,6 +172,29 @@ def merge_ranks(parts: list[dict]) -> dict:
     return out
 
 
+def flat_tree(tree: dict, prefix=()) -> dict:
+    """A nested dict of arrays (a parameter, gradient or optimizer tree)
+    as {path tuple: float32 numpy array}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v, np.float32)
+    return out
+
+
+def assert_trees_close(got: dict, want: dict, tol: float, label=""):
+    """Two trees with the same paths, every leaf of `got` within `tol` of
+    its `want` leaf's max |x| (0 means equal)."""
+    got, want = flat_tree(got), flat_tree(want)
+    assert sorted(got) == sorted(want), label
+    for path, w in want.items():
+        scale = max(float(np.abs(w).max()), 1e-30)
+        err = float(np.abs(got[path] - w).max())
+        assert err <= tol * scale, (label, path, err, scale)
+
+
 def np_of(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()

@@ -303,6 +303,27 @@ Phases (one line or more each, then the two closing lines):
      4 steps into a checkpoint directory, then to 8 from it ("resumed
      from step 4"). The kernels line adds the eval step's flash launches
      to flash's.
+ 16d. mesh (slice 20): (b) ``launch.opanalysis.analyze`` over
+     [train]'s step (TinyLlama-1.1B, bf16, remat, B = 4 x S = 2048) on
+     the meta device in a fake world of one rank, a (1, 1) ("data",
+     "model") mesh: its per-device FLOPs beside 6 N T, the attention's
+     and remat's, its temp_bytes beside the card's peak, t_compute beside
+     the measured step. (a) In an NCCL world of one rank, the same mesh:
+     3 train steps at ``launch.sharding``'s placements (the rules
+     installed, ``distribute_model``, ZeRO-1 moments, the batch at
+     ``batch_spec``) against 3 plain steps from the same weights and
+     batches: losses, every weight and every moment bit-identical
+     (MESH_A_TOL); the sharded step's ms beside the plain step's (the
+     DTensor overhead at one rank); the analyzer's arg_bytes equal to the
+     card's parameter, moment, step and batch bytes. Then the sharded
+     eval step with attn_impl="flash", each rank's heads through
+     ``local_map``, the counter zeroed just before and read just after
+     (22 launches, no twin call), its loss against the unsharded flash
+     eval's within TRAIN_EVAL_ABS; the kernels line adds the launches.
+     No world of gloo ranks on the card: this torch's gloo crashes in
+     ``all_gather_into_tensor`` of CUDA tensors
+     (``scripts/gloo_cuda_probe.py``); the CPU tests hold the
+     multi-rank path.
 
  17. distributed (slice 15; run last, once the host's cores are free of
      the twins' workers): one world of 4 gloo ranks on the one card
@@ -3361,6 +3382,260 @@ def phase_train(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# slice 20: the mesh (DTensor placements, ZeRO-1, the dry-run's analyzer)
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 3           # (a): plain and sharded steps from the same weights
+#: (a) at one rank every op runs on whole tensors and every collective is
+#: a copy: the sharded steps are held to the plain ones bit for bit
+MESH_A_TOL = 0.0
+
+
+def _mesh_place(model, mesh):
+    """launch.train's set-up on `mesh`: the rules installed, the model at
+    its parameter specs, AdamW's moments at ZeRO-1's. Returns the state."""
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models.layers import set_sharding_rules
+    from repro_torch.optim import adamw_init
+    set_sharding_rules(SH.logical_rules(mesh), mesh)
+    pspecs = SH.param_specs(model, mesh)
+    ospecs = SH.zero1_specs(pspecs, model, mesh)
+    SH.distribute_model(model, mesh, pspecs)
+    return adamw_init(model, mesh=mesh, specs=ospecs)
+
+
+def _mesh_batch(batch, mesh):
+    from repro_torch.launch import sharding as SH
+    bspec = SH.batch_spec(mesh, next(iter(batch.values())).shape[0])
+    return {k: SH.to_dtensor(v, mesh, bspec) for k, v in batch.items()}
+
+
+def _mesh_analyzer(cfg, batch):
+    """(b): ``opanalysis.analyze`` over the train step on the meta device
+    in a fake world of one rank, (1, 1) mesh, the [train] shape. Returns
+    the analysis and its argument bytes."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun, opanalysis
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.layers import set_sharding_rules
+    from repro_torch.models.lm import LM
+    from repro_torch.train import make_train_step
+    dryrun.fake_world(1)
+    try:
+        mesh = make_host_mesh(1, "cpu")
+        model = LM(cfg, device="meta")
+        opt = _mesh_place(model, mesh)
+        mb = _mesh_batch({k: torch.empty(v.shape, dtype=v.dtype,
+                                         device="meta")
+                          for k, v in batch.items()}, mesh)
+        step = make_train_step(cfg, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                               total_steps=MESH_STEPS + 2)
+        args = dryrun.local_bytes({"model": model, "opt": opt, "batch": mb})
+        t0 = time.perf_counter()
+        ana = opanalysis.analyze(step, model, opt, mb)
+        ana["seconds"] = time.perf_counter() - t0
+    finally:
+        set_sharding_rules(None)
+        dist.destroy_process_group()
+    return ana, args
+
+
+def _mesh_steps(step, model, opt, batches, mesh=None):
+    """The steps' losses (float) and the mean ms of all but the first
+    (host clock around device syncs)."""
+    import torch
+    losses, ms = [], []
+    for b in batches:
+        b = b if mesh is None else _mesh_batch(b, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(model, opt, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        loss = m["loss"]
+        losses.append(float(loss.full_tensor() if mesh is not None
+                            else loss))
+    return losses, sum(ms[1:]) / len(ms[1:])
+
+
+def _mesh_gap(plain: dict, sharded: dict) -> float:
+    """max over leaves of max |sharded - plain| / max |plain|, the sharded
+    leaves' local tensors (whole at one rank)."""
+    worst = 0.0
+    for n, w in plain.items():
+        got = sharded[n].detach().to_local().float()
+        w = w.detach().float()
+        gap = float((got - w).abs().max())
+        scale = float(w.abs().max())
+        worst = max(worst, gap / scale if scale else gap)
+    return worst
+
+
+def _mesh_one_rank(dev, card, cfg, batches):
+    """(a): MESH_STEPS plain and sharded steps of TinyLlama-1.1B from the
+    same weights and batches in an NCCL world of one rank, then the flash
+    eval step on both, the sharded one's launches counted. Returns (the
+    sharded eval's flash launches, the card's argument bytes, its peak
+    memory above them, the sharded step's ms)."""
+    import dataclasses
+    import torch
+    import repro_torch as rt
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_eval_step, make_train_step
+
+    def new_step():
+        return make_train_step(cfg, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                               total_steps=MESH_STEPS + 2)
+
+    plain = rt.LM.from_config(cfg, seed=SEED)
+    popt = adamw_init(plain)
+    p_losses, p_ms = _mesh_steps(new_step(), plain, popt, batches)
+    sharded = rt.LM.from_config(cfg, seed=SEED)
+    mesh = make_host_mesh(1, "cuda")
+    sopt = _mesh_place(sharded, mesh)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    s_losses, s_ms = _mesh_steps(new_step(), sharded, sopt, batches, mesh)
+    peak_raw = torch.cuda.max_memory_allocated()
+    peak = peak_raw - base
+    card_bytes = dryrun.local_bytes({"model": sharded, "opt": sopt,
+                                     "batch": _mesh_batch(batches[0], mesh)})
+    w_gap = _mesh_gap(dict(plain.named_parameters()),
+                      dict(sharded.named_parameters()))
+    m_gap = max(_mesh_gap(popt[k], sopt[k]) for k in ("m", "v"))
+    l_gap = max(abs(a - b) / abs(a) for a, b in zip(p_losses, s_losses))
+    check(l_gap <= MESH_A_TOL and w_gap <= MESH_A_TOL
+          and m_gap <= MESH_A_TOL
+          and int(sopt["step"]) == int(popt["step"]) == MESH_STEPS,
+          f"mesh (a): the sharded steps against the plain: losses "
+          f"{s_losses} / {p_losses}, weights {w_gap:.3g}, moments "
+          f"{m_gap:.3g} of a leaf's max (tolerance {MESH_A_TOL})")
+    log(f"[mesh] (a) {cfg.name}, {cfg.n_layers} layers, bf16, remat, B="
+        f"{LM_B} x S={LM_S}, an NCCL world of one rank, a (1, 1) "
+        f"(data, model) mesh: {MESH_STEPS} steps at param_specs' "
+        f"placements with ZeRO-1 moments against {MESH_STEPS} plain steps "
+        f"from the same weights and batches: losses "
+        + ", ".join(f"{x:.6f}" for x in s_losses)
+        + f"; losses, every weight and every moment apart by {l_gap:.3g}, "
+        f"{w_gap:.3g}, {m_gap:.3g} (tolerance {MESH_A_TOL}); a step "
+        f"{s_ms:.2f} ms sharded against {p_ms:.2f} ms plain "
+        f"({s_ms / p_ms:.3f}x: DTensor's cost at one rank; the mean of "
+        f"steps 2-{MESH_STEPS}, host clock around device syncs); "
+        f"max_memory_allocated {peak_raw / 2**30:.2f} GiB, "
+        f"{peak / 2**30:.2f} GiB above what the plain and sharded states "
+        f"held before the steps  [{card}]")
+
+    # the eval step through flash on both, the sharded one counted
+    batch = _pipeline_batch(SEED + 2, cfg.vocab)
+    fcfg = dataclasses.replace(cfg, attn_impl="flash")
+    _set_attn_impl(plain, "flash")
+    _set_attn_impl(sharded, "flash")
+    want = make_eval_step(fcfg)(plain, batch)
+    twin_calls = []
+    twin = KF.flash_attention_ref
+
+    def counted_twin(*a, **kw):
+        twin_calls.append(1)
+        return twin(*a, **kw)
+
+    KF.flash_attention_ref = counted_twin
+    try:
+        db = _mesh_batch(batch, mesh)
+        KF.flash_attention.launches = 0
+        got = make_eval_step(fcfg)(sharded, db)
+        torch.cuda.synchronize()
+        launches = KF.flash_attention.launches
+    finally:
+        KF.flash_attention_ref = twin
+    g, w = float(got["loss"].full_tensor()), float(want["loss"])
+    check(launches == cfg.n_layers and not twin_calls
+          and abs(g - w) <= TRAIN_EVAL_ABS,
+          f"mesh (a): the sharded flash eval launched flash {launches} "
+          f"times for {cfg.n_layers} layers, the twin {len(twin_calls)}; "
+          f"loss {g} against the unsharded flash eval's {w} (tolerance "
+          f"{TRAIN_EVAL_ABS})")
+    log(f"[mesh] (a) the sharded eval step, attn_impl=flash, each rank's "
+        f"heads through local_map: {launches} flash launches, twin calls "
+        f"0; loss {g:.6f}, the unsharded flash eval's {w:.6f} (|diff| "
+        f"{abs(g - w):.3g}, tolerance {TRAIN_EVAL_ABS})")
+    del plain, popt, sharded, sopt
+    torch.cuda.empty_cache()
+    return launches, card_bytes, peak, s_ms
+
+
+def _pipeline_batch(seed, vocab):
+    """TokenPipeline's first (B = LM_B, S = LM_S) batch of `seed`, on the
+    card."""
+    from repro_torch.data import TokenPipeline
+    return TokenPipeline(seed, LM_B, LM_S, vocab).next()
+
+
+def phase_mesh(dev, card):
+    """Slice 20's path, [mesh]: (b) the analyzer over the train step on
+    meta, (a) the sharded steps and the sharded flash eval in an NCCL
+    world of one rank. Returns the flash launches of the sharded eval
+    step. Ranks sharing the card over gloo are not run: this torch's gloo
+    crashes (SIGSEGV) in ``all_gather_into_tensor`` of CUDA tensors, the
+    collective DTensor gathers a shard with
+    (``scripts/gloo_cuda_probe.py``); the CPU tests' gloo worlds hold
+    the multi-rank path."""
+    import dataclasses
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    import repro_torch as rt
+    from repro_torch.launch.dryrun import PEAK_FLOPS
+    from repro_torch.models.layers import set_sharding_rules
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = dataclasses.replace(rt.get_config(LM_ARCH), remat=True)
+    batches = [_pipeline_batch(SEED + 10 + i, cfg.vocab)
+               for i in range(MESH_STEPS)]
+    ana, meta_bytes = _mesh_analyzer(cfg, {k: v.cpu()
+                                           for k, v in batches[0].items()})
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            launches, card_bytes, peak, s_ms = _mesh_one_rank(
+                dev, card, cfg, batches)
+        finally:
+            set_sharding_rules(None)
+            dist.destroy_process_group()
+    meta = rt.LM(cfg, device="meta")
+    n = sum(p.numel() for p in meta.parameters())
+    n_blocks = sum(p.numel() for p in meta.layers.parameters())
+    t = LM_B * LM_S
+    # one pass of the plain attention's two products over every S x S
+    # score; the forward, twice the backward and remat's second forward
+    attn = 4 * cfg.n_layers * LM_B * cfg.n_heads * LM_S ** 2 * cfg.dh
+    want_flops = 6 * n * t + 2 * n_blocks * t + 4 * attn
+    check(meta_bytes == card_bytes and math.isfinite(ana["flops"]),
+          f"mesh (b): the analyzer's arg_bytes {meta_bytes} against the "
+          f"card's parameter, moment, step and batch bytes {card_bytes}")
+    log(f"[mesh] (b) opanalysis over the same train step on meta, a fake "
+        f"world of one rank ({ana['seconds']:.1f} s on the host): "
+        f"arg_bytes {meta_bytes} = the card's parameters, moments, step "
+        f"and batch {card_bytes}; flops {ana['flops']:.4e} against "
+        f"6 N T {6 * n * t:.4e}, 6 N T + the attention's three passes "
+        f"{6 * n * t + 3 * attn:.4e}, and with remat's second forward of "
+        f"the blocks {want_flops:.4e} ({ana['flops'] / want_flops:.3f}x); "
+        f"temp_bytes {ana['temp_bytes'] / 2**30:.2f} GiB against the "
+        f"card's peak above its state {peak / 2**30:.2f} GiB "
+        f"({ana['temp_bytes'] / peak:.3f}x); hbm_bytes "
+        f"{ana['hbm_bytes']:.4e}; t_compute {ana['flops'] / PEAK_FLOPS * 1e3:.1f}"
+        f" ms against the sharded step's {s_ms:.2f} ms measured  [{card}]")
+    torch.cuda.empty_cache()
+    log(f"[mesh] phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # slice 12: the serving path (QueryServer, ServingPipeline, telemetry)
 # ---------------------------------------------------------------------------
 
@@ -5735,6 +6010,8 @@ def main():
     launches["flash_attention"] += phase_lm_serve(dev, card)
     # flash in the training path's eval step
     launches["flash_attention"] += phase_train(dev, card)
+    # flash in the sharded eval step, each rank's heads through local_map
+    launches["flash_attention"] += phase_mesh(dev, card)
     records["bvh_traverse_fine_knn"] = phase_geometry_twins(geo_twins, card)
     # last, with the host's cores free of the twins' workers: the gloo
     # ranks stage their collectives through host memory. Their launches

@@ -33,6 +33,7 @@ import threading
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 __all__ = ["CheckpointManager", "save_checkpoint", "load_checkpoint"]
 
@@ -70,6 +71,8 @@ def _snapshot(tree):
     for k, v in _flatten(tree).items():
         if isinstance(v, torch.Tensor):
             v = v.detach()
+            if isinstance(v, DTensor):
+                v = v.full_tensor()     # a collective: every rank saves
             if v.dtype == torch.bfloat16:
                 bf16.append(k)
                 v = v.float()

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from .core import geometry as G
 from .core.index import resolve_device
@@ -112,8 +113,11 @@ def _leaf(model: LM, tree: dict, name: str, shape, what: str):
 def _host(t: torch.Tensor) -> np.ndarray:
     """A copy of a tensor as a numpy array, bfloat16 as float32 (which
     holds it exactly): a snapshot, which no later in-place update of the
-    tensor reaches."""
+    tensor reaches. A DTensor is gathered whole, a collective that every
+    rank of its mesh makes."""
     t = t.detach()
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.float() if t.dtype == torch.bfloat16 else t
     return t.to("cpu", copy=True).numpy()
 
@@ -137,7 +141,8 @@ def _tree(named: dict) -> dict:
     return tree
 
 
-def lm_from_numpy(cfg, params: dict, device=None) -> LM:
+def lm_from_numpy(cfg, params: dict, device=None, *, mesh=None,
+                  specs: dict | None = None) -> LM:
     """An ``LM`` of any family holding the reference's parameter tree,
     given as numpy arrays (``jax.tree_util.tree_map(np.asarray,
     init_params(cfg, key))``): ``embed/table``, ``final_norm/...`` and
@@ -146,19 +151,24 @@ def lm_from_numpy(cfg, params: dict, device=None) -> LM:
     ``enc_norm``, ``shared_attn``, ``patch_proj``, ``mtp``, the MoE and
     Mamba leaves as they are). Each leaf is copied into the parameter of
     the same path, in that parameter's dtype; a missing or mis-shaped leaf
-    raises with its path."""
+    raises with its path. With a `mesh` and `specs` ({parameter name:
+    ``launch.sharding`` spec}) each rank keeps its own shard of the full
+    arrays (``launch.sharding.distribute_model``)."""
     model = LM(cfg, device)
     with torch.no_grad():
         for name, param in model.named_parameters():
             a = _leaf(model, params, name, param.shape, "lm_from_numpy")
             param.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
+    if mesh is not None:
+        from .launch.sharding import distribute_model
+        distribute_model(model, mesh, specs)
     return model
 
 
 def lm_to_numpy(model: LM) -> dict:
     """The inverse of ``lm_from_numpy``: the model's weights as the
     reference's parameter tree of numpy arrays (layers stacked, bfloat16
-    as float32)."""
+    as float32), a sharded model's gathered whole on every rank."""
     return _tree(dict(model.named_parameters()))
 
 
@@ -179,15 +189,23 @@ def opt_to_numpy(state: dict) -> dict:
     return out
 
 
-def opt_from_numpy(model: LM, tree: dict, dtype=torch.float32) -> dict:
+def opt_from_numpy(model: LM, tree: dict, dtype=torch.float32, *,
+                   mesh=None, specs: dict | None = None) -> dict:
     """AdamW state for `model` from the reference's tree (numpy): the
     moments in `dtype` (float32, the reference's default; bfloat16 at
     DeepSeek-V3 scale), ``ef_err`` in float32, the step an int32 0-d
-    tensor, all on the model's device."""
+    tensor, all on the model's device. With a `mesh` and `specs` (the
+    moments', ``launch.sharding.zero1_specs``' for ZeRO-1) each rank
+    keeps its own shard of the moments; an ``ef_err`` (a pod's own
+    error) does not go onto a mesh and raises."""
     dev = model.device
     named = dict(model.named_parameters())
     out = {"step": torch.tensor(int(np.asarray(tree["step"])),
                                 dtype=torch.int32, device=dev)}
+    if mesh is not None and "ef_err" in tree:
+        raise ValueError("opt_from_numpy: an int8 error-feedback state "
+                         "(ef_err) is each pod's own and is not restored "
+                         "onto a mesh")
     for key in ("m", "v", "ef_err"):
         if key not in tree:
             continue
@@ -195,6 +213,10 @@ def opt_from_numpy(model: LM, tree: dict, dtype=torch.float32) -> dict:
         out[key] = {name: torch.from_numpy(np.array(_leaf(
             model, tree[key], name, p.shape, f"opt_from_numpy {key}"),
             dtype=np.float32)).to(dev, dt) for name, p in named.items()}
+        if mesh is not None:
+            from .launch.sharding import to_dtensor
+            out[key] = {n: to_dtensor(t, mesh, specs[n])
+                        for n, t in out[key].items()}
     return out
 
 

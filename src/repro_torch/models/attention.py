@@ -26,10 +26,12 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..kernels.ops import flash_attention
 from .config import ModelConfig
-from .layers import apply_rope, trunc_normal
+from .layers import (apply_rope, hold_gradient, local_offset, shard,
+                     sharding_mesh, trunc_normal)
 
 __all__ = ["Attention", "MLAAttention", "attention_core", "gqa_forward",
            "gqa_decode", "mla_forward", "mla_decode", "cross_kv",
@@ -130,27 +132,113 @@ def _flash(q, k, v, *, causal, window):
                            window=window if window else None)
 
 
-def attention_core(cfg: ModelConfig, q, k, v, *, causal=True, q_offset=0,
-                   scale=None):
-    """q (B, H, Sq, dh), k (B, Hkv, Skv, dh), v (B, Hkv, Skv, dv) -> (B,
-    H, Sq, dv). The kernel uses 1/sqrt(dh) whatever `scale` says, as the
-    reference's."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
+def _core(cfg: ModelConfig, q, k, v, *, causal, q_offset, scale):
     if cfg.attn_impl == "flash" and q.shape[2] > 1:
         return _flash(q, k, v, causal=causal, window=cfg.window)
     return _xla_attention(q, k, v, causal=causal, window=cfg.window,
                           q_offset=q_offset, scale=scale)
 
 
+def _local_kv(ql, kl, vl, q0: int, k0: int, group: int):
+    """The kv heads this rank's query heads read: query head j (global q0
+    + j) reads kv head (q0 + j) // group (global; local minus k0). A run
+    that GQA's own grouping reads is sliced; any other mapping (a rank's
+    query heads straddling groups unevenly) takes one kv head a query
+    head."""
+    hl = ql.shape[1]
+    idx = [(q0 + j) // group - k0 for j in range(hl)]
+    lo, n = idx[0], idx[-1] - idx[0] + 1
+    if hl % n == 0 and idx == [lo + j // (hl // n) for j in range(hl)]:
+        return kl[:, lo:lo + n], vl[:, lo:lo + n]
+    sel = torch.tensor(idx, dtype=torch.long, device=kl.device)
+    return kl.index_select(1, sel), vl.index_select(1, sel)
+
+
+def attention_core(cfg: ModelConfig, q, k, v, *, causal=True, q_offset=0,
+                   scale=None):
+    """q (B, H, Sq, dh), k (B, Hkv, Skv, dh), v (B, Hkv, Skv, dv) -> (B,
+    H, Sq, dv). The kernel uses 1/sqrt(dh) whatever `scale` says, as the
+    reference's.
+
+    Under a mesh (DTensors), each rank runs the core on its own heads
+    through ``local_map``, at the placements its inputs have (the heads on
+    "model" where the rules shard them): the flash kernel takes plain
+    tensors, and the chunked path's masks are made per rank. Where the
+    query heads shard and the kv heads replicate (chatglm3's 2 and
+    starcoder2's 4 on a 16-wide axis), rank r's query head j reads kv
+    head (r Hq/m + j) // (Hq/Hkv); the gradient of a replicated kv
+    tensor is then a partial sum over "model"."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    mesh = sharding_mesh()
+    if mesh is None or not isinstance(q, DTensor):
+        return _core(cfg, q, k, v, causal=causal, q_offset=q_offset,
+                     scale=scale)
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+    # local_map infers the output's shape from even shards
+    q = _whole_heads(q, 1, q.shape[1])
+    q0, k0 = local_offset(q, mesh, 1), local_offset(k, mesh, 1)
+    group = q.shape[1] // k.shape[1]
+
+    def local(ql, kl, vl):
+        kl, vl = _local_kv(ql, kl, vl, q0, k0, group)
+        return _core(cfg, ql, kl, vl, causal=causal, q_offset=q_offset,
+                     scale=scale)
+
+    def grad_of(t):
+        # a kv tensor whole on a mesh dim where the query heads split:
+        # each rank's gradient is its own query heads' share
+        return [Partial() if qp == Shard(1) and tp != Shard(1) else tp
+                for qp, tp in zip(q.placements, t.placements)]
+
+    return local_map(local, out_placements=list(q.placements),
+                     in_placements=(q.placements, k.placements, v.placements),
+                     in_grad_placements=(q.placements, grad_of(k), grad_of(v)),
+                     device_mesh=mesh)(q, k, v)
+
+
+def _plain(t):
+    """A replicated DTensor's value as the plain tensor every rank holds."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def _split_heads(x, n, dh):
     b, s, _ = x.shape
-    return x.reshape(b, s, n, dh).transpose(1, 2)            # (B, n, S, dh)
+    whole = _whole_heads(x, 2, n)
+    out = whole.reshape(b, s, n, dh).transpose(1, 2)
+    return out if whole is x else hold_gradient(out)
 
 
 def _merge_heads(x):
     b, n, s, dh = x.shape
-    return x.transpose(1, 2).reshape(b, s, n * dh)
+    whole = _whole_heads(x, 1, n)
+    out = whole.transpose(1, 2).reshape(b, s, n * dh)
+    return out if whole is x else hold_gradient(out)
+
+
+def _whole_heads(x, dim: int, n: int):
+    """`x`, a DTensor whose `dim` holds `n` heads (or n heads' columns),
+    gathered along `dim` where its mesh axes do not split the n heads
+    evenly: DTensor's view ops reshape only even splits (the callers hold
+    the reshaped result's gradient whole too, for the view's backward).
+    Where the
+    kv projection's columns divide and its heads do not (chatglm3's 2
+    kv heads over a 16-wide "model" axis) the rules then replicate the
+    heads, as the reference's partitioner does; where the query heads do
+    not divide (starcoder2's 36 over 16, which the reference pads) the
+    merged output is gathered. Anything else is `x`."""
+    if not isinstance(x, DTensor):
+        return x
+    from torch.distributed.tensor import Replicate
+    split = [i for i, p in enumerate(x.placements) if p.is_shard(dim)]
+    ways = 1
+    for i in split:
+        ways *= x.device_mesh.size(i)
+    if n % ways == 0:
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if i in split else p for i, p in enumerate(x.placements)])
 
 
 # ---------------------------------------------------------------------------
@@ -161,29 +249,93 @@ def gqa_forward(cfg: ModelConfig, p: Attention, x, positions, *, causal=True):
     """x: (B, S, d) -> (out (B, S, d), (k, v)) with k, v (B, Hkv, S, dh)
     after RoPE, as the reference returns them to seed a cache."""
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
-    q = _split_heads(x @ p.wq, h, dh)
-    k = _split_heads(x @ p.wk, hkv, dh)
-    v = _split_heads(x @ p.wv, hkv, dh)
+    q = shard(_split_heads(x @ p.wq, h, dh), "batch", "heads", None, None)
+    k = shard(_split_heads(x @ p.wk, hkv, dh), "batch", "kv_heads", None,
+              None)
+    v = shard(_split_heads(x @ p.wv, hkv, dh), "batch", "kv_heads", None,
+              None)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
-    o = attention_core(cfg, q, k, v, causal=causal)
+    o = shard(attention_core(cfg, q, k, v, causal=causal), "batch", "heads",
+              None, None)
     return _merge_heads(o) @ p.wo, (k, v)
 
 
-def _cached_attention(q, ck, cv, mask, scale, dtype):
+def _cached_attention(q, ck, cv, mask, scale, dtype, over=()):
     """One query row against a cache: q (B, H, 1, dh), ck / cv (B, Hkv, W,
     dh), mask (W,) or None (every key) -> (B, H, 1, dh) in `dtype`.
     float32 scores, softmax and P.V, as the reference's decode einsums;
     the H / Hkv query heads of a KV head share its rows through a group
-    axis instead of a repeated copy of the cache."""
+    axis instead of a repeated copy of the cache.
+
+    `over`: the process groups across which the cache's length is split
+    (a mesh's sequence-parallel cache, each rank's rows here): each rank's
+    softmax statistics and P.V are combined by all-reduces (max, then
+    sums), flash-decoding's merge."""
     b, h, _, dh = q.shape
     hkv = ck.shape[1]
     qg = q.float().reshape(b, hkv, h // hkv, dh)
     s = torch.matmul(qg, ck.float().transpose(-1, -2)) * scale  # (B,Hkv,g,W)
     if mask is not None:
         s = torch.where(mask, s, float("-inf"))
-    o = torch.matmul(torch.softmax(s, dim=-1), cv.float())
-    return o.reshape(b, h, 1, cv.shape[-1]).to(dtype)
+    if not over:
+        o = torch.matmul(torch.softmax(s, dim=-1), cv.float())
+        return o.reshape(b, h, 1, cv.shape[-1]).to(dtype)
+    from torch.distributed import _functional_collectives as funcol
+    m_own = s.amax(-1, keepdim=True)
+    m = m_own
+    for g in over:
+        m = funcol.wait_tensor(funcol.all_reduce(m, "max", g))
+    seen = torch.isfinite(m_own)
+    pr = torch.exp(s - torch.where(seen, m_own, 0.0))
+    scale_own = torch.where(seen, torch.exp(m_own - m), 0.0)
+    num = torch.matmul(pr, cv.float()) * scale_own
+    den = pr.sum(-1, keepdim=True) * scale_own
+    for g in over:
+        num = funcol.wait_tensor(funcol.all_reduce(num, "sum", g))
+        den = funcol.wait_tensor(funcol.all_reduce(den, "sum", g))
+    return (num / den).reshape(b, h, 1, cv.shape[-1]).to(dtype)
+
+
+def _sharded_decode(q, ck, cv, mask, scale, dtype, new=None, slot=None):
+    """``_cached_attention`` under a mesh, as ``local_map`` (optionally
+    writing the new token's `new` = (k, v) at `slot` first): the query
+    follows the cache's batch and head split (it is one row: gathering
+    its heads is cheap), and where the cache's length is split (few kv
+    heads: the reference's sequence-parallel cache) each rank writes the
+    slot if it holds it and attends over its own rows, the partial
+    softmaxes merged over those mesh dims."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = sharding_mesh()
+    kvp = list(ck.placements)
+    qp = [p if p.is_shard() and p.dim in (0, 1) else Replicate() for p in kvp]
+    newp = [Replicate() if p.is_shard() and p.dim == 2 else p for p in kvp]
+    over = [mesh.get_group(i) for i, p in enumerate(kvp)
+            if p.is_shard() and p.dim == 2]
+    w0 = local_offset(ck, mesh, 2)
+    q = q.redistribute(mesh, qp)
+
+    def attend(ql, ckl, cvl, *kv):
+        wl = ckl.shape[2]
+        if kv:
+            at = slot - w0
+            mine = (at >= 0) & (at < wl)
+            at = torch.clamp(at, 0, wl - 1).reshape(1).long()
+            for cache, t in zip((ckl, cvl), kv):
+                t = torch.where(mine, t.to(cache.dtype),
+                                cache.index_select(2, at))
+                cache.index_copy_(2, at, t)
+        m = None if mask is None else mask[w0:w0 + wl]
+        return _cached_attention(ql, ckl, cvl, m, scale, dtype, over)
+
+    args = (q, ck, cv)
+    in_pl = (qp, kvp, kvp)
+    if new is not None:
+        args += tuple(t.redistribute(mesh, newp) for t in new)
+        in_pl += (newp, newp)
+    return local_map(attend, out_placements=qp, in_placements=in_pl,
+                     device_mesh=mesh)(*args)
 
 
 def gqa_decode(cfg: ModelConfig, p: Attention, x, cache_k, cache_v, index):
@@ -206,14 +358,18 @@ def gqa_decode(cfg: ModelConfig, p: Attention, x, cache_k, cache_v, index):
     q = apply_rope(q, pos, cfg.rope_theta, cfg.rotary_pct)
     k = apply_rope(k, pos, cfg.rope_theta, cfg.rotary_pct)
     w = cache_k.shape[2]
-    slot = (index % w).reshape(1).long()
-    cache_k.index_copy_(2, slot, k.to(cache_k.dtype))
-    cache_v.index_copy_(2, slot, v.to(cache_v.dtype))
     kpos = index - torch.remainder(
         index - torch.arange(w, device=x.device), w)          # absolute pos
     mask = kpos >= 0
     if cfg.window:
         mask &= kpos > index - cfg.window
+    if isinstance(cache_k, DTensor):
+        o = _sharded_decode(q, cache_k, cache_v, _plain(mask), dh ** -0.5,
+                            x.dtype, new=(k, v), slot=_plain(index % w))
+        return _merge_heads(o) @ p.wo, cache_k, cache_v
+    slot = (index % w).reshape(1).long()
+    cache_k.index_copy_(2, slot, k.to(cache_k.dtype))
+    cache_v.index_copy_(2, slot, v.to(cache_v.dtype))
     o = _cached_attention(q, cache_k, cache_v, mask, dh ** -0.5, x.dtype)
     return _merge_heads(o) @ p.wo, cache_k, cache_v
 
@@ -231,13 +387,15 @@ def mla_forward(cfg: ModelConfig, p: MLAAttention, x, positions, *,
     q = ((x @ p.w_dq) @ p.w_uq).reshape(b, s, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope.transpose(1, 2), positions, cfg.rope_theta)
-    c_kv = x @ p.w_dkv                                       # (B, S, r_kv)
+    c_kv = shard(x @ p.w_dkv, "batch", None, None)          # (B, S, r_kv)
     k_rope = apply_rope(x @ p.w_kr, positions, cfg.rope_theta)  # (B, S, dr)
     k_nope = (c_kv @ p.w_uk).reshape(b, s, h, dn)
     v = (c_kv @ p.w_uv).reshape(b, s, h, dv)
     qq = torch.cat([q_nope.transpose(1, 2), q_rope], dim=-1)
     kk = torch.cat([k_nope.transpose(1, 2),
                     k_rope[:, None].expand(b, h, s, dr)], dim=-1)
+    qq = shard(qq, "batch", "heads", None, None)
+    kk = shard(kk, "batch", "heads", None, None)
     o = attention_core(cfg, qq, kk, v.transpose(1, 2), causal=causal,
                        scale=(dn + dr) ** -0.5)
     return _merge_heads(o) @ p.wo, (c_kv, k_rope)
@@ -307,5 +465,10 @@ def cross_attn_decode(cfg: ModelConfig, p: Attention, x, cross_k, cross_v):
     """One query row against the precomputed cross k / v (B, H, Se, dh),
     float32 scores and softmax (the reference's ``_decode_encdec``)."""
     q = _split_heads(x @ p.wq, cfg.n_heads, cfg.dh)
-    o = _cached_attention(q, cross_k, cross_v, None, cfg.dh ** -0.5, x.dtype)
+    if isinstance(cross_k, DTensor):
+        o = _sharded_decode(q, cross_k, cross_v, None, cfg.dh ** -0.5,
+                            x.dtype)
+    else:
+        o = _cached_attention(q, cross_k, cross_v, None, cfg.dh ** -0.5,
+                              x.dtype)
     return _merge_heads(o) @ p.wo

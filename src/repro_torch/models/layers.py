@@ -10,21 +10,134 @@ the norms compute in float32 with eps = 1e-6 (LayerNorm with the
 population variance, as ``jnp.var``), GELU is the tanh approximation
 (``jax.nn.gelu``'s default) and RoPE rotates interleaved pairs
 (``x[..., 0::2]``, ``x[..., 1::2]``) over the first ``rotary_pct`` of the
-head, with float32 angles. The reference's logical-axis sharding
-annotations have no counterpart here: the distributed slice brings one.
+head, with float32 angles.
+
+Sharding: activations are annotated with logical axis names through
+``shard(x, *names)`` at the reference's call sites; ``launch.sharding``
+installs the logical -> mesh-axis rules (``set_sharding_rules``).
+Outside a rules context, or on a plain tensor, ``shard`` is a no-op, so
+the same model code runs on one device and on a mesh. Inside one, a
+DTensor is redistributed to the rule's placements. Where the reference's
+``with_sharding_constraint`` is a hint to the partitioner, a
+``redistribute`` is a collective: a ``Partial`` sum reduced at another
+place than XLA's changes the order of the float sum (the tests state the
+tolerance that follows).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-__all__ = ["trunc_normal", "rms_norm", "layer_norm", "apply_norm",
+__all__ = ["set_sharding_rules", "logical_spec", "shard", "sharding_mesh",
+           "local_offset", "hold_gradient",
+           "trunc_normal", "rms_norm", "layer_norm", "apply_norm",
            "rope_freqs", "apply_rope", "apply_mlp", "embed_tokens",
            "logits_out", "cross_entropy", "Norm", "MLP"]
 
 EPS = 1e-6
 
+# ---------------------------------------------------------------------------
+# logical-axis sharding
+# ---------------------------------------------------------------------------
+
+_RULES: dict | None = None
+_MESH = None
+
+
+def set_sharding_rules(rules: dict | None, mesh=None):
+    """Install logical -> mesh axis rules on `mesh` (None disables the
+    annotations). While rules are installed, a plain tensor that meets a
+    DTensor in an op counts as replicated (DTensor's implicit
+    replication): the positions, RoPE's angles and the masks the model
+    makes with ``torch.arange`` are the same on every rank."""
+    global _RULES, _MESH
+    _RULES = rules
+    _MESH = mesh if rules is not None else None
+    DTensor._op_dispatcher._allow_implicit_replication = rules is not None
+
+
+def sharding_mesh():
+    """The mesh the installed rules map onto; None outside a rules
+    context."""
+    return _MESH
+
+
+def local_offset(t, mesh, dim: int) -> int:
+    """The global index of this rank's first entry of DTensor `t` along
+    `dim` (torch.chunk's layout, which is JAX's for the even splits the
+    rules make)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    return compute_local_shape_and_global_offset(
+        t.shape, mesh, t.placements)[1][dim]
+
+
+def logical_spec(*names):
+    """The ``launch.sharding.PartitionSpec`` of logical axis names under
+    the installed rules."""
+    from ..launch.sharding import PartitionSpec
+    if _RULES is None:
+        return PartitionSpec(*([None] * len(names)))
+    return PartitionSpec(*[_RULES.get(n) if n is not None else None
+                           for n in names])
+
+
+class _GradAt(torch.autograd.Function):
+    """The identity, whose gradient is redistributed to `placements`: the
+    transpose of a sharding constraint, which holds the gradient where
+    the value is held (Megatron's all-reduce of the input gradient of a
+    column-parallel block). Left to itself, a residual stream's gradient
+    stays a ``Partial`` sum over "model", and DTensor's product rule then
+    gathers the next column-parallel weight whole and runs the full
+    product on each rank rather than reduce the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g, None
+
+
+def hold_gradient(x):
+    """`x`, whose gradient is redistributed to `x`'s own placements (a
+    plain tensor is `x`)."""
+    if not isinstance(x, DTensor) or not (torch.is_grad_enabled()
+                                          and x.requires_grad):
+        return x
+    return _GradAt.apply(x, tuple(x.placements))
+
+
+def shard(x, *names):
+    """`x` redistributed to the placements of its logical axes under the
+    installed rules, and an activation's gradient to the same placements
+    (as ``with_sharding_constraint`` constrains both); `x` itself outside a
+    rules context or when it is not a DTensor. A dim that its mesh axes
+    do not divide is split unevenly, as torch.chunk splits (the
+    reference's partitioner pads it)."""
+    if _MESH is None or not isinstance(x, DTensor):
+        return x
+    from ..launch.sharding import named
+    want = named(_MESH, logical_spec(*names))
+    # an activation's, not a weight's: a weight's gradient keeps its own
+    # partial sums, which the optimizer reduces where it takes them
+    activation = x.grad_fn is not None
+    if tuple(x.placements) != want:
+        x = x.redistribute(_MESH, want)
+    if activation and torch.is_grad_enabled():
+        x = _GradAt.apply(x, want)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# initializers and layers
+# ---------------------------------------------------------------------------
 
 def trunc_normal(gen: torch.Generator, shape, scale: float, dtype):
     """A standard normal truncated to [-2, 2], times `scale`, drawn in
@@ -81,7 +194,20 @@ def layer_norm(x, scale, bias, eps: float = EPS):
     return ((xf - mu) * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
 
 
+def _summed(x):
+    """`x` with every pending ``Partial`` sum of a DTensor reduced: a norm
+    is not linear, and DTensor's rules let a partial sum through one into
+    the next product (the decoder block of encdec adds two partial
+    attention outputs into x before its norms, as the reference's does)."""
+    if not isinstance(x, DTensor) or not any(p.is_partial()
+                                             for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in x.placements])
+
+
 def apply_norm(x, scale, bias=None, kind: str = "rmsnorm", eps: float = EPS):
+    x = _summed(x)
     if kind == "rmsnorm":
         return rms_norm(x, scale, eps)
     return layer_norm(x, scale, bias, eps)
@@ -122,16 +248,64 @@ def apply_mlp(x, wu, wd, wg=None, kind: str = "swiglu"):
         h = F.silu(x @ wg) * (x @ wu)
     else:
         h = F.gelu(x @ wu, approximate="tanh")
+    if h.dim() == 3:
+        h = shard(h, "batch", None, "ffn")
+    else:                              # (tokens, ffn): the MoE's shared MLP
+        h = shard(h, "batch", "ffn")
     return h @ wd
 
 
+class _SumOver(torch.autograd.Function):
+    """The sum of each rank's `x` over a process group, whose gradient is
+    the output's gradient unchanged: the sum is replicated, so every rank
+    holds the whole gradient of its own summand."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from torch.distributed import _functional_collectives as funcol
+        return funcol.wait_tensor(funcol.all_reduce(x, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def embed_tokens(table, tokens):
-    return table[tokens]
+    """The rows of `table` at `tokens`. Under a mesh, on a table sharded
+    over the vocabulary, each rank looks up the tokens of its own rows
+    (zeros elsewhere) and the rows are summed over "model" (Megatron's
+    vocabulary-parallel embedding, under ``local_map``: DTensor's own rule
+    for it cannot take the gradient of a tied table, a ``Partial`` sum
+    into its masked partial)."""
+    table = shard(table, "vocab", None)
+    if _MESH is None or not isinstance(table, DTensor):
+        return table[tokens]
+    from torch.distributed.tensor.experimental import local_map
+    lo = local_offset(table, _MESH, 0)
+    rows = table.to_local().shape[0]
+    groups = [_MESH.get_group(i) for i, p in enumerate(table.placements)
+              if p == Shard(0)]
+
+    def lookup(tab, tok):
+        mine = (tok >= lo) & (tok < lo + rows)
+        x = tab[torch.where(mine, tok - lo, 0)]
+        x = x * mine[..., None].to(x.dtype)
+        for g in groups:
+            x = _SumOver.apply(x, g)
+        return x
+
+    # a data rank's table gradient is its own tokens' share: a partial sum
+    grad = [Partial() if k == Shard(0) else t
+            for t, k in zip(table.placements, tokens.placements)]
+    return local_map(lookup, out_placements=list(tokens.placements),
+                     in_placements=(table.placements, tokens.placements),
+                     in_grad_placements=(grad, tokens.placements),
+                     device_mesh=_MESH)(table, tokens)
 
 
 def logits_out(table, x):
-    """Tied logits: (B, S, d) @ (d, V)."""
-    return x @ table.T.to(x.dtype)
+    """Tied, vocabulary-parallel logits: (B, S, d) @ (d, V)."""
+    return shard(x @ table.T.to(x.dtype), "batch", None, "vocab")
 
 
 def cross_entropy(logits, labels, ignore_id: int = -100):
@@ -141,7 +315,16 @@ def cross_entropy(logits, labels, ignore_id: int = -100):
     sync."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels.clamp(min=0)[..., None])[..., 0]
+    if _MESH is not None and isinstance(lf, DTensor):
+        # over a vocabulary sharded on "model": the label's logit as a
+        # masked sum, which adds zeros to one value and so is exact
+        # (DTensor's gather over a sharded dim reduces a 2-d mask into
+        # a 3-d tensor and fails)
+        hit = torch.arange(lf.shape[-1], device=lf.device) \
+            == labels.clamp(min=0)[..., None]
+        ll = torch.where(hit, lf, 0.0).sum(-1)
+    else:
+        ll = torch.gather(lf, -1, labels.clamp(min=0)[..., None])[..., 0]
     mask = labels != ignore_id
     nll = (lse - ll) * mask
     return nll.sum() / torch.clamp_min(mask.sum(), 1)

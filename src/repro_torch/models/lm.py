@@ -44,7 +44,7 @@ from . import mamba2 as M2
 from . import moe as MOE
 from .config import ModelConfig
 from .layers import (MLP, Norm, cross_entropy, embed_tokens, logits_out,
-                     trunc_normal)
+                     shard, trunc_normal)
 
 __all__ = ["LM", "DenseBlock", "MoEBlock", "MambaBlock", "XAttnBlock",
            "Norm", "MLP", "loss_fn"]
@@ -100,7 +100,8 @@ class DenseBlock(nn.Module):
         """Returns (x, aux): aux the MoE router's loss, None for an MLP."""
         fn = A.mla_forward if self.cfg.mla else A.gqa_forward
         h, _ = fn(self.cfg, self.attn, self.ln1(x), positions, causal=causal)
-        return self.ffn(x + h)
+        x, aux = self.ffn(shard(x + h, "batch", None, None))
+        return shard(x, "batch", None, None), aux
 
 
 class MoEBlock(DenseBlock):
@@ -128,7 +129,8 @@ class MambaBlock(nn.Module):
         self.mamba = M2.Mamba(cfg, device, _dtype(cfg))
 
     def forward(self, x):
-        return x + M2.mamba_forward(self.cfg, self.mamba, self.ln(x))
+        return shard(x + M2.mamba_forward(self.cfg, self.mamba, self.ln(x)),
+                     "batch", None, None)
 
 
 class XAttnBlock(nn.Module):
@@ -155,7 +157,7 @@ class XAttnBlock(nn.Module):
         x = x + h
         x = x + A.cross_attn_forward(self.cfg, self.xattn, self.lnx(x),
                                      enc_out)
-        return x + self.mlp(self.ln2(x))
+        return shard(x + self.mlp(self.ln2(x)), "batch", None, None)
 
 
 class LM(nn.Module):
@@ -249,7 +251,7 @@ class LM(nn.Module):
 
     def forward(self, tokens, patch_embeds=None, src_embeds=None):
         cfg = self.cfg
-        x = embed_tokens(self.embed.table, tokens)
+        x = shard(embed_tokens(self.embed.table, tokens), "batch", None, None)
         if cfg.family == "vlm":
             if patch_embeds is None:
                 raise ValueError(f"{cfg.name}: the vlm family's forward takes "

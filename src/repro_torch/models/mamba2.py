@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .config import ModelConfig
-from .layers import trunc_normal
+from .layers import shard, trunc_normal
 
 __all__ = ["Mamba", "dims", "ssd_forward", "mamba_forward",
            "init_mamba_cache", "mamba_decode"]
@@ -186,8 +186,9 @@ def mamba_forward(cfg: ModelConfig, p: Mamba, x):
     g, n, hp = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
     z, xu, xb, xc, dt = _project(cfg, p, x)
     dt = F.softplus(dt.float() + p.dt_bias)
-    y = ssd_forward(cfg, p, xu.reshape(b, s, nh, hp),
-                    xb.reshape(b, s, g, n), xc.reshape(b, s, g, n), dt)
+    u = shard(xu.reshape(b, s, nh, hp), "batch", None, "heads", None)
+    y = ssd_forward(cfg, p, u, xb.reshape(b, s, g, n), xc.reshape(b, s, g, n),
+                    dt)
     return _gated_norm(p, y.reshape(b, s, di), z, x.dtype) @ p.out_proj
 
 

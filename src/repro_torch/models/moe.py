@@ -25,12 +25,15 @@ from the reference's in its last bits.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from .config import ModelConfig
-from .layers import MLP, trunc_normal
+from .layers import MLP, local_offset, shard, sharding_mesh, trunc_normal
 
 __all__ = ["MoE", "router_topk", "moe_forward"]
 
@@ -38,6 +41,10 @@ __all__ = ["MoE", "router_topk", "moe_forward"]
 class MoE(nn.Module):
     """router (d, E) float32; wg, wu (E, d, m) and wd (E, m, d) in the
     model dtype; ``shared`` a SwiGLU MLP of width m * n_shared_experts."""
+
+    #: the global index of the first expert held (the dispatch functions
+    #: take a module or a rank's ``_Experts``)
+    e0 = 0
 
     def __init__(self, cfg: ModelConfig, device=None, dtype=None):
         super().__init__()
@@ -98,31 +105,47 @@ def _slots(cfg: ModelConfig, idx, cap):
     return onehot, pos, (pos < cap) & (sel > 0)
 
 
-def _experts(p: MoE, xe):
+class _Experts(NamedTuple):
+    """The expert weights a rank holds and the global index of its first
+    expert (all of them at e0 = 0 off a mesh)."""
+    wg: torch.Tensor
+    wu: torch.Tensor
+    wd: torch.Tensor
+    e0: int = 0
+
+
+def _experts(ex, xe):
     """The batched expert FFN: (E, C, d) -> (E, C, d)."""
-    h = F.silu(torch.einsum("ecd,edm->ecm", xe, p.wg)) \
-        * torch.einsum("ecd,edm->ecm", xe, p.wu)
-    return torch.einsum("ecm,emd->ecd", h, p.wd)
+    h = F.silu(torch.einsum("ecd,edm->ecm", xe, ex.wg)) \
+        * torch.einsum("ecd,edm->ecm", xe, ex.wu)
+    h = shard(h, "experts", None, None)
+    return torch.einsum("ecm,emd->ecd", h, ex.wd)
 
 
-def _moe_dense(cfg: ModelConfig, p: MoE, x2d, w, idx):
+def _moe_dense(cfg: ModelConfig, ex, x2d, w, idx):
     cap = _capacity(cfg, x2d.shape[0])
     onehot, pos, keep = _slots(cfg, idx, cap)
     # a slot of `cap` is out of range: jax.nn.one_hot gives a zero row
     # there, so the extra column is cut off
     dispatch = (F.one_hot(torch.where(keep, pos, cap).long(), cap + 1)
                 [..., :cap].to(x2d.dtype) * keep[..., None])  # (T, E, C)
-    ye = _experts(p, torch.einsum("tec,td->ecd", dispatch, x2d))
+    dispatch = shard(dispatch, None, "experts", None)
+    xe = shard(torch.einsum("tec,td->ecd", dispatch, x2d), "experts", None,
+               None)
+    ye = _experts(ex, xe)
     wsel = torch.einsum("tke,tk->te", onehot.to(w.dtype), w)  # (T, E)
     combine = dispatch * wsel[:, :, None]
     return torch.einsum("tec,ecd->td", combine, ye)
 
 
-def _moe_gather(cfg: ModelConfig, p: MoE, x2d, w, idx):
+def _moe_gather(cfg: ModelConfig, ex, x2d, w, idx):
     """Capacity dispatch through the inverse slot map (E, C) -> token:
-    no (T, E, C) one-hot tensor."""
+    no (T, E, C) one-hot tensor. Slots are counted over all T tokens;
+    only the experts `ex` holds run, and a token's other experts add
+    zeros (on a mesh the other ranks add theirs)."""
     t, d = x2d.shape
     e = cfg.n_experts
+    el = ex.wg.shape[0]
     cap = _capacity(cfg, t)
     _, pos, keep = _slots(cfg, idx, cap)
     tok_ids = torch.arange(t, dtype=torch.int64,
@@ -134,13 +157,17 @@ def _moe_gather(cfg: ModelConfig, p: MoE, x2d, w, idx):
     inv = torch.full((e * cap + 1,), t, dtype=torch.int64, device=x2d.device)
     inv[torch.where(keep, flat_slot, e * cap).reshape(-1)] = \
         tok_ids.reshape(-1)
-    inv = inv[:e * cap].reshape(e, cap)
+    inv = inv[:e * cap].reshape(e, cap)[ex.e0:ex.e0 + el]
     xpad = torch.cat([x2d, x2d.new_zeros((1, d))], dim=0)
-    ye = _experts(p, xpad[inv])                               # (E, C, d)
+    ye = _experts(ex, shard(xpad[inv], "experts", None, None))  # (El, C, d)
     slot_of = torch.where(keep, torch.clamp_max(pos, cap - 1), cap)
     tk_slot = torch.take_along_dim(slot_of, idx, dim=1)       # (T, k)
-    ypad = torch.cat([ye, ye.new_zeros((e, 1, d))], dim=1)    # (E, C+1, d)
-    return torch.einsum("tkd,tk->td", ypad[idx, tk_slot], w)
+    mine = (idx >= ex.e0) & (idx < ex.e0 + el)
+    ypad = torch.cat([ye, ye.new_zeros((el, 1, d))], dim=1)   # (El, C+1, d)
+    ypad = torch.cat([ypad, ypad.new_zeros((1, cap + 1, d))])  # + no expert
+    rows = ypad[torch.where(mine, idx - ex.e0, el),
+                torch.where(mine, tk_slot, cap)]
+    return torch.einsum("tkd,tk->td", rows, w)
 
 
 def _ragged_dot(x, w, sizes):
@@ -155,22 +182,65 @@ def _ragged_dot(x, w, sizes):
     return out
 
 
-def _moe_ragged(cfg: ModelConfig, p: MoE, x2d, w, idx):
+def _moe_ragged(cfg: ModelConfig, ex, x2d, w, idx):
     """Dropless: the T k (token, expert) pairs sorted by expert, stably,
-    and one product per expert group. The group sizes are read on the
-    host (one sync a call: the only one on the serving path)."""
+    and one product per expert group of the experts `ex` holds. The
+    group sizes are read on the host (one sync a call: the only one on
+    the serving path)."""
     t, d = x2d.shape
     k = cfg.moe_top_k
+    el = ex.wg.shape[0]
     flat_e = idx.reshape(t * k)
     flat_t = torch.arange(t, device=x2d.device).repeat_interleave(k)
     order = torch.argsort(flat_e, stable=True)
-    xs = x2d[flat_t[order]]
     sizes = torch.bincount(flat_e, minlength=cfg.n_experts).tolist()
-    h = F.silu(_ragged_dot(xs, p.wg, sizes)) * _ragged_dot(xs, p.wu, sizes)
-    ys = _ragged_dot(h, p.wd, sizes)
-    wflat = w.reshape(t * k)[order]
+    r0 = sum(sizes[:ex.e0])
+    sizes = sizes[ex.e0:ex.e0 + el]
+    mine = order[r0:r0 + sum(sizes)]
+    xs = x2d[flat_t[mine]]
+    h = F.silu(_ragged_dot(xs, ex.wg, sizes)) * _ragged_dot(xs, ex.wu, sizes)
+    ys = _ragged_dot(h, ex.wd, sizes)
+    wflat = w.reshape(t * k)[mine]
     out = x2d.new_zeros((t, d))
-    return out.index_add_(0, flat_t[order], ys * wflat[:, None])
+    return out.index_add_(0, flat_t[mine], ys * wflat[:, None])
+
+
+def _on_local_experts(cfg: ModelConfig, p: MoE, x2d, w, idx, dispatch):
+    """`dispatch` (gather or ragged) under a mesh, as ``local_map``: its
+    index, scatter and ``index_add_`` ops have no DTensor rule. Slots are
+    counted over all tokens, as the reference counts them, so the tokens,
+    their weights and experts are gathered over the data axes (each rank
+    then runs every token through the experts it holds); each rank's
+    output, and its gradient of x and w, is its experts' (or its ffn
+    slice's) share: a partial sum over the mesh dims the expert weights
+    shard."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = sharding_mesh()
+
+    def whole_d(t, d):
+        # a d_model dim split by ZeRO-1 / FSDP: gathered for compute, as
+        # the reference's partitioner gathers FSDP weights
+        pl = [Replicate() if q.is_shard(d) else q for q in t.placements]
+        return t if pl == list(t.placements) else t.redistribute(mesh, pl)
+
+    ws = (whole_d(p.wg, 1), whole_d(p.wu, 1), whole_d(p.wd, 2))
+    e0 = local_offset(ws[0], mesh, 0)
+    sharded = [any(t.placements[i].is_shard() for t in ws)
+               for i in range(mesh.ndim)]
+    whole = [Replicate()] * mesh.ndim
+    part = [Partial() if s else Replicate() for s in sharded]
+    x2d, w, idx = (t.redistribute(mesh, whole) for t in (x2d, w, idx))
+
+    def local(xl, wl, il, wg, wu, wd):
+        return dispatch(cfg, _Experts(wg, wu, wd, e0), xl, wl, il)
+
+    pls = tuple(t.placements for t in ws)
+    return local_map(
+        local, out_placements=part,
+        in_placements=(whole, whole, whole) + pls,
+        in_grad_placements=(part, part, whole) + pls,
+        device_mesh=mesh)(x2d, w, idx, *ws)
 
 
 def moe_forward(cfg: ModelConfig, p: MoE, x):
@@ -178,12 +248,13 @@ def moe_forward(cfg: ModelConfig, p: MoE, x):
     b, s, d = x.shape
     x2d = x.reshape(b * s, d)
     w, idx, aux = router_topk(cfg, p, x2d)
-    if cfg.moe_impl == "ragged":
-        y = _moe_ragged(cfg, p, x2d, w, idx)
-    elif cfg.moe_impl == "gather":
-        y = _moe_gather(cfg, p, x2d, w, idx)
+    dispatch = {"ragged": _moe_ragged, "gather": _moe_gather}.get(
+        cfg.moe_impl, _moe_dense)
+    if dispatch is not _moe_dense and sharding_mesh() is not None \
+            and isinstance(x2d, DTensor):
+        y = _on_local_experts(cfg, p, x2d, w, idx, dispatch)
     else:
-        y = _moe_dense(cfg, p, x2d, w, idx)
+        y = dispatch(cfg, _Experts(p.wg, p.wu, p.wd), x2d, w, idx)
     if p.shared is not None:
         y = y + p.shared(x2d)
     return y.reshape(b, s, d), aux

@@ -507,8 +507,43 @@ def test_kernel_ops_run_with_jax_blocked():
 
 def test_new_modules_are_scanned_for_imports():
     files = {os.path.realpath(p) for p in _port_files()}
-    for mod in NEW_MODULES:
+    for mod in NEW_MODULES + LAUNCH_MODULES:
         assert os.path.realpath(mod.__file__) in files, mod
+
+
+LAUNCH_MODULES = tuple(importlib.import_module(f"repro_torch.launch.{m}")
+                       for m in ("mesh", "sharding", "specs", "opanalysis",
+                                 "dryrun", "train"))
+
+
+def test_launch_modules_run_with_jax_blocked():
+    """The mesh, sharding, specs, analysis and dry-run modules import and
+    work with JAX and the reference blocked: a production mesh's specs, a
+    counted product, and a dry-run cell on a fake world."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import torch\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.launch import dryrun, mesh, opanalysis, sharding, specs\n"
+        "m = mesh.AbstractMesh((16, 16), ('data', 'model'))\n"
+        "model = specs.params_struct(get_config('tinyllama-1.1b'))\n"
+        "ps = sharding.param_specs(model, m)\n"
+        "assert ps['layers.0.attn.wq'] == (None, 'model')\n"
+        "assert sharding.zero1_specs(ps, model, m)['embed.table'] == ('model', 'data')\n"
+        "r = opanalysis.analyze(torch.mm, torch.ones(4, 8), torch.ones(8, 2))\n"
+        "assert r['flops'] == 2 * 4 * 8 * 2\n"
+        "rec = dryrun.run_cell('mamba2-780m', 'long_500k', verbose=False)\n"
+        "assert rec['status'] == 'ok', rec\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules\n"
+        "               if sys.modules[m] is not None)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_convert_defaults_to_the_card(monkeypatch):

@@ -8,7 +8,9 @@ gradient norms and learning rates are compared as printed (the loss to
 four decimals, the norm to three: the numbers agree to 1e-6, so they
 match within one unit of the last printed digit). Resume: a run cut at
 step 3 and resumed to 6 prints the uninterrupted run's later lines, in
-each package, and the port resumes from the reference's checkpoint.
+each package, and the port resumes from the reference's checkpoint. The
+sharded driver (``--model-parallel``) is held to the reference's in
+``tests/test_torch_mesh_train.py``.
 """
 import re
 
@@ -94,7 +96,10 @@ def test_main_from_the_seed_without_checkpoints(capsys):
 
 
 def test_model_parallel_needs_the_sharding_slice():
-    with pytest.raises(NotImplementedError, match="sharding"):
+    """--model-parallel k trains on launch.mesh's host mesh (the gloo
+    worlds of tests/test_torch_mesh_train.py); a world of one process
+    cannot split its model in two, and says so before any step."""
+    with pytest.raises(ValueError, match="does not divide the world of 1"):
         TT.main(ARGS + ["--steps", "1", "--device", "cpu",
                         "--model-parallel", "2"])
 

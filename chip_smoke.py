@@ -518,12 +518,15 @@ def _ptxas_summary(text):
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"(karras_kernel|spatial_kernel3?ILb[01]E)", m.group(1))
-            kn = re.search(r"(knn_kernel|knn_exclude_kernel)INS_\d+"
-                           r"(Records3|Flat)EN3knn\d+"
+            k = re.search(r"karras_kernel", m.group(1))
+            # the walks bounded at a block of 256 or 512 threads (block_q)
+            sp = re.search(r"(spatial_kernel3?)ILi(\d+)ELb([01])E",
+                           m.group(1))
+            kn = re.search(r"(knn_kernel|knn_exclude_kernel)I(?:Li(\d+)E)?"
+                           r"NS_\d+(Records3|Flat)EN3knn\d+"
                            r"(KeyList|KeyHeap)ILi(\d+)E", m.group(1))
             cb = re.search(r"(callback_kernel3|callback_kernel|ray_kernel3|"
-                           r"ray_kernel|shaped_kernel3).*?"
+                           r"ray_kernel|shaped_kernel3)ILi(\d+)E.*?"
                            r"(CountWithLimit|Counting|MinDistance|"
                            r"CollectILb[01]E|MinWhere)", m.group(1))
             rn = re.search(r"ray_knn_nf_kernelIN3knn\d+(KeyList|KeyHeap)"
@@ -560,15 +563,17 @@ def _ptxas_summary(text):
                   else (f"flash_kernel_tc<{fa.group(2).lstrip('0123456789')}, "
                    f"DH {fa.group(3)}>" if fa.group(1) == "tc"
                    else f"flash_kernel_f32<D {fa.group(3)}>") if fa
-                  else f"{cb.group(1)}<{cb.group(2)}>" if cb
+                  else f"{cb.group(1)}<{cb.group(2)}, {cb.group(3)}>" if cb
+                  else f"{sp.group(1)}<{sp.group(2)}, {sp.group(3)}>" if sp
                   else f"scan_kernel<dim {bf.group(1).replace('n', '-')}, "
                        f"{bf.group(2)} {bf.group(3)}>" if bf
                   else f"merge_kernel<{bm.group(1)} {bm.group(2)}>" if bm
-                  else f"{kn.group(1)}<{kn.group(2)}, {kn.group(3)} "
-                       f"{kn.group(4)}>" if kn
+                  else f"{kn.group(1)}<"
+                       f"{kn.group(2) + ', ' if kn.group(2) else ''}"
+                       f"{kn.group(3)}, {kn.group(4)} {kn.group(5)}>" if kn
                   else f"ray_box3_kernel<T {rb3.group(1)}>"
                   if rb3
-                  else k.group(1) if k else rb.group(0) if rb
+                  else k.group(0) if k else rb.group(0) if rb
                   else m.group(1))
             fn = re.sub(r"ILb([01])E", r"<\1>", re.sub(r"ILi(\d+)E", r"<\1>", fn))
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -727,15 +732,22 @@ def phase_kernels(dev, pts, box_lo, box_hi, qc):
     leaves = int(within.clamp_min(K).sum())
     nbytes = Q * 3 * 4 + tree_bytes(N, 3, False) + Q * K * 8
     b_ms, b_by = bound(nbytes, leaves * leaf_ops(3))
+    # the library yardstick at the row's shape: chunked cdist + topk over
+    # all N points (one chunk first, so the timed call finds its kernels
+    # loaded)
+    _library_knn(qc[:LIB_CHUNK], pts, K)
+    lib = time_ms(lambda: _library_knn(qc, pts, K), reps=1, warmup=0)
     rec["bvh_traverse_knn"] = dict(
         source="src/repro_torch/csrc/bvh_traverse.cu",
         replaces="src/repro/kernels/bvh_traverse.py:301",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib)
     log(f"[kernels] bvh_traverse_knn N={N} Q={Q} k={K}: identical to twin "
         f"(tolerance 0; {swapped} tied indices swapped); {ms:.3f} ms vs twin "
         f"{plain:.1f} ms; the twin's rope walk {stats['visits']} node visits "
         f"({stats['visits'] / Q:.0f} per query); {leaves} leaves within the "
-        f"k-th distance; bound {b_ms:.4f} ms ({b_by})")
+        f"k-th distance; bound {b_ms:.4f} ms ({b_by}); library (cdist + "
+        f"topk, {LIB_CHUNK}-query chunks) {lib:.1f} ms")
 
     # -- the self-kNN case: the points themselves, in the leaf order -------
     sargs = args[:5] + (pts,)
@@ -1556,7 +1568,7 @@ def dbscan_walks(coords, is_core, counts, policy, card):
         log(f"[dbscan] walk {name} N=Q={n}: identical to twin (tolerance "
             f"0); wrapper {ms:.3f} ms; the kernel alone {alone} "
             f"(callback_kernel3<{ep}>: "
-            f"{_registers('bvh_callback', f'callback_kernel3<{ep}>')}, "
+            f"{_registers('bvh_callback', f'callback_kernel3<256, {ep}>')}, "
             f"profiler device time); the wrapper's steps: {steps}; the node "
             f"records written by the build (pack_nodes alone {pack_ms:.3f} "
             f"ms); twin "
@@ -2047,7 +2059,7 @@ def phase_rays(dev, box_lo, box_hi, policy, card):
                 f"the phase")
             if vkind == "triangles" and name == "counting":
                 log(f"[rays] ray_kernel3<Counting> "
-                    f"({_registers('bvh_callback', 'ray_kernel3<Counting>')})")
+                    f"({_registers('bvh_callback', 'ray_kernel3<256, Counting>')})")
                 record = dict(source="src/repro_torch/csrc/bvh_callback.cu",
                               replaces="src/repro/kernels/bvh_callback.py:251",
                               ms=ms, plain_ms=plain, bound_ms=b_ms,
@@ -2453,6 +2465,8 @@ def phase_sanitized(card):
     from repro_torch.kernels import _build
     entry = _build.entries()[("bvh_callback", "bvh_callback_launch")]
     args, reps = [0] * len(entry.argtypes), 20000
+    for i, lo, hi in entry.int_args:
+        args[i] = min(max(0, lo), hi)
     t0 = time.perf_counter()
     for _ in range(reps):
         entry.check_args(args)
@@ -4101,6 +4115,281 @@ def phase_serve(dev, pts, card):
 
 
 # ---------------------------------------------------------------------------
+# slice 21: the engine's route tables on the card
+# ---------------------------------------------------------------------------
+
+ROUTE_N = 1 << 16         # the adversarial tables' index
+ROUTE_Q = 1 << 12
+ROUTE_RADIUS = 0.033      # about 10 of the 2^16 uniform points a sphere
+ROUTE_K = 4
+ROUTE_CAP = 32            # the block sizes' fill width (at most 28 matches)
+ROUTE_BLOCKS = (128, 256, 512)
+# the reference's RouteRule defaults (repro.core.route_table), which its
+# adversarial tables keep where they set nothing
+REF_RULE = dict(bf_max_work=1 << 22, pallas_min_queries=128,
+                pallas_min_leaves=256, pallas_max_nodes=1 << 17,
+                pallas_max_capacity=4096, block_q=256)
+# tests/test_build_conformance.py's adversarial tables: the defaults,
+# everything to brute force, everything to the kernels at an absurd block,
+# everything to the loop, a kernel that never fits, no buffer width
+ADVERSARIAL = (
+    {}, {"bf_max_work": 1 << 40},
+    {"bf_max_work": 0, "pallas_min_queries": 1, "pallas_min_leaves": 1,
+     "pallas_max_nodes": 1 << 30, "block_q": 8},
+    {"bf_max_work": 0, "pallas_min_queries": 1 << 30},
+    {"pallas_max_nodes": 1},
+    {"bf_max_work": 0, "pallas_max_capacity": 0})
+
+
+def _csr_keys(res, n):
+    """The sorted (query, value) pairs of a CSR result, as q * n + index."""
+    import torch
+    cnt = res.offsets.diff().to(torch.int64)
+    qid = torch.repeat_interleave(torch.arange(cnt.shape[0],
+                                               device=cnt.device), cnt)
+    return torch.sort(qid * n + res.indices.to(torch.int64))[0]
+
+
+def _route_results(index, engine, spheres, knn):
+    """(routes, results, seconds) of count, CSR, kNN and a counting
+    callback through `index`'s table."""
+    import torch
+    import repro_torch as rt
+    t0 = time.perf_counter()
+    cb, s0 = rt.callbacks.counting()
+    out = dict(count=index.count(spheres),
+               csr=_csr_keys(index.query(spheres), index.size()),
+               knn=index.query(knn),
+               callback=index.query(spheres, callback=(cb, s0)))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    from repro_torch.core.index import _bcast_state
+    pol = index.policy
+    state = _bcast_state(s0, len(spheres), index.device)
+    routes = dict(spatial=engine.route_spatial(index, spheres, policy=pol),
+                  knn=engine.route_knn(index, knn, policy=pol),
+                  callback=engine.route_callback(index, spheres, cb, state,
+                                                 policy=pol))
+    return routes, out, secs
+
+
+def phase_route(dev, pts, qc, card):
+    """The route tables on the card: the tuner's quick table, loaded the
+    three ways; the reference's adversarial tables and the tuned one
+    change routes, never results; both build engines give one tree; the
+    walks at 128, 256 and 512 threads a block give one result; the
+    reference's ROUTE_TABLE.json is ignored with a RuntimeWarning."""
+    import shutil
+    import tempfile
+    import warnings
+    import torch
+    import repro_torch as rt
+    from repro_torch.core import engine as E
+    from repro_torch.core import geometry as G
+    from repro_torch.core import lbvh
+    from repro_torch.core import route_table as RT
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import lbvh_build as KB
+    from repro_torch.launch import autotune as A
+
+    t_phase = time.perf_counter()
+    env = os.environ.get("REPRO_TORCH_ROUTE_TABLE")
+    tmp = tempfile.mkdtemp(prefix="route-")
+    os.environ["REPRO_TORCH_ROUTE_TABLE"] = "off"
+    RT._reset_cache()
+    try:
+        # (1) the tuner's quick grid, into a temporary directory
+        t0 = time.perf_counter()
+        table = A.tune(quick=True, log=lambda m: log(f"[route] tuner {m}"))
+        path = os.path.join(tmp, "ROUTE_TABLE_TORCH.json")
+        table.save(path)
+        tune_s = time.perf_counter() - t0
+        fp = table.fingerprint
+        check(fp.get("backend") == "cuda" and "torch" in fp
+              and fp.get("device_kind") == torch.cuda.get_device_name(0),
+              f"[route] the tuned table's fingerprint does not name the "
+              f"card: {fp}")
+        check(A.validate(path) == 0, "[route] the tuned table is invalid")
+        for line in A.describe(table):
+            log(f"[route] tuned rule {line}")
+        log(f"[route] tune(quick=True) {tune_s:.1f} s, fingerprint "
+            f"{json.dumps(fp)}")
+
+        # (2) the three ways a table comes in, each routing by it: the
+        # tuned table's own choice, and a table of this card that sends
+        # everything to brute force
+        probe = rt.BVH(G.Points(pts[:ROUTE_N]),
+                       policy=rt.ExecutionPolicy(device=dev))
+        spheres = rt.intersects(G.Spheres(qc[:ROUTE_Q], torch.full(
+            (ROUTE_Q,), ROUTE_RADIUS, device=dev)))
+        rule = table.rule("spatial")
+        want_tuned = (
+            "bruteforce" if ROUTE_N * ROUTE_Q <= rule.bf_max_work
+            else "kernel" if (ROUTE_Q >= rule.pallas_min_queries
+                              and ROUTE_N >= rule.pallas_min_leaves
+                              and 2 * ROUTE_N - 1 <= rule.pallas_max_nodes)
+            else "loop")
+        bf_path = os.path.join(tmp, "everything_bf.json")
+        RT.RouteTable(rules={"default": RT.RouteRule(bf_max_work=1 << 40)},
+                      fingerprint=RT.hardware_fingerprint()).save(bf_path)
+        for label, p, want in (("tuned", path, want_tuned),
+                               ("brute force", bf_path, "bruteforce")):
+            by_config = E.QueryEngine(E.EngineConfig(route_table=p))
+            check(by_config.table().rules == RT.RouteTable.load(p).rules,
+                  f"[route] EngineConfig(route_table=path) did not load {p}")
+            got = [by_config.route_spatial(probe, spheres),
+                   E.QueryEngine().route_spatial(
+                       probe, spheres, policy=rt.ExecutionPolicy(
+                           device=dev, route_table=p))]
+            os.environ["REPRO_TORCH_ROUTE_TABLE"] = p
+            RT._reset_cache()
+            got.append(E.QueryEngine().route_spatial(probe, spheres))
+            os.environ["REPRO_TORCH_ROUTE_TABLE"] = "off"
+            RT._reset_cache()
+            check(got == [want] * 3, f"[route] the {label} table routes "
+                  f"{got} through EngineConfig, ExecutionPolicy and "
+                  f"$REPRO_TORCH_ROUTE_TABLE, not {want}")
+            log(f"[route] the {label} table through EngineConfig("
+                f"route_table=path), ExecutionPolicy(route_table=path) and "
+                f"$REPRO_TORCH_ROUTE_TABLE: N={ROUTE_N} Q={ROUTE_Q} -> {want}"
+                f" all three")
+
+        # (3) the reference's adversarial tables and the tuned one over a
+        # 2^16-point index: the loop route's results are the baseline
+        knn = rt.nearest(G.Points(qc[:ROUTE_Q]), k=ROUTE_K)
+        tables = [(f"adversarial {i}", RT.RouteTable.single(
+            **dict(REF_RULE, **o))) for i, o in enumerate(ADVERSARIAL)]
+        tables.append(("tuned", table))
+        base = None
+        seen = {"spatial": set(), "knn": set(), "callback": set()}
+        d2_tol = 4 * 2.0 ** -23 * 6     # brute force's expansion (check_knn)
+        order = [3] + [i for i in range(len(tables)) if i != 3]
+        for i in order:
+            label, tbl = tables[i]
+            engine = E.QueryEngine()
+            index = rt.BVH(G.Points(pts[:ROUTE_N]), policy=rt.ExecutionPolicy(
+                device=dev, engine=engine, route_table=tbl))
+            routes, out, secs = _route_results(index, engine, spheres, knn)
+            for op, r in routes.items():
+                seen[op].add(r)
+            if base is None:
+                check(set(routes.values()) == {"loop"},
+                      f"[route] {label} did not take the loop: {routes}")
+                base = out
+            check(torch.equal(out["count"], base["count"]),
+                  f"[route] {label}: counts differ from the loop route's")
+            check(torch.equal(out["csr"], base["csr"]),
+                  f"[route] {label}: CSR sets differ from the loop route's")
+            check(torch.equal(out["callback"], base["callback"]),
+                  f"[route] {label}: callback states differ")
+            d, bd = out["knn"].distances, base["knn"].distances
+            if routes["knn"] == "bruteforce":
+                gap = float((d.double() ** 2 - bd.double() ** 2).abs().max())
+                check(gap <= d2_tol, f"[route] {label}: brute-force kNN off "
+                      f"the walk's beyond the expansion's error ({gap:.3g})")
+                knn_note = f"kNN within the expansion's error ({gap:.3g})"
+            else:
+                check(torch.equal(d, bd) and torch.equal(
+                    out["knn"].indices, base["knn"].indices),
+                    f"[route] {label}: kNN differs from the loop route's")
+                knn_note = "kNN equal"
+            log(f"[route] {label}: routes {json.dumps(routes)}; counts, CSR "
+                f"sets and callback states equal to the loop route's, "
+                f"{knn_note}; {secs:.2f} s")
+        check(all(len(seen[op]) >= 2 for op in seen)
+              and seen["spatial"] >= {"bruteforce", "kernel", "loop"},
+              f"[route] the tables did not cover the routes: {seen}")
+
+        # (4) both build engines at the main size: one tree, Karras for
+        # "pallas" only
+        boxes = G.Boxes(pts, pts)
+        KB.karras_ranges.launches = 0
+        fused = lbvh.build(boxes, engine="pallas")
+        torch.cuda.synchronize()
+        k_fused = KB.karras_ranges.launches
+        plain = lbvh.build(boxes, engine="ref")
+        fixpoint = lbvh.build(boxes, engine="ref", refit="iterative")
+        torch.cuda.synchronize()
+        k_plain = KB.karras_ranges.launches - k_fused
+        same_tree(plain, fused, "[route] the ref build")
+        same_tree(fixpoint, fused, "[route] the ref build, refit=iterative")
+        check(k_fused == 1 and k_plain == 0,
+              f"[route] Karras launches: pallas {k_fused}, ref {k_plain}")
+        b_ms = {e: time_ms(lambda: lbvh.build(boxes, engine=e), reps=reps)
+                for e, reps in (("pallas", 10), ("ref", 2))}
+        log(f"[route] build N={N}: engine pallas and ref (refit rmq and "
+            f"iterative) give the same tree bit for bit (NaN by place); "
+            f"Karras launched {k_fused} / {k_plain}; pallas "
+            f"{b_ms['pallas']:.3f} ms, ref {b_ms['ref']:.3f} ms")
+
+        # (5) block_q on the main path's walks, N = 2^20, Q = 2^17
+        index = rt.BVH(G.Points(pts), policy=rt.ExecutionPolicy(device=dev))
+        eng = E.QueryEngine()
+        main_spheres = rt.intersects(G.Spheres(qc, torch.full(
+            (Q,), RADIUS, device=dev)))
+        main_knn = rt.nearest(G.Points(qc), k=K)
+        cb, _ = rt.callbacks.counting()
+        s0 = torch.zeros((Q,), dtype=torch.int32, device=dev)
+        runs = {}
+        for bq in ROUTE_BLOCKS:
+            pol = index.policy.override(
+                route_table=RT.RouteTable.single(block_q=bq))
+            walks = {
+                "spatial": lambda: eng.kernel_fill(index, main_spheres,
+                                                   ROUTE_CAP, policy=pol),
+                "knn": lambda: eng.kernel_knn(index, main_knn, policy=pol),
+                "callback": lambda: eng.kernel_callback(
+                    index, main_spheres, cb, s0, policy=pol)}
+            runs[bq] = {w: (fn(), time_ms(fn, reps=10))
+                        for w, fn in walks.items()}
+        for bq in ROUTE_BLOCKS:
+            for w, (got, _) in runs[bq].items():
+                want = runs[256][w][0]
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"[route] the {w} walk at block_q {bq} differs from "
+                      f"256")
+        for w in ("spatial", "knn", "callback"):
+            log(f"[route] {w} walk N={N} Q={Q}: block_q " + ", ".join(
+                f"{bq} {runs[bq][w][1]:.4f} ms" for bq in ROUTE_BLOCKS)
+                + " (CUDA events, mean of 10); results bit-identical to 256's")
+        for src in ("bvh_traverse", "bvh_callback"):
+            rows = [r for r in _ptxas_summary(_build.build_log(src))
+                    if "<512," in r[0]]
+            check(rows, f"[route] {src}: no instance bounded at 512")
+            log(f"[route] {src}: {len(rows)} instances bounded at 512 "
+                f"threads, at most {max((r[1] for r in rows), default=0)} "
+                f"registers, "
+                f"{sum(r[2] or 0 for r in rows)} B spill stores in all")
+
+        # (6) the reference's table as the ambient one: ignored, with a
+        # RuntimeWarning; routing falls back to the defaults
+        os.environ["REPRO_TORCH_ROUTE_TABLE"] = os.path.join(
+            ROOT, "ROUTE_TABLE.json")
+        RT._reset_cache()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ambient = RT.default_route_table()
+            fallback = E.QueryEngine().table()
+        check(ambient is None and fallback is E._FALLBACK_TABLE
+              and any(issubclass(w.category, RuntimeWarning)
+                      for w in caught),
+              "[route] the reference's ROUTE_TABLE.json was not ignored")
+        log(f"[route] $REPRO_TORCH_ROUTE_TABLE=ROUTE_TABLE.json (the "
+            f"reference's, fingerprint jax/cpu): ignored with a "
+            f"RuntimeWarning; the engine routes by the built-in defaults")
+    finally:
+        if env is None:
+            os.environ.pop("REPRO_TORCH_ROUTE_TABLE", None)
+        else:
+            os.environ["REPRO_TORCH_ROUTE_TABLE"] = env
+        RT._reset_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[route] phase {time.perf_counter() - t_phase:.1f} s  [{card}]")
+
+
+# ---------------------------------------------------------------------------
 # slice 13: the remaining algorithms (EMST over Nearest.exclude, MLS)
 # ---------------------------------------------------------------------------
 
@@ -5046,11 +5335,11 @@ def phase_geometry(dev, policy, card, counting=None):
             f"{plain:.1f} ms, kernel on those queries "
             f"{kernel_ms_[kind, name]:.3f} ms  [{card}]")
     log(f"[geometry] shaped_kernel3<Counting> "
-        f"({_registers('bvh_callback', 'shaped_kernel3<Counting>')}), "
+        f"({_registers('bvh_callback', 'shaped_kernel3<256, Counting>')}), "
         f"shaped_kernel3<Collect<0>> "
-        f"({_registers('bvh_callback', 'shaped_kernel3<Collect<0>>')}), "
+        f"({_registers('bvh_callback', 'shaped_kernel3<256, Collect<0>>')}), "
         f"callback_kernel3<Counting> "
-        f"({_registers('bvh_callback', 'callback_kernel3<Counting>')}); "
+        f"({_registers('bvh_callback', 'callback_kernel3<256, Counting>')}); "
         f"fine_nf_kernel<Records3, KeyList 16> "
         f"({_registers('fine_knn', 'fine_nf_kernel<Records3, KeyList 16>')}), "
         f"<Records3, KeyList 1> "
@@ -5995,6 +6284,7 @@ def main():
     launches["bvh_traverse_knn_exclude"] = \
         emst_launches["bvh_traverse_knn_exclude"]
     phase_mls(dev, pts, qc, policy, card)
+    phase_route(dev, pts, qc, card)
     ops_launches, codes, knn_out = phase_ops_main(pts, qc)
     # morton64: the builds' launches on the main path and the op's
     launches["morton64"] += ops_launches["morton64"]

@@ -276,7 +276,7 @@ def knn_phase(card, libs):
             err = fn(*(a.data_ptr() for a in tree),
                      None if records is None else records.data_ptr(),
                      None if order is None else order.data_ptr(),
-                     queries.data_ptr(), n, q, 3, k, d.data_ptr(),
+                     queries.data_ptr(), n, q, 3, k, TT.BLOCK_Q, d.data_ptr(),
                      i.data_ptr(), _stream(dev))
             if err:
                 raise SystemExit(f"knn_variants: launch refused ({err})")
@@ -448,7 +448,7 @@ def main():
     bf_src = open(os.path.join(_build.CSRC, "bruteforce_knn.cu")).read()
     sources = {**walk_sources(walk_src), **bf_sources(bf_src)}
     _build.build_all(("bvh_traverse", "bruteforce_knn", "morton"))
-    libs = WV.build(sources, show=("knn_kernel<Records3, KeyList 16>",
+    libs = WV.build(sources, show=("knn_kernel<256, Records3, KeyList 16>",
                                    "scan_kernel<dim 3, KeyList 16>"),
                     out=OUT)
     print(f"[variants] built in {time.perf_counter() - t0:.1f} s", flush=True)

@@ -576,9 +576,9 @@ def walk_phase(card, libs):
 
     parent = None
     if "parent" in libs:
-        # the parent's entry: no value-records argument
+        # the parent's entry: no value-records and no threads argument
         parent = WV.entry(libs["parent"], "bvh_callback_launch",
-                          KC._ARGS[:7] + KC._ARGS[8:])
+                          KC._ARGS[:7] + KC._ARGS[8:26] + KC._ARGS[27:])
 
     a, b, c, o, d = smoke.make_soup(dev)
     pts, box_lo, box_hi, _ = smoke.make_data(dev)
@@ -622,6 +622,7 @@ def walk_phase(card, libs):
                                for x in (va, vb, vc, vr)),
                              mp.data_ptr(), n, r, 3, 4, kind, epilogue,
                              COLLECT_CAP if epilogue == 4 else 0, 0,
+                             *((KC.BLOCK_Q,) if slot else ()),
                              *(x.data_ptr() for x in out),
                              *([None] * (3 - len(out))), None, _stream(dev))
                     if err:
@@ -684,7 +685,7 @@ def main():
         sources["parent"] = open(os.path.join(
             parent_dir, "src", "repro_torch", "csrc", "bvh_callback.cu")).read()
     _build.build_all(("bvh_callback", "ray_knn", "karras"))
-    libs = WV.build(sources, show=("ray_kernel3<Counting",
+    libs = WV.build(sources, show=("ray_kernel3<256, Counting",
                                    "ray_kernel<Counting",
                                    "ray_knn_kernel<Records3, LeafTriangle3",
                                    "nf_kernel"), out=OUT)

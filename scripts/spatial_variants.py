@@ -241,8 +241,8 @@ def spatial_phase(card, libs):
                 err = fn(*tree, None if records is None else records.data_ptr(),
                          None if order is None else order.data_ptr(),
                          queries.data_ptr(), queries.data_ptr(), r.data_ptr(),
-                         None, n, q, 3, cap, int(fine), counts.data_ptr(),
-                         buf.data_ptr(), _stream(dev))
+                         None, n, q, 3, cap, int(fine), TT.BLOCK_Q,
+                         counts.data_ptr(), buf.data_ptr(), _stream(dev))
             if err:
                 raise SystemExit(f"spatial_variants: launch refused ({err})")
             return counts, buf

@@ -187,7 +187,7 @@ def ray_box_sources(src):
     }
 
 
-def build(sources, show=("callback_kernel3<MinWhere", "ray_box3_kernel"),
+def build(sources, show=("callback_kernel3<256, MinWhere", "ray_box3_kernel"),
           out=OUT):
     """{name: ctypes library}, every nvcc started at once into `out`;
     prints the registers and spills of the kernels whose names start with
@@ -394,7 +394,8 @@ def callback_phase(card, libs, main_cb):
                          None, None if order is None else order.data_ptr(),
                          centres.data_ptr(), None, radii.data_ptr(),
                          coords.data_ptr(), None, None, None, mp.data_ptr(),
-                         n, q, 3, 2, 0, epilogue, param, 0, out.data_ptr(),
+                         n, q, 3, 2, 0, epilogue, param, 0, KC.BLOCK_Q,
+                         out.data_ptr(),
                          None, None, None if w is None else w.data_ptr(),
                          _stream(dev))
                 if err:

@@ -184,8 +184,11 @@ def strict(echo=print) -> list[Finding]:
                 "strict run", hint="drive it in analysis.smoke"))
             continue
         ints = [i for i, _, hi in entry.int_args if hi < (1 << 31)]
+        base = [0] * len(entry.argtypes)
+        for i, lo, hi in entry.int_args:     # every other int in range
+            base[i] = min(max(0, lo), hi)
         for i in ints:
-            args = [0] * len(entry.argtypes)
+            args = list(base)
             args[i] = 1 << 31
             try:
                 entry.check_args(args)

@@ -19,14 +19,14 @@ from .lbvh import LBVH, build, refit, refit_with_quality, sah_cost
 from .predicates import (RayIntersect, RayNearest, RayOrderedIntersect,
                          intersects, nearest)
 from .raytracing import cast_intersect, cast_nearest, cast_ordered
-from .route_table import RouteRule, RouteTable
+from .route_table import RouteRule, RouteTable, hardware_fingerprint
 
 __all__ = [
     "Index", "ExecutionPolicy", "QueryResult", "BVH", "BruteForce",
     "DistributedTree", "LBVH",
     "build", "refit", "refit_with_quality", "sah_cost", "QueryEngine",
     "EngineConfig", "default_engine", "set_default_engine", "RouteRule",
-    "RouteTable", "intersects", "nearest",
+    "RouteTable", "hardware_fingerprint", "intersects", "nearest",
     "RayNearest", "RayIntersect", "RayOrderedIntersect", "dbscan", "emst",
     "mls_interpolate", "cast_nearest", "cast_intersect", "cast_ordered",
     "access", "callbacks", "comm", "engine", "geometry", "morton", "predicates",

@@ -47,7 +47,11 @@ __all__ = ["BVH"]
 class BVH(Index):
     def __init__(self, values, indexable_getter=default_indexable_getter,
                  *_legacy, policy: ExecutionPolicy | None = None, engine=None,
-                 bits: int = 64):
+                 bits: int = 64, refit: str = "rmq",
+                 build_engine: str | None = None):
+        """`bits`, `refit` and `build_engine` (which overrides the
+        policy's) pass to ``lbvh.build``: the build engine's choice and
+        the refit's change no bit of the tree."""
         if _is_legacy_space(values):
             _warn_deprecated(
                 "BVH.__init__", "BVH(space, values, ...) is deprecated; "
@@ -61,8 +65,11 @@ class BVH(Index):
             raise TypeError("BVH() takes at most 2 positional arguments "
                             "(values, indexable_getter)")
         self._init_common(values, indexable_getter, policy, engine)
+        if build_engine is not None:
+            self.policy = self.policy.override(build_engine=build_engine)
         if self._n >= 2:
-            self.tree = lbvh.build(self._boxes, bits=bits)
+            self.tree = lbvh.build(self._boxes, bits=bits, refit=refit,
+                                   engine=self.policy.build_engine or "auto")
         else:
             self.tree = None  # degenerate; queries take the linear scan
 
@@ -151,7 +158,7 @@ class BVH(Index):
             return _degenerate_callback(self.values, self._n, predicates,
                                         callback, state0, self.device)
         return pol.resolve_engine().run_callback(self, predicates, callback,
-                                                 state0)
+                                                 state0, policy=pol)
 
     def _count_impl(self, predicates, pol):
         if self.tree is not None:
@@ -160,7 +167,7 @@ class BVH(Index):
             if route == E.ROUTE_BRUTEFORCE:
                 return self._brute()._count_impl(predicates, pol)
             if route == E.ROUTE_KERNEL:
-                return engine.kernel_count(self, predicates)
+                return engine.kernel_count(self, predicates, policy=pol)
         cb, s0 = CB.counting()
         return self._query_callback_impl(
             predicates, cb, _bcast_state(s0, len(predicates), self.device), pol)
@@ -171,11 +178,13 @@ class BVH(Index):
         route-independent, the buffer order is not)."""
         if self.tree is not None:
             engine = pol.resolve_engine()
-            route = engine.route_spatial(self, predicates, policy=pol)
+            route = engine.route_spatial(self, predicates, capacity,
+                                         policy=pol)
             if route == E.ROUTE_BRUTEFORCE:
                 return self._brute()._fill_impl(predicates, capacity, pol)
             if route == E.ROUTE_KERNEL:
-                return engine.kernel_fill(self, predicates, capacity)
+                return engine.kernel_fill(self, predicates, capacity,
+                                          policy=pol)
         cb, s0 = CB.collect_hits(capacity)
         count, idxs, _ = self._query_callback_impl(
             predicates, cb, _bcast_state(s0, len(predicates), self.device), pol)
@@ -201,7 +210,7 @@ class BVH(Index):
         if route == E.ROUTE_BRUTEFORCE:
             return self._brute()._knn_impl(predicates, pol)
         if route == E.ROUTE_KERNEL:
-            return engine.kernel_knn(self, predicates)
+            return engine.kernel_knn(self, predicates, policy=pol)
         return T.traverse_knn(self.tree, self.values, predicates,
                               predicates.k)
 

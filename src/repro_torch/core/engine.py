@@ -20,10 +20,19 @@ Routing is decided in Python from N, Q, the predicate kind, the value
 geometry and the callback; a kernel failure raises and never reroutes.
 ``callback_batches`` counts the callback batches each route served.
 
+Thresholds come from a :class:`~repro_torch.core.route_table.RouteTable`
+in the reference's lookup order: the policy's table, the engine config's
+(a table or a path), ``force`` / ``REPRO_ENGINE_FORCE`` inside
+``_pick``, the port's persisted table (``ROUTE_TABLE_TORCH.json``, which
+``python -m repro_torch.launch.autotune`` writes), then the built-in
+defaults, which route every batch as the port routed it before tables
+were read. A rule's ``block_q`` is the threads a block of the spatial,
+kNN and callback walks.
+
 The serving stack dispatches every bucket through the executable cache
 (``exec_spatial``, ``exec_knn``, ``exec_ray_nearest``): one entry per
 (route, op, static parameters, bucket shape, index shape, getter), LRU-
-bounded by ``MAX_EXECUTABLES``. An entry is a closure that binds the
+bounded by ``EngineConfig.max_executables``. An entry is a closure that binds the
 bucket's static parameters (its route, capacity or k); making one is the
 port's "trace", so ``EngineStats.jit_traces`` rises with
 ``cache_misses`` and keeps the reference's metric names. The kernel
@@ -37,6 +46,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 import threading
 
 import torch
@@ -65,29 +75,98 @@ ROUTE_BRUTEFORCE = "bruteforce"
 ROUTE_KERNEL = "kernel"
 ROUTE_LOOP = "loop"
 
+#: old EngineConfig crossover field -> RouteRule field (deprecation shims)
+_LEGACY_CROSSOVERS = {
+    "brute_force_max_work": "bf_max_work",
+    "pallas_min_queries": "pallas_min_queries",
+    "pallas_min_leaves": "pallas_min_leaves",
+    "pallas_max_nodes": "pallas_max_nodes",
+    "pallas_max_capacity": "pallas_max_capacity",
+}
+
 _FALLBACK_TABLE = RT.RouteTable.default()
 
-#: LRU bound of the exec_* executable cache, so a service whose leaf count
-#: changes across rebuilds does not keep one entry per past N
-MAX_EXECUTABLES = 256
+ROUTES = (ROUTE_BRUTEFORCE, ROUTE_KERNEL, ROUTE_LOOP)
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """route_table: rules for every routing decision through this engine
-        (an ExecutionPolicy table overrides it per call or index); None
-        means the built-in defaults.
+    """Engine-level knobs; the thresholds live in a RouteTable.
+
+    route_table: a RouteTable, or a path to a persisted one (loaded and
+        validated here), for every routing decision through this engine;
+        an ExecutionPolicy table overrides it per call or index. None
+        defers to the port's persisted table, then to the built-in
+        defaults.
+    use_kernels: master switch for the traversal kernels (the reference's
+        ``use_pallas``): off, every batch the kernels would take goes to
+        brute force or the loop walk.
     force: "bruteforce" | "kernel" pins every batch the route can express
         to it (other batches take the normal choice; brute force runs no
-        callbacks); "loop" pins every batch to the general walk.
+        callbacks); "loop" pins every batch to the general walk. The
+        environment's ``REPRO_ENGINE_FORCE`` sets it where it is None
+        (read here; it beats every table); there the reference's
+        "pallas" names "kernel".
+    max_executables: LRU bound of the exec_* cache, so a service whose
+        leaf count changes across rebuilds keeps no entry per past N.
+
+    brute_force_max_work / pallas_min_queries / pallas_min_leaves /
+    pallas_max_nodes / pallas_max_capacity: DEPRECATED; pass
+    ``route_table=RouteTable.single(bf_max_work=..., ...)``. Set, they
+    warn once and make a one-rule table from the given table's default
+    rule (or the built-in rule).
     """
-    route_table: RT.RouteTable | None = None
+    route_table: RT.RouteTable | str | os.PathLike | None = None
+    use_kernels: bool = True
     force: str | None = None
+    max_executables: int = 256
+    brute_force_max_work: int | None = None
+    pallas_min_queries: int | None = None
+    pallas_min_leaves: int | None = None
+    pallas_max_nodes: int | None = None
+    pallas_max_capacity: int | None = None
 
     def __post_init__(self):
-        routes = (ROUTE_BRUTEFORCE, ROUTE_KERNEL, ROUTE_LOOP)
-        if self.force is not None and self.force not in routes:
-            raise ValueError(f"force={self.force!r} is not one of {routes}")
+        if self.force is not None and self.force not in ROUTES:
+            raise ValueError(f"force={self.force!r} is not one of {ROUTES}")
+        env = os.environ.get("REPRO_ENGINE_FORCE")
+        if self.force is None and env:
+            # the variable is the reference's too: its "pallas" is "kernel"
+            route = ROUTE_KERNEL if env == "pallas" else env
+            if route not in ROUTES:
+                raise ValueError(
+                    f"REPRO_ENGINE_FORCE={env!r} is not one of {ROUTES}")
+            object.__setattr__(self, "force", route)
+        if isinstance(self.route_table, (str, os.PathLike)):
+            object.__setattr__(self, "route_table", RT.RouteTable.load(
+                os.fspath(self.route_table)))
+        legacy = {name: getattr(self, name) for name in _LEGACY_CROSSOVERS
+                  if getattr(self, name) is not None}
+        if legacy:
+            from .index import _warn_deprecated
+            _warn_deprecated(
+                "EngineConfig.crossovers",
+                f"EngineConfig crossover fields ({', '.join(sorted(legacy))})"
+                " are deprecated; pass route_table=RouteTable.single(...) or "
+                "tune one with `python -m repro_torch.launch.autotune`")
+            base = (self.route_table.rule("default")
+                    if isinstance(self.route_table, RT.RouteTable)
+                    else RT.RouteRule())
+            rule = base.replace(**{_LEGACY_CROSSOVERS[k]: int(v)
+                                   for k, v in legacy.items()})
+            object.__setattr__(self, "route_table", RT.RouteTable(
+                rules={"default": rule}, source="synthesized"))
+
+
+def _state_width(state0) -> int:
+    """The widest per-query state row (elements) over the state's leaves
+    (tensors, or tuples and lists of them): a callback's buffer width."""
+    if isinstance(state0, (tuple, list)):
+        return max((_state_width(s) for s in state0), default=1)
+    width = 1
+    for s in torch.as_tensor(state0).shape[1:]:
+        width *= int(s)
+    return width
 
 
 def _spatial_rep(predicates):
@@ -203,10 +282,13 @@ class QueryEngine:
         self.callback_batches = {ROUTE_KERNEL: 0, ROUTE_LOOP: 0}
 
     def table(self, policy=None) -> RT.RouteTable:
-        """Explicit policy table > engine-config table > defaults."""
+        """Explicit policy table > engine-config table > the persisted
+        table > built-in defaults (``force`` is checked in ``_pick``)."""
         t = getattr(policy, "route_table", None)
         if t is None:
             t = self.config.route_table
+        if t is None:
+            t = RT.default_route_table()
         return t if t is not None else _FALLBACK_TABLE
 
     def _rule(self, op: str, bvh, policy) -> RT.RouteRule:
@@ -214,15 +296,24 @@ class QueryEngine:
             policy = getattr(bvh, "policy", None)
         return self.table(policy).rule(op)
 
+    def _admits(self, bvh, q: int, rule: RT.RouteRule, width=None) -> bool:
+        """The rule's caps (a kernel walks the tree of 2N - 1 nodes and
+        writes `width` slots a query) and the master switch."""
+        return (self.config.use_kernels and bvh.tree is not None and q > 0
+                and 2 * bvh.size() - 1 <= rule.pallas_max_nodes
+                and (width is None or width <= rule.pallas_max_capacity))
+
     # -- routing -----------------------------------------------------------
-    def route_spatial(self, bvh, predicates, *, policy=None) -> str:
-        """Route an Intersects batch for count or fill. Ray batches never
-        take brute force or the spatial kernel: they walk, with the
-        counting and collect_hits callbacks, as in the reference."""
+    def route_spatial(self, bvh, predicates, capacity: int | None = None, *,
+                      policy=None) -> str:
+        """Route an Intersects batch for count (`capacity` None) or fill.
+        Ray batches never take brute force or the spatial kernel: they
+        walk, with the counting and collect_hits callbacks, as in the
+        reference."""
         rule = self._rule("spatial", bvh, policy)
         q = len(predicates)
         bf_ok = isinstance(predicates, P.Intersects)
-        k_ok = (bvh.tree is not None and q > 0 and bvh.kernel_values_ok
+        k_ok = (self._admits(bvh, q, rule, capacity) and bvh.kernel_values_ok
                 and bvh.tree.dim <= MAX_DIM
                 and _spatial_rep(predicates) is not None)
         return self._pick(bvh.size(), q, bf_ok, k_ok, rule)
@@ -233,7 +324,8 @@ class QueryEngine:
         Triangles, Segments, Tetrahedra or KDOPs values) under the default
         getter, and a RayNearest batch the ray kNN kernel (Points, Boxes,
         Spheres or 3-D Triangles values), when the tree exists, Q > 0, k <=
-        KNN_MAX_K and dim <= MAX_DIM; else the loop walk, or for a Nearest
+        KNN_MAX_K and dim <= MAX_DIM and the "knn" rule admits it (its k
+        within pallas_max_capacity); else the loop walk, or for a Nearest
         batch brute force below the crossover; a RayNearest batch never takes
         brute force. A ``Nearest.exclude`` batch is not routed: ``BVH``
         answers it with the exclusion walk, and no cached entry is keyed on
@@ -255,27 +347,37 @@ class QueryEngine:
                          and type(bvh.values) in RAY_TARGETS
                          and (type(bvh.values) is not G.Triangles
                               or bvh.values.dim == 3))
-        k_ok = (bvh.tree is not None and q > 0
+        k_ok = (self._admits(bvh, q, rule, predicates.k)
                 and values_ok and bvh.tree.dim <= MAX_DIM
                 and predicates.k <= KNN_MAX_K)
         return self._pick(bvh.size(), q, bf_ok, k_ok, rule)
 
-    def route_callback(self, bvh, predicates, callback) -> str:
+    def route_callback(self, bvh, predicates, callback, state0=None, *,
+                       policy=None) -> str:
         """Route a callback batch: the fused kernel when it can run the
         callback (an epilogue; Intersects of Points, Boxes, Spheres,
         Triangles, Segments or Tetrahedra over values of any geometry but
         Rays, or a ray predicate over Points, Boxes, Spheres or 3-D
-        Triangles, under the default getter; dim <= MAX_DIM; Q > 0), else
-        the loop. Brute force never runs callbacks, and no crossover puts a
-        batch the kernel can run on the loop, so no route rule is read. A
-        kernel batch whose dtypes or state layout the kernel cannot take
-        raises there; it is not rerouted."""
-        if self.config.force == ROUTE_LOOP:
-            return ROUTE_LOOP
-        ok = (bvh.tree is not None and len(predicates) > 0
-              and bvh.kernel_callback_ok
+        Triangles, under the default getter; dim <= MAX_DIM; Q > 0) and the
+        "callback" rule admits it (the widest state row, where `state0` is
+        given, within pallas_max_capacity; at least pallas_min_queries
+        queries and pallas_min_leaves leaves), else the loop. Brute force
+        never runs callbacks, so a brute-force force takes the rule's
+        choice. A kernel batch whose dtypes or state layout the kernel
+        cannot take raises there; it is not rerouted."""
+        rule = self._rule("callback", bvh, policy)
+        n, q = bvh.size(), len(predicates)
+        width = None if state0 is None else _state_width(state0)
+        ok = (self._admits(bvh, q, rule, width) and bvh.kernel_callback_ok
               and expressible(bvh.values, predicates, callback))
-        return ROUTE_KERNEL if ok else ROUTE_LOOP
+        force = self.config.force
+        if force == ROUTE_KERNEL:
+            return ROUTE_KERNEL if ok else ROUTE_LOOP
+        if force == ROUTE_LOOP:
+            return ROUTE_LOOP
+        if ok and q >= rule.pallas_min_queries and n >= rule.pallas_min_leaves:
+            return ROUTE_KERNEL
+        return ROUTE_LOOP
 
     def _pick(self, n: int, q: int, bf_ok: bool, kernel_ok: bool,
               rule: RT.RouteRule) -> str:
@@ -288,21 +390,23 @@ class QueryEngine:
             return ROUTE_LOOP
         if bf_ok and n * q <= rule.bf_max_work:
             return ROUTE_BRUTEFORCE
-        if kernel_ok:
+        if (kernel_ok and q >= rule.pallas_min_queries
+                and n >= rule.pallas_min_leaves):
             return ROUTE_KERNEL
         return ROUTE_LOOP
 
     # -- kernel execution --------------------------------------------------
-    def kernel_count(self, bvh, predicates):
+    def kernel_count(self, bvh, predicates, *, policy=None):
         """(Q,) int32 match counts through the spatial kernel."""
-        counts, _ = self.kernel_fill(bvh, predicates, 1)
+        counts, _ = self.kernel_fill(bvh, predicates, 1, policy=policy)
         return counts
 
-    def kernel_fill(self, bvh, predicates, capacity: int):
+    def kernel_fill(self, bvh, predicates, capacity: int, *, policy=None):
         """(counts, idx_buf): full counts plus the first `capacity` matched
         indices per query in traversal order; on the card a 3-D tree's
         kept node records, and the leaf order when the queries are centred
-        on the indexed points."""
+        on the indexed points; the "spatial" rule's block_q threads a
+        block."""
         q_lo, q_hi, r = _spatial_rep(predicates)
         t = bvh.tree
         records = order = None
@@ -315,23 +419,28 @@ class QueryEngine:
             t.node_lo, t.node_hi, t.rope, t.left_child, t.range_last,
             t.leaf_perm, q_lo, q_hi, r, capacity=capacity,
             fine_sqrt=isinstance(bvh.values, G.Points), records=records,
-            order=order)
+            order=order, block_q=self._rule("spatial", bvh, policy).block_q)
 
-    def run_callback(self, bvh, predicates, callback, state0):
+    def run_callback(self, bvh, predicates, callback, state0, *,
+                     policy=None):
         """Per-query final states of a callback batch (`state0` batched),
         through the route ``route_callback`` picks; counts the batch."""
-        route = self.route_callback(bvh, predicates, callback)
+        route = self.route_callback(bvh, predicates, callback, state0,
+                                    policy=policy)
         with self._cache_lock:
             self.callback_batches[route] += 1
         if route == ROUTE_KERNEL:
-            return self.kernel_callback(bvh, predicates, callback, state0)
+            return self.kernel_callback(bvh, predicates, callback, state0,
+                                        policy=policy)
         return T.traverse(bvh.tree, bvh.values, predicates, callback, state0)
 
-    def kernel_callback(self, bvh, predicates, callback, state0):
+    def kernel_callback(self, bvh, predicates, callback, state0, *,
+                        policy=None):
         """Per-query final states through the fused callback kernel; on
         the card a 3-D tree's kept node records and the index's kept value
         records where the walk reads them (ray batches over Spheres or
-        Triangles, Intersects over Triangles, Segments or Tetrahedra)."""
+        Triangles, Intersects over Triangles, Segments or Tetrahedra); the
+        "callback" rule's block_q threads a block."""
         t = bvh.tree
         records = value_records = None
         if t.node_lo.is_cuda:
@@ -341,16 +450,19 @@ class QueryEngine:
         return bvh_traverse_callback(
             t.node_lo, t.node_hi, t.rope, t.left_child, t.range_last,
             t.leaf_perm, bvh.values, predicates, callback, state0,
-            records=records, value_records=value_records)
+            records=records, value_records=value_records,
+            block_q=self._rule("callback", bvh, policy).block_q)
 
-    def kernel_knn(self, bvh, predicates):
+    def kernel_knn(self, bvh, predicates, *, policy=None):
         """(dists, idxs) (Q, k) through the kNN kernel, from the query
         centroids (what ``predicates.leaf_distance`` measures from); on
         the card a 3-D tree's kept node records, and the leaf order when
-        the queries are the indexed points. Spheres, Triangles, Segments,
-        Tetrahedra and KDOPs values take the fine kNN kernel (on the card
-        the index's kept value records of the first three). A RayNearest
-        batch takes the ray kNN kernel: (t, idxs), the first k hits."""
+        the queries are the indexed points; the "knn" rule's block_q
+        threads a block. Spheres, Triangles, Segments, Tetrahedra and
+        KDOPs values take the fine kNN kernel (on the card the index's
+        kept value records of the first three). A RayNearest batch takes
+        the ray kNN kernel: (t, idxs), the first k hits. The fine and ray
+        kNN kernels keep their own block size."""
         t = bvh.tree
         if isinstance(predicates, P.RayNearest):
             records = value_records = None
@@ -379,8 +491,8 @@ class QueryEngine:
             order = knn_order(queries, coords, t.leaf_perm)
         return bvh_traverse_knn(
             t.node_lo, t.node_hi, t.rope, t.left_child, t.leaf_perm, queries,
-            k=predicates.k, records=records, order=order)
-
+            k=predicates.k, records=records, order=order,
+            block_q=self._rule("knn", bvh, policy).block_q)
 
     # -- executable cache --------------------------------------------------
     #
@@ -421,7 +533,7 @@ class QueryEngine:
                 self.stats.cache_misses += 1
                 fn = self._executables[key] = make()
                 self._note_trace()
-                while len(self._executables) > MAX_EXECUTABLES:
+                while len(self._executables) > self.config.max_executables:
                     self._executables.popitem(last=False)  # LRU eviction
         return fn, hit
 
@@ -442,7 +554,7 @@ class QueryEngine:
         idx_buf), ExecInfo): full per-query counts plus the first
         `capacity` matched original indices per query (-1 padded)."""
         with self._route_span("spatial") as rsp:
-            route = self.route_spatial(bvh, predicates)
+            route = self.route_spatial(bvh, predicates, capacity)
             rsp.annotate(route=route)
         # the Points fine test (fine_sqrt) follows from the values' type,
         # which the shape key holds
@@ -505,9 +617,10 @@ class QueryEngine:
         counts and the first `capacity` matches in walk order. The sharded
         executor's local fill, which must not take brute force or the
         spatial kernel."""
-        cb, _ = CB.collect_hits(capacity)
+        cb, s0 = CB.collect_hits(capacity)
         with self._route_span("collect") as rsp:
-            route = self.route_callback(bvh, predicates, cb)
+            route = self.route_callback(bvh, predicates, cb,
+                                        _bcast_state(s0, 1, "cpu"))
             rsp.annotate(route=route)
         key = (route, "collect", capacity) + self._shape_key(bvh, predicates)
 

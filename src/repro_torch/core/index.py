@@ -39,6 +39,7 @@ here once:
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
 from typing import Any, NamedTuple
 
@@ -107,7 +108,17 @@ class ExecutionPolicy:
                    states, in rank order (None -> their elementwise sum,
                    right for zero-initialized arithmetic states).
                    Single-process indexes ignore it.
-    route_table:   a RouteTable overriding the engine's thresholds.
+    route_table:   a RouteTable (or a path to a persisted one, loaded and
+                   validated here) overriding the engine's thresholds for
+                   this index or call; None -> the engine config's table,
+                   then the port's persisted table, then the defaults. A
+                   table changes which route serves a batch, never the
+                   result.
+    build_engine:  the LBVH build: "pallas" (the CUDA build kernels) |
+                   "ref" (the plain PyTorch pipeline on the values'
+                   device) | "auto"/None (the persisted table's choice,
+                   else "pallas"; both give the same tree bit for bit).
+                   ``REPRO_ENGINE_FORCE`` beats it.
     ship_values:   distributed only: ship the MATCHED values to the rank
                    that asked, so ``QueryResult.values`` is filled (the
                    attach-data case). Off by default: callbacks reduce on
@@ -120,7 +131,18 @@ class ExecutionPolicy:
     max_doublings: int = 6
     combine: Any = None
     route_table: Any = None
+    build_engine: str | None = None
     ship_values: bool = False
+
+    def __post_init__(self):
+        from .route_table import BUILD_ENGINES, RouteTable
+        if isinstance(self.route_table, (str, os.PathLike)):
+            object.__setattr__(self, "route_table", RouteTable.load(
+                os.fspath(self.route_table)))
+        if self.build_engine is not None and \
+                self.build_engine not in BUILD_ENGINES:
+            raise ValueError(f"build_engine={self.build_engine!r} is not "
+                             f"one of {BUILD_ENGINES}")
 
     def resolve_engine(self):
         if self.engine is not None:

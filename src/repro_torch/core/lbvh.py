@@ -13,7 +13,10 @@ Each step launches its CUDA kernel on the card (``csrc/morton.cu``,
 ``karras.cu``, ``lbvh_tail.cu``: the tail climbs bottom up, as ArborX
 builds) and runs its plain twin on the CPU (the reference's quantize and
 interleave, its Karras searches, its RMQ sparse table with
-``refit="rmq"``).
+``refit="rmq"``). That is the "pallas" build engine, the reference's name
+for its fused build; the "ref" engine runs the plain PyTorch pipeline on
+the boxes' device, on the card too (``build(engine=...)``; the two give
+the same tree bit for bit).
 
 Node numbering: internal 0..N-2 (root 0), leaves N-1..2N-2 (leaf id =
 N-1 + sorted position); rope -1 ends the walk. Every field equals the
@@ -23,16 +26,20 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 
 import torch
 
 from ..kernels import lbvh_build as K
 from ..kernels import morton as KM
 from . import morton as M
-from .geometry import Boxes, fma
+from .geometry import Boxes, fma, max_zeros, min_zeros
+from .route_table import BUILD_ENGINES, default_route_table
 
 __all__ = ["LBVH", "build", "refit", "refit_with_quality", "sah_cost",
-           "FIELDS"]
+           "FIELDS", "BUILD_ENGINES", "REFITS"]
+
+REFITS = ("rmq", "iterative")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,16 +95,54 @@ def _with_records(tree: LBVH, records) -> LBVH:
     return tree
 
 
-def build(boxes: Boxes, *, bits: int = 64) -> LBVH:
-    """Build an LBVH over N >= 2 leaf boxes on the boxes' device (the
-    reference's ``refit="rmq"`` tree; every refit gives the same floats).
+def _resolve_build_engine(engine: str) -> str:
+    """The build engine to run: "pallas" (the CUDA build kernels on the
+    card, their twins on the CPU) or "ref" (the plain PyTorch pipeline).
 
-    bits: 32 or 64 (Morton code width; 64 is the ArborX 2.0 default)."""
+    Order, as the reference's: ``REPRO_ENGINE_FORCE`` ("kernel", or the
+    reference's "pallas", forces "pallas"; "loop" forces "ref"), then the
+    explicit `engine`, then the persisted route table's ``build_engine``,
+    then "pallas"."""
+    if engine not in BUILD_ENGINES:
+        raise ValueError(f"engine={engine!r} is not one of {BUILD_ENGINES}")
+    env = os.environ.get("REPRO_ENGINE_FORCE")
+    if env in ("kernel", "pallas"):   # the debugging override beats all
+        return "pallas"
+    if env == "loop":
+        return "ref"
+    if engine != "auto":
+        return engine
+    table = default_route_table()
+    if table is not None and table.build_engine != "auto":
+        return table.build_engine
+    return "pallas"
+
+
+def build(boxes: Boxes, *, bits: int = 64, refit: str = "rmq",
+          engine: str = "auto") -> LBVH:
+    """Build an LBVH over N >= 2 leaf boxes on the boxes' device.
+
+    bits: 32 or 64 (Morton code width; 64 is the ArborX 2.0 default).
+    refit: how the "ref" engine computes the internal boxes: "rmq" (the
+        sparse table) or "iterative" (the readiness fixpoint, one pass a
+        tree level); anything else raises ValueError. Both give the same
+        floats; the "pallas" engine's climb gives them too, for either.
+    engine: "pallas" (the CUDA build: ``kernels.morton.morton_key``,
+        ``karras_ranges``, ``lbvh_tail``), "ref" (their plain PyTorch
+        twins, run as an explicit request where the boxes are, on the
+        card too), or "auto" (:func:`_resolve_build_engine`). The two
+        engines give the same tree, topology and bounds, bit for bit (NaN
+        by place)."""
     if bits not in (32, 64):
         raise ValueError(f"bits must be 32 or 64, got {bits}")
+    if refit not in REFITS:
+        raise ValueError(f"refit={refit!r} is not one of {REFITS}")
+    engine = _resolve_build_engine(engine)
     n = boxes.lo.shape[0]
     if n < 2:
         raise ValueError("LBVH requires N >= 2 (the BVH handles N in {0, 1})")
+    if engine == "ref":
+        return _build_ref(boxes, bits, refit)
     key = KM.morton_key(boxes.lo, boxes.hi, bits)
     key, perm = torch.sort(key, stable=True)
     hi, lo, idx = M.key_lanes(key)
@@ -107,6 +152,52 @@ def build(boxes: Boxes, *, bits: int = 64) -> LBVH:
     *fields, records = K.lbvh_tail(first, last, gamma, perm, boxes.lo,
                                    boxes.hi)
     return _with_records(LBVH(*fields, first), records)
+
+
+def _build_ref(boxes: Boxes, bits: int, refit: str) -> LBVH:
+    """The "ref" engine: the build's plain PyTorch pipeline on the boxes'
+    device (the twins of the three build kernels; with refit="iterative"
+    the internal boxes by the readiness fixpoint)."""
+    n = boxes.lo.shape[0]
+    key = KM.morton_key_ref(boxes.lo, boxes.hi, bits)
+    key, perm = torch.sort(key, stable=True)
+    hi, lo, idx = M.key_lanes(key)
+    del key
+    first, last, gamma = K.karras_ranges_fused(hi, lo, idx, n, K.max_log2(n))
+    del hi, lo, idx
+    (node_lo, node_hi, left, right, rope, range_last, leaf_perm,
+     records) = K.lbvh_tail_ref(first, last, gamma, perm, boxes.lo, boxes.hi)
+    if refit == "iterative":
+        node_lo, node_hi = _refit_iterative(node_lo[n - 1:], node_hi[n - 1:],
+                                            left, right)
+        records = K.pack_nodes(node_lo, node_hi, rope, left, leaf_perm) \
+            if node_lo.shape[1] == 3 else None
+    return _with_records(LBVH(node_lo, node_hi, left, right, rope,
+                              range_last, leaf_perm, first), records)
+
+
+def _refit_iterative(leaf_lo, leaf_hi, left_child, right_child):
+    """(node_lo, node_hi) (2N-1, dim) over the sorted leaf boxes by the
+    readiness fixpoint, as the reference's ``_refit_iterative``: each pass
+    sets the nodes whose two children are set (one host check a pass)."""
+    n, dim = leaf_lo.shape
+    ni = n - 1
+    dev = leaf_lo.device
+    node_lo = torch.cat([torch.full((ni, dim), float("inf"), device=dev),
+                         leaf_lo])
+    node_hi = torch.cat([torch.full((ni, dim), float("-inf"), device=dev),
+                         leaf_hi])
+    ready = torch.cat([torch.zeros((ni,), dtype=torch.bool, device=dev),
+                       torch.ones((n,), dtype=torch.bool, device=dev)])
+    left, right = left_child.to(torch.int64), right_child.to(torch.int64)
+    while not bool(ready[:ni].all()):
+        can = ready[left] & ready[right] & ~ready[:ni]
+        new_lo = min_zeros(node_lo[left], node_lo[right])
+        new_hi = max_zeros(node_hi[left], node_hi[right])
+        node_lo[:ni] = torch.where(can[:, None], new_lo, node_lo[:ni])
+        node_hi[:ni] = torch.where(can[:, None], new_hi, node_hi[:ni])
+        ready[:ni] |= can
+    return node_lo, node_hi
 
 
 def refit(tree: LBVH, boxes: Boxes) -> LBVH:

@@ -76,7 +76,8 @@
 namespace {
 
 constexpr int kMaxDim = 16;
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;     // queries per block: block_q's default
+constexpr int kMaxThreads = 512;  // the largest block_q an instance takes
 enum Kind {
   kPoints = 0,
   kBoxes = 1,
@@ -234,8 +235,9 @@ __device__ __forceinline__ int query_of(const int* __restrict__ order,
   return order == nullptr ? i : __ldg(order + i);
 }
 
-template <class Ep>
-__global__ void callback_kernel(Tree t, Geom pg, Geom vg,
+template <int kBound, class Ep>
+__global__ void __launch_bounds__(kBound)
+    callback_kernel(Tree t, Geom pg, Geom vg,
                                 const int* __restrict__ order,
                                 const int* __restrict__ min_pos, int q,
                                 const Ep ep0) {
@@ -367,8 +369,8 @@ __global__ void callback_kernel(Tree t, Geom pg, Geom vg,
 
 // node k is records[2k] = (lo.xyz, rope) and records[2k + 1] = (hi.xyz,
 // left child of an internal node or leaf_perm of a leaf), ints bit-cast
-template <class Ep>
-__global__ void __launch_bounds__(kThreads)
+template <int kBound, class Ep>
+__global__ void __launch_bounds__(kBound)
     callback_kernel3(const int4* __restrict__ records,
                      const int* __restrict__ range_last, int n, Geom pg,
                      Geom vg, const int* __restrict__ order,
@@ -485,8 +487,8 @@ __global__ void __launch_bounds__(kThreads)
 // Triangles, Segments and Tetrahedra queries by their bounding boxes) or
 // a sphere. Its own instance, so that callback_kernel3 keeps its
 // registers.
-template <class Ep>
-__global__ void __launch_bounds__(kThreads)
+template <int kBound, class Ep>
+__global__ void __launch_bounds__(kBound)
     shaped_kernel3(const int4* __restrict__ records,
                    const int4* __restrict__ vrec,
                    const int* __restrict__ range_last, int n, Geom pg,
@@ -575,8 +577,9 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 
 // dims other than 3: Points, Boxes and Spheres values
-template <class Ep>
-__global__ void ray_kernel(Tree t, Geom pg, Geom vg,
+template <int kBound, class Ep>
+__global__ void __launch_bounds__(kBound)
+    ray_kernel(Tree t, Geom pg, Geom vg,
                            const int* __restrict__ min_pos, int q,
                            const Ep ep0) {
   const int qi = blockIdx.x * blockDim.x + threadIdx.x;
@@ -636,8 +639,8 @@ __global__ void ray_kernel(Tree t, Geom pg, Geom vg,
 // and Boxes, whose leaf test is the node test at the leaf (the slab over
 // the same box gives the same t bit for bit). range_last is read only
 // where a min_pos filter is set (no ray call sets one).
-template <class Ep>
-__global__ void __launch_bounds__(kThreads)
+template <int kBound, class Ep>
+__global__ void __launch_bounds__(kBound)
     ray_kernel3(const int4* __restrict__ records,
                 const int4* __restrict__ vrec,
                 const int* __restrict__ range_last, int n, Geom pg, Geom vg,
@@ -692,32 +695,41 @@ struct Call {
   const int* order;      // walk order of the Intersects queries, or nullptr
   const int* mp;
   int q;
+  int threads;           // a block's queries, 1..kMaxThreads
   cudaStream_t stream;
 };
 
-template <class Ep>
-void launch(const Call& c, const Ep& ep) {
+// the walk's instances bounded at kBound threads a block
+template <int kBound, class Ep>
+void launch_bounded(const Call& c, const Ep& ep) {
+  const int blocks = (c.q + c.threads - 1) / c.threads;
   if (c.pg.kind == kRays && c.records != nullptr) {
-    const int blocks = (c.q + kThreads - 1) / kThreads;
-    ray_kernel3<Ep><<<blocks, kThreads, 0, c.stream>>>(
+    ray_kernel3<kBound, Ep><<<blocks, c.threads, 0, c.stream>>>(
         c.records, c.vrec, c.t.range_last, c.t.n, c.pg, c.vg, c.mp, c.q, ep);
   } else if (c.pg.kind == kRays) {
-    const int blocks = (c.q + kThreads - 1) / kThreads;
-    ray_kernel<Ep><<<blocks, kThreads, 0, c.stream>>>(c.t, c.pg, c.vg, c.mp,
-                                                      c.q, ep);
+    ray_kernel<kBound, Ep><<<blocks, c.threads, 0, c.stream>>>(
+        c.t, c.pg, c.vg, c.mp, c.q, ep);
   } else if (c.records != nullptr && shaped(c.vg.kind)) {
-    const int blocks = (c.q + kThreads - 1) / kThreads;
-    shaped_kernel3<Ep><<<blocks, kThreads, 0, c.stream>>>(
+    shaped_kernel3<kBound, Ep><<<blocks, c.threads, 0, c.stream>>>(
         c.records, c.vrec, c.t.range_last, c.t.n, c.pg, c.vg.kind, c.mp, c.q,
         ep);
   } else if (c.records != nullptr) {
-    const int blocks = (c.q + kThreads - 1) / kThreads;
-    callback_kernel3<Ep><<<blocks, kThreads, 0, c.stream>>>(
+    callback_kernel3<kBound, Ep><<<blocks, c.threads, 0, c.stream>>>(
         c.records, c.t.range_last, c.t.n, c.pg, c.vg, c.order, c.mp, c.q, ep);
   } else {
-    const int blocks = (c.q + kThreads - 1) / kThreads;
-    callback_kernel<Ep><<<blocks, kThreads, 0, c.stream>>>(
+    callback_kernel<kBound, Ep><<<blocks, c.threads, 0, c.stream>>>(
         c.t, c.pg, c.vg, c.order, c.mp, c.q, ep);
+  }
+}
+
+// up to kThreads a block the instances bounded there, else those at
+// kMaxThreads
+template <class Ep>
+void launch(const Call& c, const Ep& ep) {
+  if (c.threads <= kThreads) {
+    launch_bounded<kThreads>(c, ep);
+  } else {
+    launch_bounded<kMaxThreads>(c, ep);
   }
 }
 
@@ -746,8 +758,9 @@ enum Epilogue {
 // Spheres or Triangles values under Rays, and of Triangles, Segments or
 // Tetrahedra values under Intersects (ray_tests.cuh's layout), else null.
 // order: (q,) int32, the Intersects query each thread walks over Points,
-// Boxes or Spheres values, or null. weights: min_where's (n,) int32
-// where(flags, weights, big).
+// Boxes or Spheres values, or null. threads: a block's queries,
+// 1..kMaxThreads. weights: min_where's (n,) int32 where(flags, weights,
+// big).
 REPRO_EXPORT int bvh_callback_launch(
     const void* node_lo, const void* node_hi, const void* rope,
     const void* left, const void* range_last, const void* perm,
@@ -757,12 +770,13 @@ REPRO_EXPORT int bvh_callback_launch(
     const void* val_b, const void* val_c, const void* val_d,
     const void* val_r, const void* min_pos, int n, int q, int dim,
     int pred_kind, int val_kind, int epilogue, int param, int early_exit,
-    void* state0, void* state1, void* state2, const void* weights,
-    void* stream) {
+    int threads, void* state0, void* state1, void* state2,
+    const void* weights, void* stream) {
   const bool ray = pred_kind == kRays;
   const bool shaped_v =
       val_kind == kTriangles || (val_kind >= kSegments && val_kind <= kKDOPs);
-  if (dim < 1 || dim > kMaxDim || n < 2 || pred_kind < 0 ||
+  if (dim < 1 || dim > kMaxDim || n < 2 || threads < 1 ||
+      threads > kMaxThreads || pred_kind < 0 ||
       (pred_kind > kSpheres && !ray) || val_kind < 0 ||
       (ray ? val_kind > kTriangles : val_kind == kRays || val_kind > kKDOPs) ||
       (ray && val_kind == kTriangles && dim != 3) ||
@@ -788,7 +802,8 @@ REPRO_EXPORT int bvh_callback_launch(
               static_cast<const float*>(val_r), val_kind},
          static_cast<const int4*>(records), static_cast<const int4*>(vrec),
          static_cast<const int*>(order),
-         static_cast<const int*>(min_pos), q, static_cast<cudaStream_t>(stream)};
+         static_cast<const int*>(min_pos), q, threads,
+         static_cast<cudaStream_t>(stream)};
   auto s0 = static_cast<int*>(state0);
   switch (epilogue) {
     case kCounting:

@@ -133,7 +133,8 @@
 namespace {
 
 constexpr int kMaxDim = 16;
-constexpr int kThreads = 256;   // queries per block
+constexpr int kThreads = 256;     // queries per block: block_q's default
+constexpr int kMaxThreads = 512;  // the largest block_q an instance takes
 constexpr int kMaxK = 256;      // the largest k (KNN_MAX_K)
 
 struct Tree {
@@ -150,8 +151,9 @@ struct Tree {
 // spatial
 // ---------------------------------------------------------------------------
 
-template <bool kFineSqrt>
-__global__ void spatial_kernel(Tree t, const int* __restrict__ range_last,
+template <int kBound, bool kFineSqrt>
+__global__ void __launch_bounds__(kBound)
+    spatial_kernel(Tree t, const int* __restrict__ range_last,
                                const float* __restrict__ qlo,
                                const float* __restrict__ qhi,
                                const float* __restrict__ radius,
@@ -206,8 +208,8 @@ __global__ void spatial_kernel(Tree t, const int* __restrict__ range_last,
 
 // the 3-D instance over node records: rec[2m] = (lo.xyz, rope), rec[2m + 1]
 // = (hi.xyz, left child of an internal node | leaf_perm of a leaf)
-template <bool kFineSqrt>
-__global__ void __launch_bounds__(kThreads)
+template <int kBound, bool kFineSqrt>
+__global__ void __launch_bounds__(kBound)
     spatial_kernel3(const int4* __restrict__ rec,
                     const int* __restrict__ range_last, int n,
                     const float* __restrict__ qlo,
@@ -329,8 +331,8 @@ struct PointKeys {
   }
 };
 
-template <class Nodes, class List>
-__global__ void __launch_bounds__(kThreads)
+template <int kBound, class Nodes, class List>
+__global__ void __launch_bounds__(kBound)
     knn_kernel(Nodes nodes, const int* __restrict__ perm, int n, int dim,
                const float* __restrict__ queries,
                const int* __restrict__ order, int q, int k,
@@ -409,56 +411,55 @@ struct Labels {
   const int* queries = nullptr;
 };
 
+// the kNN walk with `threads` a block (1..kMaxThreads): the instance
+// bounded at kThreads up to that size, else the one at kMaxThreads; the
+// exclusion walk always takes kThreads
 template <class Nodes, class List>
 void launch_knn(const Nodes& nodes, const int* perm, int n, int dim,
                 const float* queries, const int* order, int q, int k,
-                float* dists, int* idxs, Labels lab, cudaStream_t stream) {
-  const int blocks = (q + kThreads - 1) / kThreads;
-  if (lab.nodes == nullptr) {
-    knn_kernel<Nodes, List><<<blocks, kThreads, 0, stream>>>(
-        nodes, perm, n, dim, queries, order, q, k, dists, idxs);
-  } else {
-    knn_exclude_kernel<Nodes, List><<<blocks, kThreads, 0, stream>>>(
+                float* dists, int* idxs, Labels lab, int threads,
+                cudaStream_t stream) {
+  const int blocks = (q + threads - 1) / threads;
+  if (lab.nodes != nullptr) {
+    knn_exclude_kernel<Nodes, List><<<blocks, threads, 0, stream>>>(
         nodes, perm, n, dim, queries, order, lab.nodes, lab.queries, q, k,
         dists, idxs);
+  } else if (threads <= kThreads) {
+    knn_kernel<kThreads, Nodes, List><<<blocks, threads, 0, stream>>>(
+        nodes, perm, n, dim, queries, order, q, k, dists, idxs);
+  } else {
+    knn_kernel<kMaxThreads, Nodes, List><<<blocks, threads, 0, stream>>>(
+        nodes, perm, n, dim, queries, order, q, k, dists, idxs);
   }
 }
 
 template <class Nodes>
 cudaError_t launch_knn_k(const Nodes& nodes, const int* perm, int n, int dim,
                          const float* queries, const int* order, int q, int k,
-                         float* d, int* ix, Labels lab, cudaStream_t s) {
+                         float* d, int* ix, Labels lab, int th,
+                         cudaStream_t s) {
   using knn::KeyHeap;
   using knn::KeyList;
-  if (k <= 1) launch_knn<Nodes, KeyList<1, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, lab, s);
-  else if (k <= 2) launch_knn<Nodes, KeyList<2, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, lab, s);
-  else if (k <= 4) launch_knn<Nodes, KeyList<4, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, lab, s);
-  else if (k <= 8) launch_knn<Nodes, KeyList<8, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, lab, s);
-  else if (k <= 16) launch_knn<Nodes, KeyList<16, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, lab, s);
-  else if (k <= 32) launch_knn<Nodes, KeyList<32, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, lab, s);
-  else if (k <= kMaxK) launch_knn<Nodes, KeyHeap<kMaxK, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, lab, s);
+  if (k <= 1) launch_knn<Nodes, KeyList<1, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, lab, th, s);
+  else if (k <= 2) launch_knn<Nodes, KeyList<2, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, lab, th, s);
+  else if (k <= 4) launch_knn<Nodes, KeyList<4, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, lab, th, s);
+  else if (k <= 8) launch_knn<Nodes, KeyList<8, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, lab, th, s);
+  else if (k <= 16) launch_knn<Nodes, KeyList<16, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, lab, th, s);
+  else if (k <= 32) launch_knn<Nodes, KeyList<32, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, lab, th, s);
+  else if (k <= kMaxK) launch_knn<Nodes, KeyHeap<kMaxK, true>>(nodes, perm, n, dim, queries, order, q, k, d, ix, lab, th, s);
   else return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// records: the tree's LBVH.records in 3-D (spatial_kernel3), or null (the
-// flat arrays); order: the query each thread walks (with records only),
-// or null; min_pos: (q,) int32 pair filter, or null (none). The kernels
-// write every slot of buf (the matches, then -1).
-REPRO_EXPORT int bvh_spatial_launch(
-    const void* node_lo, const void* node_hi, const void* rope,
-    const void* left, const void* range_last, const void* perm,
-    const void* records, const void* order, const void* qlo, const void* qhi,
-    const void* radius, const void* min_pos, int n, int q, int dim, int cap,
-    int fine_sqrt, void* counts, void* buf, void* stream) {
-  if (dim < 1 || dim > kMaxDim || cap < 1 || n < 2 ||
-      (records != nullptr && dim != 3) ||
-      (order != nullptr && records == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int blocks = (q + kThreads - 1) / kThreads;
+// the spatial walk's instances bounded at kBound threads a block
+template <int kBound>
+int spatial_launch(const void* node_lo, const void* node_hi, const void* rope,
+                   const void* left, const void* range_last, const void* perm,
+                   const void* records, const void* order, const void* qlo,
+                   const void* qhi, const void* radius, const void* min_pos,
+                   int n, int q, int dim, int cap, int fine_sqrt, int threads,
+                   void* counts, void* buf, void* stream) {
+  const int blocks = (q + threads - 1) / threads;
   auto s = static_cast<cudaStream_t>(stream);
   auto rl = static_cast<const int*>(range_last);
   auto lo = static_cast<const float*>(qlo);
@@ -471,11 +472,11 @@ REPRO_EXPORT int bvh_spatial_launch(
     auto rec = static_cast<const int4*>(records);
     auto od = static_cast<const int*>(order);
     if (fine_sqrt) {
-      spatial_kernel3<true><<<blocks, kThreads, 0, s>>>(rec, rl, n, lo, hi, r,
-                                                        mp, od, q, cap, c, b);
+      spatial_kernel3<kBound, true><<<blocks, threads, 0, s>>>(
+          rec, rl, n, lo, hi, r, mp, od, q, cap, c, b);
     } else {
-      spatial_kernel3<false><<<blocks, kThreads, 0, s>>>(rec, rl, n, lo, hi, r,
-                                                         mp, od, q, cap, c, b);
+      spatial_kernel3<kBound, false><<<blocks, threads, 0, s>>>(
+          rec, rl, n, lo, hi, r, mp, od, q, cap, c, b);
     }
     return static_cast<int>(cudaGetLastError());
   }
@@ -483,13 +484,43 @@ REPRO_EXPORT int bvh_spatial_launch(
          static_cast<const int*>(rope), static_cast<const int*>(left),
          static_cast<const int*>(perm), n, dim};
   if (fine_sqrt) {
-    spatial_kernel<true><<<blocks, kThreads, 0, s>>>(t, rl, lo, hi, r, mp, q,
-                                                     cap, c, b);
+    spatial_kernel<kBound, true><<<blocks, threads, 0, s>>>(
+        t, rl, lo, hi, r, mp, q, cap, c, b);
   } else {
-    spatial_kernel<false><<<blocks, kThreads, 0, s>>>(t, rl, lo, hi, r, mp, q,
-                                                      cap, c, b);
+    spatial_kernel<kBound, false><<<blocks, threads, 0, s>>>(
+        t, rl, lo, hi, r, mp, q, cap, c, b);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// records: the tree's LBVH.records in 3-D (spatial_kernel3), or null (the
+// flat arrays); order: the query each thread walks (with records only),
+// or null; min_pos: (q,) int32 pair filter, or null (none); threads: a
+// block's queries, 1..kMaxThreads. The kernels write every slot of buf
+// (the matches, then -1).
+REPRO_EXPORT int bvh_spatial_launch(
+    const void* node_lo, const void* node_hi, const void* rope,
+    const void* left, const void* range_last, const void* perm,
+    const void* records, const void* order, const void* qlo, const void* qhi,
+    const void* radius, const void* min_pos, int n, int q, int dim, int cap,
+    int fine_sqrt, int threads, void* counts, void* buf, void* stream) {
+  if (dim < 1 || dim > kMaxDim || cap < 1 || n < 2 || threads < 1 ||
+      threads > kMaxThreads || (records != nullptr && dim != 3) ||
+      (order != nullptr && records == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (threads <= kThreads) {
+    return spatial_launch<kThreads>(node_lo, node_hi, rope, left, range_last,
+                                    perm, records, order, qlo, qhi, radius,
+                                    min_pos, n, q, dim, cap, fine_sqrt,
+                                    threads, counts, buf, stream);
+  }
+  return spatial_launch<kMaxThreads>(node_lo, node_hi, rope, left,
+                                     range_last, perm, records, order, qlo,
+                                     qhi, radius, min_pos, n, q, dim, cap,
+                                     fine_sqrt, threads, counts, buf, stream);
 }
 
 namespace {
@@ -497,8 +528,10 @@ namespace {
 int knn_entry(const void* node_lo, const void* node_hi, const void* rope,
               const void* left, const void* perm, const void* records,
               const void* order, const void* queries, Labels lab, int n,
-              int q, int dim, int k, void* dists, void* idxs, void* stream) {
+              int q, int dim, int k, int threads, void* dists, void* idxs,
+              void* stream) {
   if (dim < 1 || dim > kMaxDim || k < 1 || k > kMaxK || n < 2 ||
+      threads < 1 || threads > kMaxThreads ||
       (records != nullptr && dim != 3)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -511,27 +544,29 @@ int knn_entry(const void* node_lo, const void* node_hi, const void* rope,
   if (records != nullptr) {
     return static_cast<int>(launch_knn_k(
         Records3{static_cast<const int4*>(records)}, pm, n, dim, qp, od, q, k,
-        d, ix, lab, s));
+        d, ix, lab, threads, s));
   }
   Tree t{static_cast<const float*>(node_lo), static_cast<const float*>(node_hi),
          static_cast<const int*>(rope), static_cast<const int*>(left), pm, n,
          dim};
   return static_cast<int>(launch_knn_k(Flat{t}, pm, n, dim, qp, od, q, k, d,
-                                       ix, lab, s));
+                                       ix, lab, threads, s));
 }
 
 }  // namespace
 
 // records: the tree's LBVH.records in 3-D (the Records3 instance), or
-// null (the flat arrays); order: the query each thread walks, or null
+// null (the flat arrays); order: the query each thread walks, or null;
+// threads: a block's queries, 1..kMaxThreads
 REPRO_EXPORT int bvh_knn_launch(const void* node_lo, const void* node_hi,
                                 const void* rope, const void* left,
                                 const void* perm, const void* records,
                                 const void* order, const void* queries, int n,
-                                int q, int dim, int k, void* dists,
-                                void* idxs, void* stream) {
+                                int q, int dim, int k, int threads,
+                                void* dists, void* idxs, void* stream) {
   return knn_entry(node_lo, node_hi, rope, left, perm, records, order,
-                   queries, Labels{}, n, q, dim, k, dists, idxs, stream);
+                   queries, Labels{}, n, q, dim, k, threads, dists, idxs,
+                   stream);
 }
 
 // the exclusion walk (Nearest.exclude): as bvh_knn_launch, with the
@@ -549,5 +584,5 @@ REPRO_EXPORT int bvh_knn_exclude_launch(
   const Labels lab{static_cast<const int*>(node_labels),
                    static_cast<const int*>(query_labels)};
   return knn_entry(node_lo, node_hi, rope, left, perm, records, order,
-                   queries, lab, n, q, dim, k, dists, idxs, stream);
+                   queries, lab, n, q, dim, k, kThreads, dists, idxs, stream);
 }

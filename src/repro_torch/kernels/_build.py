@@ -16,7 +16,8 @@ int32 would launch a kernel on a wrong size and raise nothing. The entry
 points :func:`function` returns are guarded: every integer argument is
 checked against the range of its ctypes type first, and one outside it
 raises OverflowError, naming the entry and the argument, before any
-launch. ``python -m repro_torch.analysis`` (KRN001) checks that every C
+launch. An entry may narrow an argument's range further (a walk's threads
+a block: the sizes its kernel instances are built for). ``python -m repro_torch.analysis`` (KRN001) checks that every C
 entry is reached through :func:`function` and its code through
 :func:`check`.
 
@@ -147,11 +148,13 @@ class Entry:
     argument, before any launch; then it calls `raw`. ``calls`` counts
     the calls that passed."""
 
-    def __init__(self, lib: str, name: str, raw, argtypes):
+    def __init__(self, lib: str, name: str, raw, argtypes, ranges=None):
         self.lib, self.name, self.raw = lib, name, raw
         self.argtypes = list(argtypes)
-        #: (position, lowest, highest) of each integer argument
-        self.int_args = [(i, *r) for i, r in
+        ranges = ranges or {}
+        #: (position, lowest, highest) of each integer argument: its
+        #: type's range, or the narrower one `ranges` gives its position
+        self.int_args = [(i, *ranges.get(i, r)) for i, r in
                          enumerate(map(_int_range, self.argtypes))
                          if r is not None]
         self.calls = 0
@@ -181,18 +184,19 @@ class Entry:
         return self.raw(*args)
 
 
-def function(lib: str, fn: str, argtypes) -> Entry:
+def function(lib: str, fn: str, argtypes, ranges=None) -> Entry:
     """The C entry point `fn` of library `lib`, typed and guarded
     (:class:`Entry`): pointers and the stream are ``ctypes.c_void_p``,
     sizes ``ctypes.c_int``; every entry point returns a ``cudaError_t``
-    as int."""
+    as int. `ranges`: {argument position: (lowest, highest)} narrowing
+    the guard of an integer argument."""
     key = (lib, fn)
     f = _FUNCS.get(key)
     if f is None:
         raw = getattr(_library(lib), fn)
         raw.argtypes = list(argtypes)
         raw.restype = ctypes.c_int
-        f = _FUNCS[key] = Entry(lib, fn, raw, argtypes)
+        f = _FUNCS[key] = Entry(lib, fn, raw, argtypes, ranges)
     return f
 
 

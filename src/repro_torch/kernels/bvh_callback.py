@@ -47,8 +47,9 @@ from ..core import geometry as G
 from ..core import predicates as P
 from ..core import traversal
 from . import _build, sanitize
-from .bvh_traverse import (MAX_DIM, RAY_TARGETS, _check_tree, _device_of,
-                           _kept_records, _ptr, _stream, pack_nodes)
+from .bvh_traverse import (BLOCK_Q, MAX_BLOCK_Q, MAX_DIM, RAY_TARGETS,
+                           _check_tree, _device_of, _kept_records, _ptr,
+                           _stream, pack_nodes)
 
 __all__ = ["bvh_traverse_callback", "bvh_traverse_callback_ref",
            "expressible", "reads_value_records", "query_order", "pack_nodes",
@@ -198,13 +199,16 @@ def _geom_ptrs(g, dev, what):
     return out
 
 
-_ARGS = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 8
+_ARGS = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 9
          + [ctypes.c_void_p] * 5)
+#: the guard of the threads argument (1..MAX_BLOCK_Q)
+_THREADS = {26: (1, MAX_BLOCK_Q)}
 
 
 def bvh_traverse_callback(node_lo, node_hi, rope, left_child, range_last,
                           leaf_perm, values, predicates, callback, state0, *,
-                          min_pos=None, records=None, value_records=None):
+                          min_pos=None, records=None, value_records=None,
+                          block_q: int = BLOCK_Q):
     """Per-query final states (the structure of `state0`, batched (Q, ...))
     of an epilogue callback over the matches of `predicates` in the tree.
     `records`: the tree's :func:`pack_nodes` records where the caller
@@ -212,7 +216,9 @@ def bvh_traverse_callback(node_lo, node_hi, rope, left_child, range_last,
     :func:`~.bvh_traverse.pack_values` records of a ray call's Spheres or
     Triangles values, or an Intersects call's Triangles, Segments or
     Tetrahedra values (``BVH.value_records``); a 3-D call on the card makes
-    them otherwise; neither changes a state. Raises when
+    them otherwise; `block_q`: the kernel's threads a block,
+    1..MAX_BLOCK_Q (the twin ignores it); none of the three changes a
+    state. Raises when
     :func:`expressible` does not hold, on a geometry that is not float32,
     or on a state that is not the epilogue's layout."""
     what = "bvh_traverse_callback"
@@ -225,14 +231,14 @@ def bvh_traverse_callback(node_lo, node_hi, rope, left_child, range_last,
         final = _callback_launch(what, node_lo, node_hi, rope, left_child,
                                  range_last, leaf_perm, values, predicates,
                                  callback, state0, min_pos, records,
-                                 value_records)
+                                 value_records, block_q)
     sanitize.check_state_tree(final, kernel=what)
     return final
 
 
 def _callback_launch(what, node_lo, node_hi, rope, left_child, range_last,
                      leaf_perm, values, predicates, callback, state0,
-                     min_pos, records, value_records):
+                     min_pos, records, value_records, block_q=BLOCK_Q):
     dev = node_lo.device
     q = len(predicates)
     n = leaf_perm.shape[0]
@@ -284,7 +290,8 @@ def _callback_launch(what, node_lo, node_hi, rope, left_child, range_last,
     else:
         records = value_records = None
     if q:
-        fn = _build.function("bvh_callback", "bvh_callback_launch", _ARGS)
+        fn = _build.function("bvh_callback", "bvh_callback_launch", _ARGS,
+                             _THREADS)
         with torch.cuda.device(dev):
             err = fn(*(t.data_ptr() for t in tree), _ptr(records),
                      _ptr(value_records), _ptr(order), _ptr(pa), _ptr(pb),
@@ -292,7 +299,7 @@ def _callback_launch(what, node_lo, node_hi, rope, left_child, range_last,
                      _ptr(vr),
                      mp.data_ptr(), n, q, dim,
                      _KIND[type(pgeom)], _KIND[type(values)], _EPILOGUE[kind],
-                     param, early_exit,
+                     param, early_exit, block_q,
                      *(_ptr(a) for a in (out + [None, None])[:3]),
                      _ptr(weights), _stream(dev))
         _build.check("bvh_callback", err, what)

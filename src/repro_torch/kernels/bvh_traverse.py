@@ -97,12 +97,20 @@ __all__ = ["bvh_traverse_spatial", "bvh_traverse_knn", "bvh_traverse_ray_knn",
            "bvh_traverse_fine_knn_ref", "node_labels", "pack_nodes",
            "pack_values", "knn_order", "RAY_TARGETS", "FINE_KNN_VALUES",
            "FINE_KNN_RECORDS",
-           "KNN_MAX_K", "MAX_DIM", "STACK_DEPTH", "MIXED"]
+           "KNN_MAX_K", "MAX_DIM", "STACK_DEPTH", "MIXED", "BLOCK_Q",
+           "MAX_BLOCK_Q"]
 
 #: largest k the kNN kernel takes (its largest template bucket)
 KNN_MAX_K = 256
 #: largest dimension the kernels take (query coordinates live in registers)
 MAX_DIM = 16
+#: threads a block of the spatial, kNN and callback walks (a route rule's
+#: block_q): the default, and the largest their instances take (kThreads
+#: and kMaxThreads of csrc/bvh_traverse.cu and csrc/bvh_callback.cu: the
+#: instances bounded at 256 take 1..256, those at 512 the sizes above);
+#: the entries' int guard refuses any other size before a launch
+BLOCK_Q = 256
+MAX_BLOCK_Q = 512
 #: entries of the kNN walks' stack (kStack of csrc/knn_walk.cuh): the
 #: walk stacks internal nodes only, at most one per depth 1..95, and the
 #: tree's internal nodes lie at depths 0..95 (csrc/bvh_traverse.cu's note)
@@ -401,18 +409,22 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-_SPATIAL_ARGS = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+_SPATIAL_ARGS = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
                  + [ctypes.c_void_p] * 3)
-_KNN_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+_KNN_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+#: the guard of the threads argument of the spatial and kNN entries
+_SPATIAL_THREADS = {17: (1, MAX_BLOCK_Q)}
+_KNN_THREADS = {12: (1, MAX_BLOCK_Q)}
 
 
 def bvh_traverse_spatial(node_lo, node_hi, rope, left_child, range_last,
                          leaf_perm, q_lo, q_hi, radius, *, capacity: int = 1,
                          fine_sqrt: bool = False, min_pos=None, records=None,
-                         order=None):
+                         order=None, block_q: int = BLOCK_Q):
     """(counts (Q,) int32, idx_buf (Q, capacity) int32) for Q spatial
     queries over an LBVH's arrays. See the module docstring for the
-    semantics. `records`: the tree's :func:`pack_nodes` records where the
+    semantics. `block_q`: the kernel's threads a block, 1..MAX_BLOCK_Q
+    (the twin ignores it); it changes no result. `records`: the tree's :func:`pack_nodes` records where the
     caller keeps them (``LBVH.records``); a 3-D call on the card makes
     them otherwise. `order`: a (Q,) int32 permutation of the queries in
     which the 3-D kernel's threads take them, or None; each row must
@@ -429,7 +441,8 @@ def bvh_traverse_spatial(node_lo, node_hi, rope, left_child, range_last,
     else:
         counts, buf = _spatial_launch(
             what, node_lo, node_hi, rope, left_child, range_last, leaf_perm,
-            q_lo, q_hi, radius, capacity, fine_sqrt, min_pos, records, order)
+            q_lo, q_hi, radius, capacity, fine_sqrt, min_pos, records, order,
+            block_q)
     sanitize.check_spatial(counts, buf, n=leaf_perm.shape[0], kernel=what)
     return counts, buf
 
@@ -445,7 +458,7 @@ def _check_order(what, order, q, dev):
 
 def _spatial_launch(what, node_lo, node_hi, rope, left_child, range_last,
                     leaf_perm, q_lo, q_hi, radius, capacity, fine_sqrt,
-                    min_pos, records, order):
+                    min_pos, records, order, block_q=BLOCK_Q):
     dev = q_lo.device
     q, dim = q_lo.shape
     n = leaf_perm.shape[0]
@@ -472,28 +485,31 @@ def _spatial_launch(what, node_lo, node_hi, rope, left_child, range_last,
     buf = torch.empty((q, capacity), dtype=torch.int32, device=dev)
     if q == 0:
         return counts, buf
-    fn = _build.function("bvh_traverse", "bvh_spatial_launch", _SPATIAL_ARGS)
+    fn = _build.function("bvh_traverse", "bvh_spatial_launch", _SPATIAL_ARGS,
+                         _SPATIAL_THREADS)
     with torch.cuda.device(dev):
         err = fn(*(a[k].data_ptr() for k in (
                      "node_lo", "node_hi", "rope", "left_child", "range_last",
                      "leaf_perm")), _ptr(records), _ptr(order),
                  *(a[k].data_ptr() for k in ("q_lo", "q_hi", "radius")),
                  _ptr(a.get("min_pos")), n, q, dim, capacity, int(fine_sqrt),
-                 counts.data_ptr(), buf.data_ptr(), _stream(dev))
+                 block_q, counts.data_ptr(), buf.data_ptr(), _stream(dev))
     _build.check("bvh_traverse", err, what)
     bvh_traverse_spatial.launches += 1
     return counts, buf
 
 
 def bvh_traverse_knn(node_lo, node_hi, rope, left_child, leaf_perm, queries,
-                     *, k: int, records=None, order=None):
+                     *, k: int, records=None, order=None,
+                     block_q: int = BLOCK_Q):
     """(dists, idxs) (Q, k) float32/int32, ascending, (inf, -1) padded,
     for Q query points. `records`: the tree's :func:`pack_nodes` records
     where the caller keeps them (``LBVH.records``); a 3-D call on the card
     makes them otherwise. `order`: a (Q,) permutation of the queries in
     which the kernel's threads take them (:func:`knn_order`), or None;
-    each row must appear once (``REPRO_SANITIZE`` checks it). Neither
-    changes a result."""
+    each row must appear once (``REPRO_SANITIZE`` checks it). `block_q`:
+    the kernel's threads a block, 1..MAX_BLOCK_Q (the twin ignores it).
+    None of the three changes a result."""
     what = "bvh_traverse_knn"
     if k < 1:
         raise ValueError(f"{what}: k must be >= 1, got {k}")
@@ -502,15 +518,17 @@ def bvh_traverse_knn(node_lo, node_hi, rope, left_child, leaf_perm, queries,
                                            left_child, leaf_perm, queries, k=k)
     else:
         dists, idxs = _knn_launch(what, node_lo, node_hi, rope, left_child,
-                                  leaf_perm, queries, k, records, order)
+                                  leaf_perm, queries, k, records, order,
+                                  block_q=block_q)
     sanitize.check_knn(dists, idxs, n=leaf_perm.shape[0], kernel=what)
     return dists, idxs
 
 
 def _knn_launch(what, node_lo, node_hi, rope, left_child, leaf_perm, queries,
-                k, records, order, labels=None):
-    """Launch the kNN kernel, or with `labels` = (range_first, range_last,
-    query_labels, leaf_labels) its exclusion instance."""
+                k, records, order, labels=None, block_q=BLOCK_Q):
+    """Launch the kNN kernel (`block_q` threads a block), or with
+    `labels` = (range_first, range_last, query_labels, leaf_labels) its
+    exclusion instance (BLOCK_Q threads a block)."""
     if k > KNN_MAX_K:
         raise ValueError(f"{what}: k={k} above the kernel's cap {KNN_MAX_K}")
     dev = queries.device
@@ -539,8 +557,11 @@ def _knn_launch(what, node_lo, node_hi, rope, left_child, leaf_perm, queries,
         return dists, idxs
     ptrs = [a[f].data_ptr() for f in _TREE] + [_ptr(records), _ptr(order),
                                                a["queries"].data_ptr()]
+    ints = [n, q, dim, k]
     if labels is None:
-        fn = _build.function("bvh_traverse", "bvh_knn_launch", _KNN_ARGS)
+        fn = _build.function("bvh_traverse", "bvh_knn_launch", _KNN_ARGS,
+                             _KNN_THREADS)
+        ints.append(block_q)
     else:
         fn = _build.function("bvh_traverse", "bvh_knn_exclude_launch",
                              _KNN_EXCLUDE_ARGS)
@@ -548,7 +569,7 @@ def _knn_launch(what, node_lo, node_hi, rope, left_child, leaf_perm, queries,
                             a["range_first"], a["range_last"])
         ptrs += [nodes.data_ptr(), a["query_labels"].data_ptr()]
     with torch.cuda.device(dev):
-        err = fn(*ptrs, n, q, dim, k, dists.data_ptr(), idxs.data_ptr(),
+        err = fn(*ptrs, *ints, dists.data_ptr(), idxs.data_ptr(),
                  _stream(dev))
     _build.check("bvh_traverse", err, what)
     if labels is None:

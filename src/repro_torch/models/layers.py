@@ -123,8 +123,15 @@ def shard(x, *names):
     reference's partitioner pads it)."""
     if _MESH is None or not isinstance(x, DTensor):
         return x
+    from torch.distributed.tensor import Replicate
     from ..launch.sharding import named
-    want = named(_MESH, logical_spec(*names))
+    # a dim of size 1 over mesh dims of size 1 is held whole there (the
+    # same placement), since DTensor's view rules refuse to flatten a
+    # sharded dim of size 1 (a microbatch of one row at one rank)
+    want = tuple(
+        Replicate() if q.is_shard() and x.shape[q.dim] == 1
+        and _MESH.size(i) == 1 else q
+        for i, q in enumerate(named(_MESH, logical_spec(*names))))
     # an activation's, not a weight's: a weight's gradient keeps its own
     # partial sums, which the optimizer reduces where it takes them
     activation = x.grad_fn is not None

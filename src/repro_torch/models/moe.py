@@ -96,12 +96,16 @@ def _capacity(cfg: ModelConfig, t: int) -> int:
                1)
 
 
-def _slots(cfg: ModelConfig, idx, cap):
+def _slots(cfg: ModelConfig, idx, cap, before=None):
     """(onehot (T, k, E) int32, pos (T, E): the token's slot in each
-    expert, keep (T, E): routed there and within capacity)."""
+    expert, keep (T, E): routed there and within capacity). `before`: the
+    (E,) count of tokens routed to each expert in the rows before these
+    (the earlier data ranks'), which offsets the slots."""
     onehot = F.one_hot(idx, cfg.n_experts).int()
     sel = onehot.sum(1)
     pos = torch.cumsum(sel, dim=0) - 1
+    if before is not None:
+        pos = pos + before
     return onehot, pos, (pos < cap) & (sel > 0)
 
 
@@ -138,16 +142,26 @@ def _moe_dense(cfg: ModelConfig, ex, x2d, w, idx):
     return torch.einsum("tec,ecd->td", combine, ye)
 
 
-def _moe_gather(cfg: ModelConfig, ex, x2d, w, idx):
+def _moe_gather(cfg: ModelConfig, ex, x2d, w, idx, before=None,
+                t_all=None):
     """Capacity dispatch through the inverse slot map (E, C) -> token:
     no (T, E, C) one-hot tensor. Slots are counted over all T tokens;
     only the experts `ex` holds run, and a token's other experts add
-    zeros (on a mesh the other ranks add theirs)."""
+    zeros (on a mesh the other ranks add theirs).
+
+    On a mesh the rows are one data rank's: `before` (E,) counts each
+    expert's tokens in the earlier ranks' rows and `t_all` is the global
+    token count, so a token's slot and keep bit are the global ones. The
+    rank's tokens take at most min(capacity, T) slots of an expert, so
+    its buffer has that many, from its first global slot on."""
     t, d = x2d.shape
     e = cfg.n_experts
     el = ex.wg.shape[0]
-    cap = _capacity(cfg, t)
-    _, pos, keep = _slots(cfg, idx, cap)
+    cap = _capacity(cfg, t if t_all is None else t_all)
+    _, pos, keep = _slots(cfg, idx, cap, before)
+    if before is not None:
+        pos = pos - before     # the slot in this rank's buffer
+        cap = min(cap, t)
     tok_ids = torch.arange(t, dtype=torch.int64,
                            device=x2d.device)[:, None].expand(t, e)
     flat_slot = (torch.arange(e, device=x2d.device) * cap)[None, :] \
@@ -207,14 +221,23 @@ def _moe_ragged(cfg: ModelConfig, ex, x2d, w, idx):
 
 def _on_local_experts(cfg: ModelConfig, p: MoE, x2d, w, idx, dispatch):
     """`dispatch` (gather or ragged) under a mesh, as ``local_map``: its
-    index, scatter and ``index_add_`` ops have no DTensor rule. Slots are
-    counted over all tokens, as the reference counts them, so the tokens,
-    their weights and experts are gathered over the data axes (each rank
-    then runs every token through the experts it holds); each rank's
-    output, and its gradient of x and w, is its experts' (or its ffn
-    slice's) share: a partial sum over the mesh dims the expert weights
-    shard."""
-    from torch.distributed.tensor import Partial, Replicate
+    index, scatter and ``index_add_`` ops have no DTensor rule.
+
+    Each data rank dispatches its own tokens: the tokens, their weights
+    and experts stay sharded over the data axes (the mesh dims that split
+    the rows and not the expert weights). A token's expert outputs depend
+    on it alone; its slot and keep bit, counted over all tokens in the
+    order of the global rows as the reference counts them, need only each
+    rank's per-expert counts, gathered over those axes (E integers a
+    rank): their exclusive prefix in row order offsets the rank's slots.
+    The ragged dispatch is dropless and needs no count. A mesh dim that
+    shards the expert weights (expert-parallel "model", or "data" under
+    ``expert_2d``) sees every token of its group, and each rank's output
+    and its gradient of x and w is its experts' (or its ffn slice's)
+    share: a partial sum over those dims; its expert weights' gradient,
+    from its own tokens, is a partial sum over the row dims.
+    ``_on_local_experts.rows`` counts the rows the dispatches saw."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = sharding_mesh()
 
@@ -228,19 +251,46 @@ def _on_local_experts(cfg: ModelConfig, p: MoE, x2d, w, idx, dispatch):
     e0 = local_offset(ws[0], mesh, 0)
     sharded = [any(t.placements[i].is_shard() for t in ws)
                for i in range(mesh.ndim)]
-    whole = [Replicate()] * mesh.ndim
+    rows = [not sharded[i] and x2d.placements[i].is_shard(0)
+            and mesh.mesh_dim_names[i] in ("pod", "data")
+            for i in range(mesh.ndim)]
+    tok = [Shard(0) if r else Replicate() for r in rows]
     part = [Partial() if s else Replicate() for s in sharded]
-    x2d, w, idx = (t.redistribute(mesh, whole) for t in (x2d, w, idx))
+    out = [Shard(0) if r else q for r, q in zip(rows, part)]
+    x2d, w, idx = (t.redistribute(mesh, tok) for t in (x2d, w, idx))
+    t_all = x2d.shape[0]
+    row_dims = [i for i, r in enumerate(rows) if r]
+    coord = mesh.get_coordinate()
 
     def local(xl, wl, il, wg, wu, wd):
-        return dispatch(cfg, _Experts(wg, wu, wd, e0), xl, wl, il)
+        _on_local_experts.rows += xl.shape[0]
+        ex = _Experts(wg, wu, wd, e0)
+        if dispatch is not _moe_gather or not row_dims:
+            return dispatch(cfg, ex, xl, wl, il)
+        counts = F.one_hot(il, cfg.n_experts).sum((0, 1)).to(torch.int64)
+        # every rank's counts, one row a rank in the global rows' order
+        # (DTensor shards dim 0 over the row dims in mesh-dim order)
+        counts = DTensor.from_local(counts[None], mesh, tok,
+                                    run_check=False).full_tensor()
+        flat = 0
+        for i in row_dims:
+            flat = flat * mesh.size(i) + coord[i]
+        return _moe_gather(cfg, ex, xl, wl, il, before=counts[:flat].sum(0),
+                           t_all=t_all)
 
     pls = tuple(t.placements for t in ws)
+    # a weight's gradient from a rank's own tokens: a partial sum over the
+    # row dims
+    wgrad = tuple(tuple(Partial() if r else q for r, q in zip(rows, pl))
+                  for pl in pls)
     return local_map(
-        local, out_placements=part,
-        in_placements=(whole, whole, whole) + pls,
-        in_grad_placements=(part, part, whole) + pls,
+        local, out_placements=out,
+        in_placements=(tok, tok, tok) + pls,
+        in_grad_placements=(out, out, tok) + wgrad,
         device_mesh=mesh)(x2d, w, idx, *ws)
+
+
+_on_local_experts.rows = 0
 
 
 def moe_forward(cfg: ModelConfig, p: MoE, x):

@@ -83,9 +83,12 @@ class IndexStore:
 
     def __init__(self, engine: E.QueryEngine | None = None, *,
                  rebuild_threshold: float = 1.5, keep_versions: int = 3,
-                 device=None):
+                 build_engine: str | None = None, device=None):
         self.device = resolve_device(device)
         self.engine = engine if engine is not None else E.QueryEngine()
+        # "pallas" | "ref" | "auto"/None: every (re)build's
+        # ExecutionPolicy.build_engine (REPRO_ENGINE_FORCE still wins)
+        self.build_engine = build_engine
         self.rebuild_threshold = float(rebuild_threshold)
         self.keep_versions = int(keep_versions)
         # a condition over a plain lock: pin_published waits on it for a
@@ -207,7 +210,8 @@ class IndexStore:
     def _publish(self, name, values, getter, *, action) -> IndexVersion:
         with TEL.span("store.build", index=name, action=action) as sp:
             bvh = BVH(values, getter, policy=ExecutionPolicy(
-                engine=self.engine, device=self.device))
+                engine=self.engine, device=self.device,
+                build_engine=self.build_engine))
             if bvh.tree is not None:
                 sp.fence(bvh.tree)
                 sah = float(lbvh.sah_cost(bvh.tree))

@@ -41,8 +41,10 @@ def make_train_step(cfg: ModelConfig, *, lr=3e-4, warmup=100,
     n_micro > 1: the batch splits along its first axis into n_micro
     microbatches run one after the other, their gradients summed in
     float32 for float32 parameters and in `accum_dtype` for bfloat16 ones
-    (the reference's rule), then divided by n_micro; metrics then carry
-    only "ce" of the loss's terms, as the reference's.
+    (the reference's rule), then divided by their count; metrics then
+    carry only "ce" of the loss's terms, as the reference's. A sharded
+    batch whose data ranks hold r < n_micro rows each runs r microbatches
+    of one row a rank (:func:`_n_micro`).
     grad_compression with a `pod_group` (a ``torch.distributed`` group,
     the reference's ``shard_map`` axis): each rank quantizes gradient +
     error to int8 (``error_feedback_compress``), the decompressed
@@ -68,8 +70,9 @@ def make_train_step(cfg: ModelConfig, *, lr=3e-4, warmup=100,
             n: torch.zeros(p.shape, device=p.device, dtype=dtype[n])
             for n, p in params.items()}
         lsum = None
-        for i in range(n_micro):
-            mb = {k: _micro(v, n_micro, i) for k, v in batch.items()}
+        m = _n_micro(batch, n_micro)
+        for i in range(m):
+            mb = {k: _micro(v, m, i) for k, v in batch.items()}
             loss, _ = loss_fn(cfg, model, mb)
             g = _grads(loss, params)
             if sharded:
@@ -82,10 +85,10 @@ def make_train_step(cfg: ModelConfig, *, lr=3e-4, warmup=100,
                                     [g[n].to(acc[n].dtype) for n in names])
             lsum = loss.detach() if lsum is None else lsum + loss.detach()
         if sharded:
-            acc = {n: a / n_micro for n, a in acc.items()}
+            acc = {n: a / m for n, a in acc.items()}
         else:
-            torch._foreach_div_([acc[n] for n in names], n_micro)
-        return lsum / n_micro, {"ce": lsum / n_micro}, acc
+            torch._foreach_div_([acc[n] for n in names], m)
+        return lsum / m, {"ce": lsum / m}, acc
 
     def compressed(grads, opt_state):
         import torch.distributed as dist
@@ -116,6 +119,17 @@ def make_train_step(cfg: ModelConfig, *, lr=3e-4, warmup=100,
         return metrics
 
     return train_step
+
+
+def _n_micro(batch: dict, n: int) -> int:
+    """The microbatches a step runs: `n`, or for a DTensor batch whose
+    data ranks hold r < n rows each, r (one row a rank each). Equal
+    microbatches keep the mean of their mean losses the global mean, so
+    the step's gradient is the reference's, which splits the global rows
+    into `n`."""
+    rows = {v.to_local().shape[0] for v in batch.values()
+            if isinstance(v, DTensor)}
+    return min(n, min(rows)) if rows and min(rows) > 0 else n
 
 
 def _micro(v, n: int, i: int):

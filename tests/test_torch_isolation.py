@@ -513,7 +513,7 @@ def test_new_modules_are_scanned_for_imports():
 
 LAUNCH_MODULES = tuple(importlib.import_module(f"repro_torch.launch.{m}")
                        for m in ("mesh", "sharding", "specs", "opanalysis",
-                                 "dryrun", "train"))
+                                 "dryrun", "train", "autotune"))
 
 
 def test_launch_modules_run_with_jax_blocked():
@@ -1052,7 +1052,7 @@ def test_ray_callback_entry_refuses_3d_rays_without_records(cuda_device):
                   values.a.data_ptr(), values.b.data_ptr(),
                   values.c.data_ptr(), None, None, mp.data_ptr(), n, q, 3, 4,
                   3, 0,
-                  0, 0, out.data_ptr(), None, None, None,
+                  0, 0, TC.BLOCK_Q, out.data_ptr(), None, None, None,
                   torch.cuda.current_stream(cuda_device).cuda_stream)
 
     assert launch(None, None) != 0
@@ -1756,3 +1756,129 @@ def test_train_step_on_the_card_adds_no_host_sync(cuda_device):
                          w.filename)]
     assert own == []
     assert int(opt["step"]) == 2
+
+
+def test_route_tables_work_with_jax_blocked():
+    """The route table, its fingerprint gate and the tuner's --validate
+    with JAX and the reference blocked: the reference's ROUTE_TABLE.json
+    validates and is ignored, a table of this host routes a batch."""
+    code = (
+        "import sys, os, tempfile, warnings\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import torch\n"
+        "from repro_torch import BVH, ExecutionPolicy\n"
+        "from repro_torch.core import geometry as G, predicates as P\n"
+        "from repro_torch.core import route_table as RT\n"
+        "from repro_torch.launch import autotune\n"
+        f"ref = os.path.join({REPO!r}, 'ROUTE_TABLE.json')\n"
+        "assert autotune.main(['--validate', ref]) == 0\n"
+        "os.environ['REPRO_TORCH_ROUTE_TABLE'] = ref\n"
+        "with warnings.catch_warnings(record=True) as w:\n"
+        "    warnings.simplefilter('always')\n"
+        "    assert RT.default_route_table() is None\n"
+        "assert any(issubclass(x.category, RuntimeWarning) for x in w)\n"
+        "path = os.path.join(tempfile.mkdtemp(), 't.json')\n"
+        "RT.RouteTable(rules={'default': RT.RouteRule(bf_max_work=0)},\n"
+        "              fingerprint=RT.hardware_fingerprint()).save(path)\n"
+        "os.environ['REPRO_TORCH_ROUTE_TABLE'] = path\n"
+        "pts = G.Points(torch.rand(100, 3))\n"
+        "idx = BVH(pts, policy=ExecutionPolicy(device='cpu'))\n"
+        "eng = idx.policy.resolve_engine()\n"
+        "assert eng.route_spatial(idx, P.intersects(pts)) == 'kernel'\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    env.pop("REPRO_ENGINE_FORCE", None)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+# ---------------------------------------------------------------------------
+# slice 21: block_q and the build engines on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [3, 2])
+def test_block_q_changes_no_result_on_the_card(cuda_device, dim):
+    """The spatial, kNN and callback walks at 8, 128, 256, 512 threads a
+    block (the instances bounded at 256 and at 512; 3-D node records and
+    the flat arrays) give the same bits as the twins; a size past
+    MAX_BLOCK_Q is refused by the entry's guard before any launch."""
+    g = torch.Generator().manual_seed(dim)
+    x = torch.rand((3000, dim), generator=g)
+    q = torch.rand((700, dim), generator=g)
+    r = torch.full((700,), 0.1)
+    tree = TL.build(TG.Boxes(x, x))
+    gt = TL.build(TG.Boxes(x.to(cuda_device), x.to(cuda_device)))
+    gq, gr = q.to(cuda_device), r.to(cuda_device)
+    sp = ("node_lo", "node_hi", "rope", "left_child", "range_last",
+          "leaf_perm")
+    kn = ("node_lo", "node_hi", "rope", "left_child", "leaf_perm")
+    want_s = TT.bvh_traverse_spatial(*(getattr(tree, f) for f in sp), q, q,
+                                     r, capacity=8, fine_sqrt=True)
+    want_k = TT.bvh_traverse_knn(*(getattr(tree, f) for f in kn), q, k=10)
+    cb, s0 = CB.counting()
+    values = TG.Points(x)
+    preds = TP.intersects(TG.Spheres(q, r))
+    want_c = TC.bvh_traverse_callback(*(getattr(tree, f) for f in sp),
+                                      values, preds, cb,
+                                      _bcast_state(s0, 700, "cpu"))
+    gpreds = TP.intersects(TG.Spheres(gq, gr))
+    for bq in (8, 128, 256, 512):
+        got = TT.bvh_traverse_spatial(*(getattr(gt, f) for f in sp), gq, gq,
+                                      gr, capacity=8, fine_sqrt=True,
+                                      block_q=bq)
+        assert all(torch.equal(a, b.cpu()) for a, b in zip(want_s, got)), bq
+        got = TT.bvh_traverse_knn(*(getattr(gt, f) for f in kn), gq, k=10,
+                                  block_q=bq)
+        assert all(torch.equal(a, b.cpu()) for a, b in zip(want_k, got)), bq
+        got = TC.bvh_traverse_callback(
+            *(getattr(gt, f) for f in sp), values.to(cuda_device), gpreds,
+            cb, _bcast_state(s0, 700, cuda_device), block_q=bq)
+        assert torch.equal(want_c, got.cpu()), bq
+    before = (TT.bvh_traverse_spatial.launches, TT.bvh_traverse_knn.launches,
+              TC.bvh_traverse_callback.launches)
+    with pytest.raises(OverflowError, match="not launched"):
+        TT.bvh_traverse_spatial(*(getattr(gt, f) for f in sp), gq, gq, gr,
+                                capacity=8, block_q=1024)
+    with pytest.raises(OverflowError, match="not launched"):
+        TT.bvh_traverse_knn(*(getattr(gt, f) for f in kn), gq, k=10,
+                            block_q=1024)
+    with pytest.raises(OverflowError, match="not launched"):
+        TC.bvh_traverse_callback(
+            *(getattr(gt, f) for f in sp), values.to(cuda_device), gpreds,
+            cb, _bcast_state(s0, 700, cuda_device), block_q=0)
+    assert before == (TT.bvh_traverse_spatial.launches,
+                      TT.bvh_traverse_knn.launches,
+                      TC.bvh_traverse_callback.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refit", ["rmq", "iterative"])
+def test_build_engines_agree_on_the_card(cuda_device, refit):
+    """lbvh.build with engine "pallas" (the kernels) and "ref" (the plain
+    pipeline, run on the card) give every field and the records bit for
+    bit, NaN by place; Karras launches for "pallas" only."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.rand((5000, 3), generator=g)
+    x[::7] = x[0].clone()
+    x[100, 1] = float("nan")
+    gx = x.to(cuda_device)
+    TK.karras_ranges.launches = 0
+    a = TL.build(TG.Boxes(gx, gx), engine="pallas", refit=refit)
+    assert TK.karras_ranges.launches == 1
+    b = TL.build(TG.Boxes(gx, gx), engine="ref", refit=refit)
+    assert TK.karras_ranges.launches == 1
+    for f in TL.FIELDS:
+        u, v = getattr(a, f).cpu(), getattr(b, f).cpu()
+        if u.dtype.is_floating_point:
+            assert torch.equal(torch.isnan(u), torch.isnan(v)), f
+            u, v = u.nan_to_num(), v.nan_to_num()
+        assert torch.equal(u.view(torch.int32) if u.is_floating_point() else u,
+                           v.view(torch.int32) if v.is_floating_point()
+                           else v), f
+    ra, rb = a.records.cpu(), b.records.cpu()
+    cols = [3, 7]
+    assert torch.equal(ra[:, cols], rb[:, cols])

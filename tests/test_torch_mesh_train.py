@@ -108,6 +108,11 @@ resumed = recorded(ARGS + ["--steps", "4", "--model-parallel", "2",
 micro = recorded(ARGS + ["--steps", "2", "--n-micro", "2",
                          "--model-parallel", "2", "--device", "cpu"],
                  init_params=tree_of(BASE + "/init.npz"))
+# 4 microbatches over the 2 rows a data rank holds: 2 of one row a rank
+micro4 = recorded(ARGS + ["--steps", "2", "--n-micro", "4",
+                          "--model-parallel", "2", "--device", "cpu",
+                          "--ckpt-dir", BASE + "/micro4"],
+                  init_params=tree_of(BASE + "/init.npz"))
 
 errs = {}
 mesh = M.make_host_mesh(2, "cpu")
@@ -167,7 +172,7 @@ for j, over in enumerate(%(kv)r.values()):
 if RANK == 0:
     with open(OUT + "/record.json", "w") as f:
         json.dump({"train": train, "resumed": resumed, "micro": micro,
-                   "fwd": errs}, f)
+                   "micro4": micro4, "fwd": errs}, f)
 save(rank_last=np.array(train[-1]))
 """
 
@@ -317,6 +322,81 @@ def test_sharded_microbatches_match_unsharded(runs):
     whole = _port_lines(["--steps", "2", "--n-micro", "2"], runs["init"])
     np.testing.assert_allclose(_losses(runs["port"]["micro"], 2),
                                _losses(whole, 2), rtol=1e-5)
+
+
+def test_sharded_microbatches_past_a_ranks_rows_match_unsharded(runs,
+                                                               tmp_path):
+    """--n-micro 4 on the mesh, whose data ranks hold 2 rows each, runs 2
+    microbatches of one row a rank (the reference splits the 4 global rows
+    into 4): the losses, gradient norms and the state after 2 steps are
+    the unsharded --n-micro 4 run's, losses and norms within 1e-5
+    relative, parameters and moments within 1e-4 of a leaf's max."""
+    whole = _port_lines(["--steps", "2", "--n-micro", "4", "--ckpt-dir",
+                         str(tmp_path)], runs["init"])
+    got = runs["port"]["micro4"]
+    np.testing.assert_allclose(_losses(got, 2), _losses(whole, 2), rtol=1e-5)
+    np.testing.assert_allclose(got[1:6:3], whole[1:6:3], rtol=1e-5)
+    _, mine, _ = load_checkpoint(os.path.join(runs["base"], "micro4",
+                                              "step_000002"))
+    _, plain, _ = load_checkpoint(os.path.join(str(tmp_path), "step_000002"))
+    assert_trees_close(mine["params"], plain["params"], 1e-4, "params")
+    for key in ("m", "v"):
+        assert_trees_close(mine["opt"][key], plain["opt"][key], 1e-4, key)
+
+
+ONE_RANK = """
+from repro_torch.configs import get_config
+from repro_torch.launch import sharding as SH
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.layers import set_sharding_rules
+from repro_torch.models.lm import LM
+from repro_torch.optim import adamw_init
+from repro_torch.train import make_train_step
+
+cfg = get_config("tinyllama-1.1b", smoke=True)
+tok = torch.randint(0, cfg.vocab, (2, 16),
+                    generator=torch.Generator().manual_seed(7))
+batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+plain = LM.from_config(cfg, 0, "cpu")
+popt = adamw_init(plain)
+pstep = make_train_step(cfg, n_micro=2)
+mesh = make_host_mesh(1, "cpu")
+model = LM.from_config(cfg, 0, "cpu")
+set_sharding_rules(SH.logical_rules(mesh), mesh)
+pspecs = SH.param_specs(model, mesh)
+SH.distribute_model(model, mesh, pspecs)
+opt = adamw_init(model, mesh=mesh, specs=SH.zero1_specs(pspecs, model, mesh))
+step = make_train_step(cfg, n_micro=4)    # 4 > the 2 rows the rank holds
+bs = SH.batch_spec(mesh, 2)
+gaps = {"loss": []}
+for _ in range(2):
+    want = float(pstep(plain, popt, batch)["loss"])
+    got = float(step(model, opt, {k: SH.to_dtensor(v, mesh, bs)
+                                  for k, v in batch.items()})["loss"]
+                .full_tensor())
+    gaps["loss"].append(abs(got - want))
+set_sharding_rules(None)
+pp = dict(plain.named_parameters())
+gaps["params"] = max(float((p.to_local() - pp[n]).abs().max())
+                     for n, p in model.named_parameters())
+gaps["moments"] = max(float((opt[key][n].to_local() - popt[key][n])
+                            .abs().max())
+                      for key in ("m", "v") for n in pp)
+save(**{k: np.asarray(v) for k, v in gaps.items()})
+"""
+
+
+def test_microbatches_past_a_ranks_rows_on_one_rank():
+    """A (1, 1) mesh of one gloo rank holding 2 rows with --n-micro 4: two
+    microbatches of one row, the unsharded n_micro = 2 step's split. The
+    losses, parameters and AdamW moments after 2 steps equal the
+    unsharded step's exactly (the smoke's MESH_A_TOL, 0)."""
+    import tempfile
+    out = tempfile.mkdtemp(prefix="one-rank-")
+    run_world(ONE_RANK, 1, timeout=300, out=out)
+    got = world_results(out, 1)[0]
+    assert got["loss"].tolist() == [0.0, 0.0]
+    assert float(got["params"]) == 0.0 and float(got["moments"]) == 0.0
 
 
 def test_sharded_checkpoint_resumes_unsharded(runs, capsys):

@@ -38,7 +38,6 @@ import repro.service as RS
 from repro.core import geometry as RG
 from repro_torch import service as TS
 from repro_torch.core import callbacks as CB
-from repro_torch.core import engine as TE
 from repro_torch.core import geometry as TG
 from repro_torch.core import predicates as TP
 from repro_torch.core.access import default_indexable_getter
@@ -436,9 +435,8 @@ def test_exec_cache_keyed_on_indexable_getter():
     assert eng.stats.cache_misses == m1 + 1     # distinct entry
 
 
-def test_exec_cache_lru_eviction_bounded(monkeypatch):
-    monkeypatch.setattr(TE, "MAX_EXECUTABLES", 1)
-    eng = QueryEngine(EngineConfig(force="loop"))
+def test_exec_cache_lru_eviction_bounded():
+    eng = QueryEngine(EngineConfig(force="loop", max_executables=1))
     srv = TS.QueryServer(engine=eng, config=TS.ServiceConfig(capacity=8),
                          device=CPU)
     srv.create_index("default", TG.Points(torch.from_numpy(_pts(300, 40))))
